@@ -1,0 +1,250 @@
+"""Batched stabilization of whole clips and batches of streams.
+
+Port of ``video_stabilizer_tpu.models.batch`` (default ``pair_vmap=False``
+path). The JAX package scans ``_align_pair_step`` over the frame pairs; with
+``phase_correlate=False`` no value flows from one pair step to the next
+except the keyframe data (``t0`` is the identity and the pair index only
+masks), so here every alignment of a clip or chunk runs as ONE batch: per
+level, kernel B is launched once for all streams x frames. Frame ``2k`` (the
+non-keyframe) aligns against the previous pair's keyframe and reports the
+inverse; frame ``2k+1`` becomes the keyframe and aligns against frame
+``2k`` directly (alignment.cpp:690-693).
+
+Streams ride a leading axis S everywhere.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from video_stabilizer_tpu_torch import transforms as T
+from video_stabilizer_tpu_torch.config import StabilizerParams
+from video_stabilizer_tpu_torch.device import resolve_device
+from video_stabilizer_tpu_torch.models.aligner import (
+    LevelKeyData, _compute_keyframe, align_all_levels, level_specs)
+from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
+from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
+from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
+from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+from video_stabilizer_tpu_torch.utils.spans import span
+
+
+class PairCarry(NamedTuple):
+    """Aligner carry of S streams: the last keyframe's pyramid and its
+    precompute (K = S on every LevelKeyData field)."""
+    key_pyr: tuple   # per level (S, h, w) u8
+    key: tuple       # per level LevelKeyData
+
+
+def init_pair_carry(specs, streams: int, device) -> PairCarry:
+    """The zero pre-stream aligner carry (no keyframe seen yet)."""
+    zero_pyr = tuple(torch.zeros((streams, s.height, s.width),
+                                 dtype=torch.uint8, device=device)
+                     for s in specs)
+    return PairCarry(key_pyr=zero_pyr, key=_compute_keyframe(zero_pyr, specs))
+
+
+def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen):
+    """Align every frame of an even-length (S, T, H, W) u8 gray batch.
+
+    ``pairs_seen`` (S,) is the global index of each stream's first pair
+    (0 only at stream start: it masks the first frame's alignment).
+    Returns (new carry, meas (S, T, 4), success (S, T)).
+    """
+    s_n, t_n, h, w = gray.shape
+    if t_n % 2:
+        raise ValueError(f"frame count {t_n} must be even")
+    p_n = t_n // 2
+    dev = gray.device
+    with span("pyramid"):
+        levels = build_pyramid(gray.reshape(s_n * t_n, h, w), len(specs))
+    levels = [lv.reshape((s_n, t_n) + lv.shape[1:]) for lv in levels]
+    templates = [lv[:, 0::2].reshape((s_n * p_n,) + lv.shape[2:])
+                 for lv in levels]
+    pyr_b = [lv[:, 1::2] for lv in levels]
+    with span("keyframe"):
+        key_b = _compute_keyframe(
+            [lv.reshape((s_n * p_n,) + lv.shape[2:]) for lv in pyr_b], specs)
+        # Keyframes: the S carried ones, then the S*P new ones
+        # (stream-major).
+        key_all = tuple(
+            LevelKeyData(*(torch.cat([c, n], dim=0) for c, n in zip(ck, nk)))
+            for ck, nk in zip(carry.key, key_b))
+
+    s_idx = torch.arange(s_n, device=dev)[:, None]
+    p_idx = torch.arange(p_n, device=dev)[None, :]
+    key_new = s_n + s_idx * p_n + p_idx                       # (S, P)
+    key_prev = torch.where(p_idx == 0, s_idx, key_new - 1)
+    key_index = torch.stack([key_prev, key_new], dim=-1).reshape(-1)
+    template_index = (s_idx * p_n + p_idx)[..., None].expand(
+        s_n, p_n, 2).reshape(-1)
+    t0 = T.identity((s_n * t_n,), device=dev)
+    t, failed = align_all_levels(templates, template_index, key_all,
+                                 key_index, specs, params, t0)
+    t = t.reshape(s_n, p_n, 2, 4)
+    failed = failed.reshape(s_n, p_n, 2)
+    t_a, t_b = t[:, :, 0], t[:, :, 1]
+    failed_a, failed_b = failed[:, :, 0], failed[:, :, 1]
+    t_a = torch.where(failed_a[..., None], t_a, T.inverse(t_a))
+    pair_idx = pairs_seen.to(dev)[:, None] + p_idx
+    ok_a = (pair_idx > 0) & ~failed_a
+    t_a = torch.where((pair_idx > 0)[..., None], t_a, torch.zeros_like(t_a))
+    ok_b = ~failed_b
+    meas = torch.stack([t_a, t_b], dim=2).reshape(s_n, t_n, 4)
+    ok = torch.stack([ok_a, ok_b], dim=2).reshape(s_n, t_n)
+
+    last = tuple(
+        LevelKeyData(*(f.reshape((s_n, p_n) + f.shape[1:])[:, -1].contiguous()
+                       for f in kd))
+        for kd in key_b)
+    new_carry = PairCarry(
+        key_pyr=tuple(lv[:, -1].contiguous() for lv in pyr_b), key=last)
+    return new_carry, meas, ok
+
+
+def fold_jitter(accum, meas, smoothed, params: StabilizerParams, width: int,
+                height: int):
+    """One accumulator fold (stabilizer.cpp:48-87): jitter = meas o
+    smoothed^-1 folded into ``accum`` with displacement-based decay."""
+    if params.enable_smoother:
+        jitter = T.compose(meas, T.inverse(smoothed))
+    else:
+        jitter = meas
+    new = T.compose(accum, jitter)
+    disp = T.max_corner_displacement(new, width, height)[..., None]
+    f = torch.clamp((disp - params.min_disp)
+                    / (params.max_disp - params.min_disp), 0.0, 1.0)
+    decay = torch.where(
+        disp > params.max_disp, torch.full_like(disp, params.max_decay),
+        torch.where(disp > params.min_disp,
+                    params.min_decay * (1.0 - f) + params.max_decay * f,
+                    torch.full_like(disp, params.min_decay)))
+    return new * decay
+
+
+def smooth_trajectory(meas, params: StabilizerParams):
+    """Sliding-window TV-L1 smooth of (S, T, 4) measurements
+    (smoother.cpp:91-113): output k smooths [max(0, k - lag), k + memory]
+    and takes element k. Returns (S, T - memory, 4)."""
+    s_n, t_total, _ = meas.shape
+    lag, memory = params.lag, params.smoother_memory
+    window = lag + memory + 1
+    n_out = t_total - memory
+    if n_out <= 0:
+        return meas.new_zeros((s_n, 0, 4))
+    dev = meas.device
+    ks = torch.arange(n_out, device=dev)
+    starts = torch.clamp(ks - lag, min=0)
+    valid = ks + memory - starts + 1
+    gather = torch.clamp(starts[:, None] + torch.arange(window, device=dev),
+                         max=t_total - 1)
+    wins = meas[:, gather].transpose(-1, -2)             # (S, n_out, 4, win)
+    sm = tvl1_smooth(wins, params.lambda_, valid_len=valid[None, :, None])
+    middle = (ks - starts)[None, :, None, None].expand(s_n, n_out, 4, 1)
+    return torch.gather(sm, -1, middle)[..., 0]
+
+
+def accumulate_corrections(meas, success, smoothed, params: StabilizerParams,
+                           width: int, height: int):
+    """The accumulator scan (stabilizer.cpp:32-88) in the streaming event
+    order: a failure at step i resets the accumulator; from i >= lag,
+    measurement i - lag folds with smoothed[i - memory]. Returns the
+    (S, T - lag, 4) correction of each output frame."""
+    s_n, t_total, _ = meas.shape
+    lag = params.lag
+    offset = lag - params.smoother_memory
+    accum = meas.new_zeros((s_n, 4))
+    accums = []
+    for i in range(t_total):
+        accum = torch.where(success[:, i, None], accum,
+                            torch.zeros_like(accum))
+        m = i - lag
+        if m >= 0:
+            sm = smoothed[:, min(m + offset, smoothed.shape[1] - 1)] \
+                if params.enable_smoother else None
+            accum = fold_jitter(accum, meas[:, m], sm, params, width, height)
+            accums.append(accum)
+    return torch.stack(accums, dim=1)
+
+
+def warp_delayed(delayed, accums, params: StabilizerParams, width: int,
+                 height: int):
+    """Warp + crop a batch of delayed frames by their accumulated
+    corrections in ONE launch of kernel A. ``delayed``: (..., H, W[, C]) u8,
+    ``accums``: (..., 4)."""
+    t_ul = T.center_to_ul(accums.to(torch.float32), width, height,
+                          minus_one=True)
+    squeeze = delayed.shape[-1] != 3 and delayed.dim() == accums.dim() + 1
+    if squeeze:
+        delayed = delayed[..., None]
+    batch_shape = delayed.shape[:-3]
+    out = warp_frames(delayed.reshape((-1,) + delayed.shape[-3:]),
+                      t_ul.reshape(-1, 4).contiguous(), params.crop_pixels)
+    out = out.reshape(batch_shape + out.shape[1:])
+    return out[..., 0] if squeeze else out
+
+
+def stabilize_clip_core(frames, params: StabilizerParams, width: int,
+                        height: int):
+    """Align, smooth and accumulate an (S, T, H, W[, 3]) u8 batch: returns
+    (delayed (S, T - lag, ...), accums (S, T - lag, 4), meas (S, T, 4),
+    success (S, T))."""
+    t_in = frames.shape[1]
+    if t_in <= params.lag:
+        raise ValueError(
+            f"clip length {t_in} must exceed lag={params.lag} to produce "
+            "any output (the stabilizer delays by `lag` frames)")
+    gray = bgr_to_gray_batched(frames)
+    if t_in % 2:
+        gray = torch.cat([gray, gray[:, -1:]], dim=1)
+    specs = level_specs(width, height, params.aligner)
+    carry = init_pair_carry(specs, frames.shape[0], frames.device)
+    pairs_seen = torch.zeros(frames.shape[0], dtype=torch.int32,
+                             device=frames.device)
+    _, meas, ok = align_pairs(gray, specs, params.aligner, carry, pairs_seen)
+    meas, ok = meas[:, :t_in], ok[:, :t_in]
+    smoothed = smooth_trajectory(meas, params) if params.enable_smoother \
+        else meas
+    accums = accumulate_corrections(meas, ok, smoothed, params, width, height)
+    return frames[:, :t_in - params.lag], accums, meas, ok
+
+
+def align_clip(frames, params=None, device=None):
+    """(T, H, W) or (T, H, W, 3) u8 clip -> (meas (T, 4), success (T,)),
+    per-frame motion from the previous frame; the first frame is reported
+    unsuccessful like the streaming path."""
+    from video_stabilizer_tpu_torch.config import AlignerParams
+    params = AlignerParams() if params is None else params
+    dev = resolve_device(device)
+    frames = torch.as_tensor(frames).to(dev)
+    gray = bgr_to_gray_batched(frames)[None]
+    t_in, h, w = gray.shape[1:]
+    if t_in % 2:
+        gray = torch.cat([gray, gray[:, -1:]], dim=1)
+    specs = level_specs(w, h, params)
+    carry = init_pair_carry(specs, 1, dev)
+    pairs_seen = torch.zeros(1, dtype=torch.int32, device=dev)
+    _, meas, ok = align_pairs(gray, specs, params, carry, pairs_seen)
+    return meas[0, :t_in], ok[0, :t_in]
+
+
+def stabilize_streams(frames, params: StabilizerParams = StabilizerParams(),
+                      device=None):
+    """(S, T, H, W[, 3]) u8 -> (stabilized (S, T - lag, H - 2c, W - 2c[, 3])
+    u8, meas (S, T, 4), success (S, T)); the warp runs once over the whole
+    (S, T - lag) batch."""
+    dev = resolve_device(device)
+    frames = torch.as_tensor(frames).to(dev)
+    h, w = frames.shape[2], frames.shape[3]
+    delayed, accums, meas, ok = stabilize_clip_core(frames, params, w, h)
+    return warp_delayed(delayed, accums, params, w, h), meas, ok
+
+
+def stabilize_clip(frames, params: StabilizerParams = StabilizerParams(),
+                   device=None):
+    """(T, H, W[, 3]) u8 clip -> (stabilized (T - lag, ...), meas, success)."""
+    out, meas, ok = stabilize_streams(torch.as_tensor(frames)[None], params,
+                                      device)
+    return out[0], meas[0], ok[0]

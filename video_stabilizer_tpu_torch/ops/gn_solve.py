@@ -1,0 +1,158 @@
+"""Per-level 4-DOF Gauss-Newton solve: kernel B of the port.
+
+``gn_solve`` launches ``csrc/gn_solve.cu`` for CUDA tensors and runs
+``gn_solve_plain`` for CPU tensors. It replaces
+``video_stabilizer_tpu/ops/pallas_gn.py::_gn_kernel`` (with ``_tap_sample``),
+batched over items on a leading axis: an item is one alignment at one level,
+and it names the keyframe whose windows and keypoints it samples through
+``key_index``, so keyframes shared by several items are stored once. See the
+source note in ``csrc/gn_solve.cu`` for the bound and the design.
+
+The plain version loops in Python with one host sync per iteration; it is
+the CPU path and the card's reference, never the main path on a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from video_stabilizer_tpu_torch import transforms as T
+from video_stabilizer_tpu_torch.ops import cuda_build
+from video_stabilizer_tpu_torch.ops.patches import (
+    sample_windows_flat, warp_rel_positions_flat)
+
+
+# Float32 operations of csrc/gn_solve.cu per keypoint, set and iteration
+# (each add, multiply, min, max, abs, floor and bf16 rounding counted once):
+# the warped position (10), its clamp and floor (8), eight Lanczos2 weights
+# (8 x 16), their normalizer (7), the 4x4 taps of bf16 products (100), the
+# residual (2) and the four terms of b (8).
+OPS_PER_SAMPLE = 263
+
+
+def gn_corners(width: int, height: int, device=None):
+    """The GN convergence corners use the (w-1, h-1) extent
+    (alignment.cpp:590-593)."""
+    w, h = width - 1.0, height - 1.0
+    return torch.tensor([[0.0, 0.0], [w, 0.0], [0.0, h], [w, h]],
+                        dtype=torch.float32, device=device)
+
+
+def gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox,
+                   oy, t_init, *, threshold: float, width: int, height: int,
+                   max_iters: int):
+    """Plain PyTorch version of kernel B: the masked loop of
+    ``models/aligner.py::_align_level`` (aligner.py:409-452), batched."""
+    p = windows.shape[1]
+    kidx = key_index.to(torch.int64)
+    fxi, fyi = fx[kidx], fy[kidx]                       # (B, 2, N)
+    cx, cy = width * 0.5, height * 0.5
+    jac_scale = torch.tensor(1.0 / width, dtype=torch.float32)
+    corners = gn_corners(width, height, windows.device)
+    c0 = T.warp_points_center(t_init[:, None, :], corners, cx, cy)
+    t, prev = t_init, c0
+    conv = torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+    iters = torch.zeros(t.shape[0], dtype=torch.int32, device=t.device)
+    for _ in range(max_iters):
+        active = ~conv
+        if not bool(active.any()):
+            break
+        t_ul = T.center_to_ul(t, width, height)[:, None, None, :]
+        rel_x, rel_y = warp_rel_positions_flat(fxi, fyi, t_ul, ox, oy, p)
+        warped = sample_windows_flat(windows, rel_x, rel_y, key_index=kidx)
+        residual = tmpl - warped
+        bvec = (jac_masked * residual[:, None]).sum(dim=(2, 3))   # (B, 4)
+        dt = (hinv * bvec[:, None, :]).sum(dim=-1)
+        delta = torch.stack([dt[:, 0] * jac_scale.to(dt.device),
+                             dt[:, 1] * jac_scale.to(dt.device),
+                             dt[:, 2], dt[:, 3]], dim=-1)
+        t_new = T.compose(delta, t)           # delta first (alignment.cpp:639)
+        new_c = T.warp_points_center(t_new[:, None, :], corners, cx, cy)
+        disp12 = torch.linalg.vector_norm(new_c - prev, dim=-1).amax(dim=-1)
+        t = torch.where(active[:, None], t_new, t)
+        prev = torch.where(active[:, None, None], new_c, prev)
+        iters = iters + active.to(torch.int32)
+        conv = conv | (active & (disp12 < threshold))
+    disp01 = torch.linalg.vector_norm(prev - c0, dim=-1).amax(dim=-1)
+    return t, conv, disp01, iters
+
+
+def _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
+           t_init):
+    k, p, p2, n = windows.shape
+    bsz = t_init.shape[0]
+    want = {
+        "windows": (windows, (k, p, p, n), torch.uint8),
+        "key_index": (key_index, (bsz,), None),
+        "tmpl": (tmpl, (bsz, 2, n), torch.float32),
+        "jac_masked": (jac_masked, (bsz, 4, 2, n), torch.float32),
+        "hinv": (hinv, (bsz, 4, 4), torch.float32),
+        "fx": (fx, (k, 2, n), torch.float32),
+        "fy": (fy, (k, 2, n), torch.float32),
+        "ox": (ox, (n,), torch.float32),
+        "oy": (oy, (n,), torch.float32),
+        "t_init": (t_init, (bsz, 4), torch.float32),
+    }
+    for name, (x, shape, dtype) in want.items():
+        if tuple(x.shape) != shape or (dtype is not None
+                                       and x.dtype != dtype):
+            raise ValueError(f"{name}: want {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != windows.device:
+            raise ValueError(f"{name} is on {x.device}, windows on "
+                             f"{windows.device}")
+
+
+def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
+             t_init, *, threshold: float, width: int, height: int,
+             max_iters: int):
+    """Run one level's whole GN loop for every item.
+
+    Args:
+      windows: (K, P, P, N) u8 keyframe sampling windows.
+      key_index: (B,) integer keyframe of each item.
+      tmpl: (B, 2, N) f32 template intensities.
+      jac_masked: (B, 4, 2, N) f32 masked, set-averaged Jacobian rows.
+      hinv: (B, 4, 4) f32 regularized inverse Hessians.
+      fx, fy: (K, 2, N) f32 keypoint coordinates.
+      ox, oy: (N,) f32 window origins.
+      t_init: (B, 4) f32 initial centre-pivot transforms.
+    Returns:
+      (t (B, 4) f32, converged (B,) bool, disp01 (B,) f32, iters (B,) i32).
+    """
+    _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy, t_init)
+    kwargs = dict(threshold=threshold, width=width, height=height,
+                  max_iters=max_iters)
+    dev = windows.device
+    if dev.type == "cpu":
+        return gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx,
+                              fy, ox, oy, t_init, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"gn_solve runs on cuda or cpu, not {dev}")
+    args = [windows, key_index.to(torch.int32).contiguous(), tmpl,
+            jac_masked, hinv, fx, fy, ox, oy, t_init]
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("gn_solve needs contiguous operands")
+    bsz = t_init.shape[0]
+    _, p, _, n = windows.shape
+    t_out = torch.empty((bsz, 4), dtype=torch.float32, device=dev)
+    conv = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    disp01 = torch.empty((bsz,), dtype=torch.float32, device=dev)
+    iters = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    fn = cuda_build.load("gn_solve").vs_gn_solve
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*(x.data_ptr() for x in args + [t_out, conv, disp01, iters]),
+             bsz, p, n, width * 0.5, height * 0.5, width - 1.0, height - 1.0,
+             1.0 / width, p - 3.0 - 1e-3, threshold, max_iters, stream)
+    if err != 0:
+        raise RuntimeError(f"gn_solve kernel launch failed: CUDA error {err}")
+    gn_solve.launches += 1
+    return t_out, conv.to(torch.bool), disp01, iters
+
+
+gn_solve.launches = 0

@@ -1,0 +1,41 @@
+"""Keypoint outlier rejection: integer-binned histogram threshold
+(``video_stabilizer_tpu.ops.select.histogram_mask``, select.py:24-61).
+
+Finds the smallest integer threshold t in [0, bins) with
+count(floor(wd) <= t) >= floor(N * fraction) and keeps every entry at or
+below it (ties in the threshold bin are all kept).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Warp diffs of u8 images are <= 255; one overflow bin catches the rest.
+DEFAULT_BINS = 257
+
+
+def histogram_mask(wd, fraction: float, bins: int = DEFAULT_BINS):
+    """0/1 float mask of the smallest-``fraction`` values of ``wd`` along
+    its last axis; leading axes are independent rows."""
+    n = wd.shape[-1]
+    v = torch.clamp(torch.floor(wd), 0, bins - 1)
+    # floor(N * fraction) in float32, as the JAX package forms it from its
+    # float32 ``smallest_fraction``.
+    k = float(np.floor(np.float32(n) * np.float32(fraction)))
+    rows = v.reshape(-1, n).to(torch.int64)
+    offs = torch.arange(rows.shape[0], device=wd.device)[:, None] * bins
+    # A fixed-size scatter, not bincount: bincount sizes its output from the
+    # data and so waits for the device.
+    hist = torch.zeros(rows.shape[0] * bins, dtype=torch.int64,
+                       device=wd.device)
+    hist.scatter_add_(0, (rows + offs).reshape(-1), torch.ones_like(
+        rows).reshape(-1))
+    counts = hist.reshape(-1, bins).cumsum(dim=-1)
+    reached = counts >= k
+    # First level whose cumulative count reaches k, else ``bins`` (keep all).
+    thresh = torch.where(reached.any(dim=-1),
+                         torch.argmax(reached.to(torch.uint8), dim=-1),
+                         torch.full_like(counts[:, 0], bins))
+    thresh = thresh.reshape(wd.shape[:-1] + (1,)).to(v.dtype)
+    return (v <= thresh).to(wd.dtype)
