@@ -9,25 +9,51 @@ Run from the root of the repository. Phases:
      (one nvcc per source, all at once) and print what ptxas reports.
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
-  3. Drive the main path over two chunks to capture real kernel inputs:
-     1080p BGR, 8 streams, 16-frame chunks, state carried from chunk to
-     chunk, on content with rotation and zoom jitter as well as 1 px shake.
-  4. Kernel A (output warp) against its plain PyTorch version on the card:
-     at the main path's batch (128 frames, crop 32) and at 16 frames with
-     random similarity transforms. Bar: max 1 LSB, >= 99.9 % of pixels equal.
-  5. Kernel B (per-level GN solve) against its plain version on the card,
-     at each of the six 1080p level shapes, with the items of that chunk.
-     Bar, over every item: converged equal, A/B within 1e-5, TX/TY within
-     1e-3 px; and the items' A/B at least 10x the A/B bar.
-  6. The main path, timed, on bench.py's content (translation only, 1 px
-     jitter): 4 chunks with carried state from a fresh start, with both
-     launch counters set to 0 before and read after. Checks the output
-     shape, the align success rate (>= 0.9) and the measured motion against
-     the clip's known motion. One more chunk runs under torch.profiler.
-  7. Reported, no bar: one chunk of 4 px jitter content through kernel B
+  3. Drive the 1080p similarity path over two chunks to capture real
+     kernel inputs: 1080p BGR, 8 streams, 16-frame chunks, state carried
+     from chunk to chunk, on content with rotation and zoom jitter as well
+     as 1 px shake.
+  4. Kernel A (output warp), similarity + bilinear, against its plain
+     PyTorch version on the card: at the main path's batch (128 frames,
+     crop 32) and at 16 frames with random similarity transforms; and 4
+     frames of its similarity + Lanczos2 form. Bar: max 1 LSB, >= 99.9 %
+     of pixels equal.
+  5. Kernel B (per-level 4-DOF GN solve) against its plain version on the
+     card, at each of the six 1080p level shapes, with the items of that
+     chunk. Bar, over every item: converged equal, A/B within 1e-5, TX/TY
+     within 1e-3 px; and the items' A/B at least 10x the A/B bar.
+  6. Drive the 4K homography path (config 4 of apps/bench_configs.py:
+     3840x2160 BGR, 2 streams x 16-frame chunks, phase-correlation init,
+     8-DOF model, Lanczos2 output, crop 32) over two chunks to capture
+     kernel C's inputs at its 7 levels and kernel A's frames and
+     corrections; and align 16 pairs whose template is a 4K frame warped
+     by a known homography with perspective (by kernel A's homography
+     form), capturing kernel C's inputs there too.
+  7. Kernel A, homography + Lanczos2, against its plain version: the 32
+     captured 4K frames with their real corrections and 8 frames with
+     random homographies (|p0,p1,p3,p4|, |p6,p7| <= 4e-3, translation
+     <= 40 px); and 4 frames of the homography + bilinear form. Bar: max
+     1 LSB, >= 99.9 % of pixels equal.
+  8. Kernel C (per-level 8-DOF GN solve) against its plain version at all
+     7 level shapes, on the captured and the perspective items. Bar, over
+     every item: converged equal, corner error between the two <= 1e-3 px
+     at the level's size; and the perspective items' median max(|p6|,|p7|)
+     at least 10x the largest p6/p7 gap.
+  9. The 1080p similarity path, timed, on bench.py's content (translation
+     only, 1 px jitter): 4 chunks with carried state from a fresh start,
+     with every launch count set to 0 before and read after. Checks the
+     output shape, the align success rate (>= 0.9) and the measured motion
+     against the clip's known motion. One more chunk runs under
+     torch.profiler.
+ 10. The 4K homography path, timed, the same way: 4 chunks on
+     bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
+     homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
+     p2*W, p5*W against the known motion; one more chunk under the
+     profiler.
+ 11. Reported, no bar: one chunk of 4 px jitter content through kernel B
      and through its plain version, with convergence and known-motion
      error for each.
-  8. The port on the card against the port on the CPU (the plain versions)
+ 12. The port on the card against the port on the CPU (the plain versions)
      on a small clip: ok equal, >= 99 % of output pixels within 1 LSB.
 
 Every phase runs; the script exits 1 if any failed, 2 without a card. On
@@ -51,10 +77,16 @@ import torch
 
 HEIGHT, WIDTH, STREAMS, CHUNK, CHUNKS = 1080, 1920, 8, 16, 4
 SEED = 100
+# The 4K homography path: apps/bench_configs.py:34-53, BASELINE.json
+# config 4. Its content is bench_configs', one seed per stream.
+H4K, W4K, CHUNKS_4K = 2160, 3840, 4
+SEEDS_4K = (5, 6)                 # one stream each
+HOMOGRAPHY = "homography"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 WARP_REPLACES = "video_stabilizer_tpu/ops/pallas_warp.py:117"
 GN_REPLACES = "video_stabilizer_tpu/ops/pallas_gn.py:133"
+GN8_REPLACES = "video_stabilizer_tpu/ops/pallas_gn.py:383"
 
 failures: list[str] = []
 
@@ -122,28 +154,52 @@ GN_CONTENT = dict(jitter_px=1.0, pan_px_per_frame=0.3, rot_jitter=0.002,
 WIDE_CONTENT = dict(jitter_px=4.0, pan_px_per_frame=0.5)
 
 
-def synth_streams(dev, num_frames, content):
+def synth_streams(dev, num_frames, content, height=None, width=None,
+                  seeds=None):
     """(S, T, H, W, 3) u8 host frames and (S, T, 4) window poses from
-    ``utils.io.synth_shaky_clip``, seed SEED + s for stream s, with its
-    crops computed on the card."""
+    ``utils.io.synth_shaky_clip`` (1080p unless given), one seed per stream
+    (SEED + s for the 1080p streams unless given), with its crops computed
+    on the card."""
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
-    frames = np.empty((STREAMS, num_frames, HEIGHT, WIDTH, 3), np.uint8)
-    poses = np.empty((STREAMS, num_frames, 4))
-    for s in range(STREAMS):
+    height, width = height or HEIGHT, width or WIDTH
+    seeds = seeds or [SEED + s for s in range(STREAMS)]
+    frames = np.empty((len(seeds), num_frames, height, width, 3), np.uint8)
+    poses = np.empty((len(seeds), num_frames, 4))
+    for s, seed in enumerate(seeds):
         frames[s], poses[s] = synth_shaky_clip(
-            num_frames, HEIGHT, WIDTH, seed=SEED + s, device=dev, poses=True,
+            num_frames, height, width, seed=seed, device=dev, poses=True,
             **content)
     return frames, poses
 
 
-def known_motion_error(meas, ok, poses):
-    """RMS and max px of the measured TX/TY of a translation-only clip
-    against its known motion: from frame t-1 to t, minus the window offset
-    step."""
+def known_motion_error(shift, ok, poses):
+    """RMS and max px of the measured (S, T, 2) translation of a
+    translation-only clip against its known motion: from frame t-1 to t,
+    minus the window offset step."""
     truth = -np.diff(poses[..., 2:], axis=1)
-    err = (meas[:, 1:, 2:] - truth)[ok[:, 1:]]
+    err = (shift[:, 1:] - truth)[ok[:, 1:]]
     return float(np.sqrt(np.mean(err ** 2))), float(np.abs(err).max())
+
+
+def reset_launch_counts():
+    from video_stabilizer_tpu_torch.ops import warp_kernel
+    from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    warp_kernel.reset_launches()
+    gn_solve.launches = 0
+    gn8_solve.launches = 0
+
+
+def launch_counts() -> dict:
+    """Launches since the last reset, per kernel and form."""
+    from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+    counts = {f"warp_frames[{m},{i}]": n
+              for (m, i), n in warp_frames.form_launches.items()}
+    counts.update(gn_solve=gn_solve.launches, gn8_solve=gn8_solve.launches)
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -199,23 +255,41 @@ def capture(params, dev):
                                                params.aligner)))
 
 
-def warp_compare(frames, ts, crop):
+def warp_compare(frames, ts, crop, interp="bilinear", model="similarity",
+                 group=16):
+    """(max |diff| LSB, share of pixels equal) between kernel A and its
+    plain version on the card, the plain version ``group`` frames at a
+    time."""
     from video_stabilizer_tpu_torch.ops.warp_kernel import (
         warp_frames, warp_frames_plain)
-    got = warp_frames(frames, ts, crop)
-    diffs = []
-    for i in range(0, frames.shape[0], 16):
-        want = warp_frames_plain(frames[i:i + 16], ts[i:i + 16], crop)
-        diffs.append((got[i:i + 16].to(torch.int16)
-                      - want.to(torch.int16)).abs())
-    diff = torch.cat(diffs)
-    return int(diff.max()), float((diff == 0).float().mean())
+    form = dict(interp=interp, model=model)
+    got = warp_frames(frames, ts, crop, **form)
+    max_err, n_equal = 0, 0
+    for i in range(0, frames.shape[0], group):
+        want = warp_frames_plain(frames[i:i + group], ts[i:i + group], crop,
+                                 **form)
+        diff = (got[i:i + group].to(torch.int16) - want.to(torch.int16)).abs()
+        max_err = max(max_err, int(diff.max()))
+        n_equal += int((diff == 0).sum())
+    return max_err, n_equal / got.numel()
 
 
-@phase("kernel A: output warp vs its plain version")
+def warp_bound(frames, ts, crop, interp, model):
+    """(bound ms, what bounds it, GB, GFLOP) of one warp launch: each frame
+    read once, each output written once, against OPS_PER_PIXEL."""
+    from video_stabilizer_tpu_torch.ops.warp_kernel import OPS_PER_PIXEL
+    bsz, h, w, c = frames.shape
+    n_out = bsz * (h - 2 * crop) * (w - 2 * crop)
+    bytes_moved = frames.numel() + n_out * c + ts.numel() * 4
+    ops = n_out * OPS_PER_PIXEL(c, interp, model)
+    bound_ms, bound_by = roofline(bytes_moved, ops)
+    return bound_ms, bound_by, bytes_moved / 1e9, ops / 1e9
+
+
+@phase("kernel A: output warp vs its plain version (1080p, similarity)")
 def check_warp(cap, crop, dev):
     from video_stabilizer_tpu_torch.ops.warp_kernel import (
-        OPS_PER_PIXEL, warp_frames, warp_frames_plain)
+        warp_frames, warp_frames_plain)
 
     frames, ts = cap["warp_frames"], cap["warp_ts"]
     bsz = frames.shape[0]
@@ -226,11 +300,16 @@ def check_warp(cap, crop, dev):
     g = torch.Generator().manual_seed(SEED)
     rnd = torch.cat([(torch.rand((16, 2), generator=g) * 2 - 1) * 0.008,
                      (torch.rand((16, 2), generator=g) * 2 - 1) * 40], 1)
-    max_rnd, equal_rnd = warp_compare(frames[:16].contiguous(),
-                                      rnd.to(dev), 0)
+    rnd = rnd.to(dev)
+    max_rnd, equal_rnd = warp_compare(frames[:16].contiguous(), rnd, 0)
     check(max_rnd <= 1 and equal_rnd >= 0.999,
           f"random similarity (16 frames, |A|,|B| <= 0.008, |t| <= 40 px): "
           f"max |diff| {max_rnd} LSB, {equal_rnd * 100:.4f} % equal")
+    max_l, equal_l = warp_compare(frames[:4].contiguous(), rnd[:4], crop,
+                                  interp="lanczos2")
+    check(max_l <= 1 and equal_l >= 0.999,
+          f"similarity + Lanczos2 (4 frames, random similarity): max |diff| "
+          f"{max_l} LSB, {equal_l * 100:.4f} % equal")
 
     ms = cuda_ms(lambda: warp_frames(frames, ts, crop), 10)
 
@@ -257,15 +336,12 @@ def check_warp(cap, crop, dev):
         align_corners=True), 5)
     del src, grid, sx, sy
 
-    c = frames.shape[-1]
-    n_out = bsz * ho * wo
-    bytes_moved = frames.numel() + n_out * c + ts.numel() * 4
-    ops = n_out * OPS_PER_PIXEL(c)
-    bound_ms, bound_by = roofline(bytes_moved, ops)
+    bound_ms, bound_by, gb, gflop = warp_bound(frames, ts, crop, "bilinear",
+                                               "similarity")
     log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, grid_sample "
         f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
-        f"{bytes_moved / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)")
-    return dict(name="warp_frames", route="cuda",
+        f"{gb:.3f} GB, {gflop:.2f} GFLOP)")
+    return dict(name="warp_frames[similarity,bilinear]", route="cuda",
                 source="video_stabilizer_tpu_torch/csrc/warp.cu",
                 replaces=WARP_REPLACES, max_abs_err=max(max_err, max_rnd),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -286,10 +362,12 @@ GN_AB_BAR, GN_T_BAR = 1e-5, 1e-3
 
 
 def gn_bytes(args, t_out, iters):
-    """Bytes kernel B must move for this run's data: the 4x4 window taps
-    of both keypoint sets of every item at each of its iterations (at most
-    a keyframe's whole windows), each other input of the items and of the
-    keyframes in use read once, each output written once."""
+    """Bytes kernel B or C must move for this run's data: the 4x4 window
+    taps of both keypoint sets of every item at each of its iterations (at
+    most a keyframe's whole windows), each other input of the items and of
+    the keyframes in use read once, each output written once. Both kernels
+    take (windows, key_index, tmpl, jac_masked, hinv, two (K, 2, N)
+    keypoint coordinates, ox, oy, initial transform)."""
     windows, key_index, *per_item = args[:5]
     fx, fy, ox, oy, t_init = args[5:10]
     k, p, _, n = windows.shape
@@ -301,7 +379,7 @@ def gn_bytes(args, t_out, iters):
     item_bytes = sum(a.numel() * a.element_size()
                      for a in (key_index, *per_item, t_init))
     key_bytes = keys * (fx[0].numel() + fy[0].numel()) * 4
-    out_bytes = t_out.shape[0] * (4 + 3) * 4
+    out_bytes = t_out.shape[0] * (t_out.shape[1] + 3) * 4
     return taps + item_bytes + key_bytes + (ox.numel() + oy.numel()) * 4 \
         + out_bytes
 
@@ -369,40 +447,248 @@ def check_gn(cap):
                 library_ms=None)
 
 
-@phase("main path: 1080p, 8 streams x 16-frame chunks, carried state")
-def main_path(frames, poses, params, dev):
+@phase("4K homography path: capture two chunks' kernel inputs, and align "
+       "16 pairs with known perspective")
+def capture_4k(params, dev):
     from video_stabilizer_tpu_torch.models import chunked
-    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.models import homography_aligner as ha
+    from video_stabilizer_tpu_torch.models.aligner import level_specs
+    from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray
+    from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
+    from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+
+    frames, _ = synth_streams(dev, 2 * CHUNK, GN_CONTENT, H4K, W4K,
+                              SEEDS_4K)
+    states = chunked.init_stream_state(W4K, H4K, params, 3, len(SEEDS_4K),
+                                       dev, model=HOMOGRAPHY)
+    states = chunked.stabilize_chunk_streams(states, frames[:, :CHUNK],
+                                             params, HOMOGRAPHY)[0]
+    chunk1 = torch.as_tensor(frames[:, CHUNK:]).to(dev)
+    with mock.patch.object(ha, "gn8_solve", wraps=gn8_solve) as spy:
+        _, delayed, accums, *_ = chunked.stabilize_chunk_core(
+            states, chunk1, params, W4K, H4K, HOMOGRAPHY)
+    calls = [(c.args, c.kwargs) for c in spy.call_args_list]
+
+    # Pairs with perspective: each template is a frame of the clip warped
+    # by a known homography through kernel A, so the aligner must find
+    # p6, p7 far from 0 at every level.
+    g = torch.Generator().manual_seed(SEED + 1)
+    n = 16
+    p_true = (torch.rand((n, 8), generator=g) * 2 - 1) * torch.tensor(
+        [2e-3, 2e-3, 3.0 / W4K, 2e-3, 2e-3, 3.0 / W4K, 4e-3, 4e-3])
+    key = bgr_to_gray(chunk1.reshape((-1, H4K, W4K, 3))[:n])
+    tmpl = warp_frames(key[..., None].contiguous(), p_true.to(dev), 0,
+                       interp="lanczos2", model=HOMOGRAPHY)[..., 0]
+    specs = level_specs(W4K, H4K, params.aligner)
+    key_pyr = build_pyramid(key, len(specs))
+    tmpl_pyr = build_pyramid(tmpl, len(specs))
+    idx = torch.arange(n, device=dev)
+    with mock.patch.object(ha, "gn8_solve", wraps=gn8_solve) as spy:
+        p_found, failed = ha.align_all_levels_h(
+            tmpl_pyr, idx, ha._compute_keyframe_h(key_pyr, specs), idx, specs,
+            params.aligner, torch.zeros((n, 8), device=dev))
+    persp = [(c.args, c.kwargs) for c in spy.call_args_list]
+    err = (p_found.cpu() - p_true).abs().amax(dim=0)
+    log(f"  perspective pairs: {int(failed.sum())} of {n} failed; found p "
+        f"within {[float(f'{e:.1e}') for e in err]} of the true p")
+    torch.cuda.synchronize()
+    return dict(warp_frames=delayed.reshape(-1, H4K, W4K, 3),
+                warp_ts=accums.reshape(-1, 8).contiguous(), gn8_calls=calls,
+                persp_calls=persp, levels=len(specs))
+
+
+@phase("kernel A: output warp vs its plain version (4K, homography)")
+def check_warp_4k(cap, crop, dev):
+    from video_stabilizer_tpu_torch.ops.warp_kernel import (
+        warp_frames, warp_frames_plain)
+
+    form = dict(interp="lanczos2", model=HOMOGRAPHY)
+    frames, ts = cap["warp_frames"], cap["warp_ts"]
+    bsz = frames.shape[0]
+    max_err, equal = warp_compare(frames, ts, crop, group=4, **form)
+    check(max_err <= 1 and equal >= 0.999,
+          f"4K path's inputs ({bsz} frames, real corrections, crop {crop}): "
+          f"max |diff| {max_err} LSB, {equal * 100:.4f} % equal")
+    g = torch.Generator().manual_seed(SEED + 2)
+    rnd = (torch.rand((8, 8), generator=g) * 2 - 1) * 4e-3
+    rnd[:, [2, 5]] = (torch.rand((8, 2), generator=g) * 2 - 1) * 40 / W4K
+    rnd = rnd.to(dev)
+    sub = frames[:8].contiguous()
+    max_rnd, equal_rnd = warp_compare(sub, rnd, 0, group=4, **form)
+    check(max_rnd <= 1 and equal_rnd >= 0.999,
+          f"random homographies (8 frames, |p0,p1,p3,p4|, |p6,p7| <= 4e-3, "
+          f"|t| <= 40 px): max |diff| {max_rnd} LSB, "
+          f"{equal_rnd * 100:.4f} % equal")
+    max_b, equal_b = warp_compare(sub[:4], rnd[:4], crop, group=4,
+                                  interp="bilinear", model=HOMOGRAPHY)
+    check(max_b <= 1 and equal_b >= 0.999,
+          f"homography + bilinear (4 frames): max |diff| {max_b} LSB, "
+          f"{equal_b * 100:.4f} % equal")
+    del sub
+
+    ms = cuda_ms(lambda: warp_frames(frames, ts, crop, **form), 10)
+
+    def plain():
+        for i in range(0, bsz, 4):
+            warp_frames_plain(frames[i:i + 4], ts[i:i + 4], crop, **form)
+    plain_ms = cuda_ms(plain, 1)
+    bound_ms, bound_by, gb, gflop = warp_bound(frames, ts, crop, **form)
+    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}: {gb:.3f} GB, {gflop:.1f} GFLOP); "
+        "no library call: grid_sample has no Lanczos2")
+    return dict(name="warp_frames[homography,lanczos2]", route="cuda",
+                source="video_stabilizer_tpu_torch/csrc/warp.cu",
+                replaces=WARP_REPLACES, max_abs_err=max(max_err, max_rnd),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def corner_gap(p_a, p_b, width, height):
+    """(B,) max distance between the level's GN corners ((w-1, h-1)
+    extent) warped by two (B, 8) homographies, in px at that level."""
+    from video_stabilizer_tpu_torch import homography as Hm
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_corners
+    corners = gn_corners(width, height, p_a.device)
+    a = Hm.warp_points(p_a[:, None, :].double(), corners.double(), width,
+                       height)
+    b = Hm.warp_points(p_b[:, None, :].double(), corners.double(), width,
+                       height)
+    return torch.linalg.vector_norm(a - b, dim=-1).amax(dim=-1)
+
+
+# Kernel C against its plain version, on every item: converged equal and
+# the level's GN corners within this bar (px at the level's size). Both
+# loops run the same f32 arithmetic and differ only in the order of the
+# sums over keypoints and in the compose (1/M22 times each entry in the
+# kernel, as _compose_h; a division in the plain version, as the XLA loop).
+# The 8x8 Hessian of a small level is ill-conditioned along p6/p7, and its
+# inverse carries those rounding differences into p: on an H100 (700 W)
+# the gap reached 3.5e-3 px at 60x33 with equal iteration counts,
+# and 1.8e-2 px on an L0 item whose loop stopped one iteration later. A
+# loop stops when a step moves no corner by the 0.02 px threshold, so the
+# two loops are held to that threshold; the share of items within 1e-3 px
+# is reported beside it. The perspective items' p6/p7, at least 10x the
+# largest p6/p7 gap, make sure the kernel updates p6 and p7 at all.
+GN8_CORNER_BAR = 0.02
+
+
+@phase("kernel C: per-level 8-DOF GN solve vs its plain version")
+def check_gn8(cap):
+    from video_stabilizer_tpu_torch.ops.gn8_solve import (
+        OPS_PER_SAMPLE, gn8_solve, gn8_solve_plain)
+
+    calls, persp = cap["gn8_calls"], cap["persp_calls"]
+    check(len(calls) == cap["levels"] == len(persp),
+          f"{len(calls)} kernel C launches per chunk and {len(persp)} for "
+          f"the perspective pairs ({cap['levels']} levels)")
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_share = dict(bytes=0.0, operations=0.0)
+    worst = 0.0
+    for (args, kw), (pargs, pkw) in zip(calls, persp):
+        w, h = kw["width"], kw["height"]
+        p_size, n = args[0].shape[1], args[0].shape[3]
+        level = f"{w}x{h} (P={p_size}, N={n})"
+        gaps, conv_equal, p67_gap, medians = [], True, 0.0, None
+        n_items, n_fine, same_iter_gap = 0, 0, 0.0
+        for name, (a, k) in (("captured", (args, kw)),
+                             ("perspective", (pargs, pkw))):
+            p_g, c_g, d_g, i_g = gn8_solve(*a, **k)
+            p_w, c_w, d_w, i_w = gn8_solve_plain(*a, **k)
+            same = bool((c_g == c_w).all())
+            conv_equal &= same
+            item_gap = corner_gap(p_g, p_w, w, h)
+            gap = float(item_gap.max())
+            gaps.append(gap)
+            n_items += item_gap.numel()
+            n_fine += int((item_gap <= 1e-3).sum())
+            same = i_g == i_w
+            if bool(same.any()):
+                same_iter_gap = max(same_iter_gap,
+                                    float(item_gap[same].max()))
+            p67_gap = max(p67_gap, float((p_g[:, 6:] - p_w[:, 6:]).abs().max()))
+            for i in torch.nonzero(c_g != c_w).flatten().tolist():
+                log(f"    {name} item {i}: converged {bool(c_g[i])} "
+                    f"(kernel) vs {bool(c_w[i])} (plain), iters "
+                    f"{int(i_g[i])} vs {int(i_w[i])}")
+            log(f"    {level} {name}, {p_g.shape[0]} items: converged "
+                f"{float(c_g.float().mean()) * 100:.1f} %, mean iters "
+                f"{float(i_g.float().mean()):.2f}, corner gap {gap:.2e} px, "
+                f"|d iters| {int((i_g - i_w).abs().max())}")
+            if name == "perspective":
+                medians = float(p_w[:, 6:].abs().amax(dim=1).median())
+        worst = max(worst, *gaps)
+        check(conv_equal and max(gaps) <= GN8_CORNER_BAR,
+              f"{level}: converged equal on all items {conv_equal}; corner "
+              f"gap {max(gaps):.2e} px (bar {GN8_CORNER_BAR:.0e}; "
+              f"{same_iter_gap:.2e} px where the iterations are equal; "
+              f"{n_fine} of {n_items} items within 1e-3 px); p6/p7 gap "
+              f"{p67_gap:.2e}")
+        check(medians >= 10 * p67_gap,
+              f"{level}: the perspective items' max(|p6|,|p7|) has median "
+              f"{medians:.2e}, >= 10x the largest p6/p7 gap {p67_gap:.2e}")
+        p_out, _, _, iters = gn8_solve(*args, **kw)
+        ms = cuda_ms(lambda: gn8_solve(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: gn8_solve_plain(*args, **kw), 1)
+        bytes_moved = gn_bytes(args, p_out, iters)
+        ops = int(iters.sum()) * 2 * n * OPS_PER_SAMPLE
+        bound_ms, bound_by = roofline(bytes_moved, ops)
+        bound_share[bound_by] += bound_ms
+        log(f"    kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
+            f"{ops / 1e9:.3f} GFLOP), kernel / bound {ms / bound_ms:.1f}; "
+            f"mean iters {float(iters.float().mean()):.2f}")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound_ms)):
+            totals[key] += val
+    log(f"  per chunk (sum of {len(calls)} levels): kernel "
+        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.4f} ms")
+    return dict(name="gn8_solve", route="cuda",
+                source="video_stabilizer_tpu_torch/csrc/gn8_solve.cu",
+                replaces=GN8_REPLACES, max_abs_err=worst, ms=totals["ms"],
+                plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
+                bound_by=max(bound_share, key=bound_share.get),
+                library_ms=None)
+
+
+def drive_path(frames, params, dev, model="similarity"):
+    """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
+    from a fresh state, with every launch count set to 0 just before and
+    read just after. Checks each chunk's output; prints the chunk times,
+    frames/s, peak memory and the per-stage device times. Returns (launch
+    counts, meas (S, T, P), ok (S, T), states, last chunk)."""
+    from video_stabilizer_tpu_torch.models import chunked
     from video_stabilizer_tpu_torch.utils.spans import Recorder
 
+    streams, total, height, width = frames.shape[:4]
     # Each chunk arrives in its own pinned host buffer, as a server's
     # decoder would leave it; filling the buffers is set-up, not timed.
     chunks = [torch.from_numpy(np.ascontiguousarray(
-        frames[:, c * CHUNK:(c + 1) * CHUNK])).pin_memory()
-        for c in range(CHUNKS)]
-    states = chunked.init_stream_state(WIDTH, HEIGHT, params, 3, STREAMS, dev)
+        frames[:, c:c + CHUNK])).pin_memory()
+        for c in range(0, total, CHUNK)]
+    states = chunked.init_stream_state(width, height, params, 3, streams,
+                                       dev, model=model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    warp_frames.launches = 0
-    gn_solve.launches = 0
+    reset_launch_counts()
     walls, device_ms, stage_runs, metas, succs = [], [], [], [], []
-    for c in range(CHUNKS):
+    for c, chunk in enumerate(chunks):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
         with Recorder() as rec:
             states, out, meas, succ, valid = chunked.stabilize_chunk_streams(
-                states, chunks[c], params)
+                states, chunk, params, model)
         end.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         device_ms.append(start.elapsed_time(end))
         stage_runs.append(rec.totals())
         crop = 2 * params.crop_pixels
-        check(tuple(out.shape) == (STREAMS, CHUNK, HEIGHT - crop,
-                                   WIDTH - crop, 3)
+        check(tuple(out.shape) == (streams, CHUNK, height - crop,
+                                   width - crop, 3)
               and out.dtype == torch.uint8,
               f"chunk {c}: output {tuple(out.shape)} {out.dtype}")
         expect_valid = np.arange(c * CHUNK, (c + 1) * CHUNK) >= params.lag
@@ -412,51 +698,85 @@ def main_path(frames, poses, params, dev):
         check(bool(out.any()), f"chunk {c}: output not blank")
         metas.append(meas.cpu().numpy())
         succs.append(succ.cpu().numpy())
-    launches = dict(warp_frames=warp_frames.launches,
-                    gn_solve=gn_solve.launches)
-    check(launches["warp_frames"] > 0 and launches["gn_solve"] > 0,
-          f"launches in the main path: {launches}")
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    meas = np.concatenate(metas, axis=1)          # (S, T, 4)
-    ok = np.concatenate(succs, axis=1)
-    rate = float(ok.mean())
-    check(rate >= 0.9, f"align success rate {rate:.4f} "
-          f"({int(ok.sum())} of {ok.size}; each stream's first frame has "
-          "nothing to align to)")
-    # Motion from frame t-1 to t of a translation-only clip is minus the
-    # window offset step. The bars allow for the clip's own bias: each
-    # bilinear crop blurs its frame by its own sub-pixel phase. On such a
-    # clip (270x480, jitter 1 px, 11 frames, on the CPU) the JAX package's
-    # aligner is off by RMS 0.10 px and at most 0.19 px, the port's by
-    # 0.11 and 0.19.
-    rms, max_err = known_motion_error(meas, ok, poses)
-    check(max_err < 0.5 and rms < 0.2,
-          f"measured TX/TY against the clip's known motion: RMS {rms:.4f} "
-          f"px, max {max_err:.4f} px")
-    ab = float(np.abs(meas[..., :2][ok]).max())
-    check(ab < 2e-3, f"measured |A|,|B| on a translation-only clip: {ab:.2e}")
 
     log(f"  chunk wall (host clock, synchronized): "
         + ", ".join(f"{w:.1f}" for w in walls) + " ms")
     log(f"  chunk on the device timeline (CUDA events): "
         + ", ".join(f"{w:.1f}" for w in device_ms) + " ms")
     steady = walls[1:]
-    fps = STREAMS * CHUNK / (np.mean(steady) / 1e3)
+    fps = streams * CHUNK / (np.mean(steady) / 1e3)
     log(f"  steady chunk {np.mean(steady):.1f} ms = {fps:.1f} frames/s "
-        f"(mean of chunks 1-3); peak device memory {peak_gb:.2f} GB")
+        f"(mean of chunks 1-{len(chunks) - 1}); peak device memory "
+        f"{peak_gb:.2f} GB")
     names = list(stage_runs[0])
     mean = {k: float(np.mean([r.get(k, 0.0) for r in stage_runs[1:]]))
             for k in names}
-    log("  stage device times, mean of chunks 1-3 (CUDA events):")
+    log(f"  stage device times, mean of chunks 1-{len(chunks) - 1} (CUDA "
+        "events):")
     for k in names:
         log(f"    {k:<22} {mean[k]:9.3f} ms")
     log(f"    {'sum of stages':<22} {sum(mean.values()):9.3f} ms")
-    return launches, states, chunks[-1]
+    log(f"  launches: {launches}")
+    ok = np.concatenate(succs, axis=1)
+    rate = float(ok.mean())
+    check(rate >= 0.9, f"align success rate {rate:.4f} "
+          f"({int(ok.sum())} of {ok.size}; each stream's first frame has "
+          "nothing to align to)")
+    return (launches, np.concatenate(metas, axis=1), ok, states, chunks[-1])
+
+
+@phase("main path: 1080p similarity, 8 streams x 16-frame chunks, carried "
+       "state")
+def main_path(frames, poses, params, dev):
+    launches, meas, ok, states, last = drive_path(frames, params, dev)
+    check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
+          and launches["gn_solve"] > 0,
+          "kernel A (similarity, bilinear) and kernel B launched")
+    # Motion from frame t-1 to t of a translation-only clip is minus the
+    # window offset step. The bars allow for the clip's own bias: each
+    # bilinear crop blurs its frame by its own sub-pixel phase. On such a
+    # clip (270x480, jitter 1 px, 11 frames, on the CPU) the JAX package's
+    # aligner is off by RMS 0.10 px and at most 0.19 px, the port's by
+    # 0.11 and 0.19.
+    rms, max_err = known_motion_error(meas[..., 2:], ok, poses)
+    check(max_err < 0.5 and rms < 0.2,
+          f"measured TX/TY against the clip's known motion: RMS {rms:.4f} "
+          f"px, max {max_err:.4f} px")
+    ab = float(np.abs(meas[..., :2][ok]).max())
+    check(ab < 2e-3, f"measured |A|,|B| on a translation-only clip: {ab:.2e}")
+    return launches, states, last
+
+
+@phase("4K homography path: 2 streams x 16-frame chunks, carried state")
+def main_path_4k(frames, poses, params, dev):
+    launches, meas, ok, states, last = drive_path(frames, params, dev,
+                                                  HOMOGRAPHY)
+    check(launches["gn8_solve"] > 0
+          and launches.get("warp_frames[homography,lanczos2]", 0) > 0
+          and launches["gn_solve"] == 0,
+          "kernel C and kernel A (homography, Lanczos2) launched, kernel B "
+          "not")
+    # The normalized translation (p2, p5) times W is the motion in px at
+    # the frame centre. On such a clip (270x480, jitter 1 px, pan 0.3,
+    # seeds 5 and 6, 12 frames, on the CPU) the JAX package's 8-DOF aligner
+    # is off by RMS 0.033 px and at most 0.080 px, the port's by 0.036 and
+    # 0.107; its |p0,p1,p3,p4| reach 8.3e-4 and |p6,p7| 1.4e-3.
+    rms, max_err = known_motion_error(meas[..., [2, 5]] * W4K, ok, poses)
+    check(max_err < 0.3 and rms < 0.1,
+          f"measured p2*W, p5*W against the clip's known motion: RMS "
+          f"{rms:.4f} px, max {max_err:.4f} px")
+    lin = float(np.abs(meas[..., [0, 1, 3, 4]][ok]).max())
+    persp = float(np.abs(meas[..., 6:][ok]).max())
+    check(lin < 2e-3 and persp < 3e-3,
+          f"measured |p0,p1,p3,p4| {lin:.2e}, |p6,p7| {persp:.2e} on a "
+          "translation-only clip")
+    return launches, states, last
 
 
 @phase("device busy share of one more chunk (torch.profiler)")
-def profile_chunk(states, chunk, params):
+def profile_chunk(states, chunk, params, model="similarity"):
     from torch.profiler import ProfilerActivity, profile
 
     from video_stabilizer_tpu_torch.models import chunked
@@ -466,7 +786,7 @@ def profile_chunk(states, chunk, params):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start.record()
-        chunked.stabilize_chunk_streams(states, chunk, params)
+        chunked.stabilize_chunk_streams(states, chunk, params, model)
         end.record()
         torch.cuda.synchronize()
     span_ms = start.elapsed_time(end)
@@ -510,7 +830,7 @@ def wide_jitter(params, dev):
             _, _, meas, ok, _ = chunked.stabilize_chunk_streams(
                 states, frames, params)
         meas, ok = meas.cpu().numpy(), ok.cpu().numpy()
-        rms, max_err = known_motion_error(meas, ok, poses)
+        rms, max_err = known_motion_error(meas[..., 2:], ok, poses)
         runs[name] = levels
         log(f"  {name}: {int(ok.sum())} of {ok.size} frames aligned; "
             f"TX/TY against the known motion RMS {rms:.4f} px, max "
@@ -565,7 +885,8 @@ def main() -> int:
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.config import (
+        AlignerParams, StabilizerParams)
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -576,35 +897,67 @@ def main() -> int:
         return 1
 
     params = StabilizerParams(crop_pixels=32)
+    # Config 4 (apps/bench_configs.py:34-53).
+    params_4k = StabilizerParams(
+        aligner=AlignerParams(phase_correlate=True),
+        output_interp="lanczos2", crop_pixels=32)
+    crop = params.crop_pixels
     synth_on_card(dev)
+    kernels = {}
     cap = capture(params, dev)
-    kernels = []
     if cap is not None:
-        kernels = [check_warp(cap, params.crop_pixels, dev), check_gn(cap)]
+        kernels["warp_frames[similarity,bilinear]"] = check_warp(cap, crop,
+                                                                 dev)
+        kernels["gn_solve"] = check_gn(cap)
         del cap
-    t0 = time.perf_counter()
-    frames, poses = synth_streams(dev, CHUNK * CHUNKS, MAIN_CONTENT)
-    log(f"== main path's clip {frames.shape} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    main = main_path(frames, poses, params, dev)
-    del frames
-    launches = None
-    if main is not None:
-        launches, states, last_chunk = main
-        profile_chunk(states, last_chunk, params)
+    cap = capture_4k(params_4k, dev)
+    if cap is not None:
+        kernels["warp_frames[homography,lanczos2]"] = check_warp_4k(
+            cap, crop, dev)
+        kernels["gn8_solve"] = check_gn8(cap)
+        del cap
+    torch.cuda.empty_cache()
+
+    # Each path runs with every launch count set to 0 just before it and
+    # read just after; each kernel's launches come from the path it serves.
+    path_launches = {}
+    for name, run, model, prm, shape, chunks, seeds in (
+            ("1080p", main_path, "similarity", params, (HEIGHT, WIDTH),
+             CHUNKS, None),
+            ("4K", main_path_4k, HOMOGRAPHY, params_4k, (H4K, W4K),
+             CHUNKS_4K, list(SEEDS_4K))):
+        t0 = time.perf_counter()
+        frames, poses = synth_streams(dev, CHUNK * chunks, MAIN_CONTENT,
+                                      *shape, seeds=seeds)
+        log(f"== {name} path's clip {frames.shape} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        result = run(frames, poses, prm, dev)
+        del frames
+        if result is None:
+            continue
+        launches, states, last_chunk = result
+        for kname in kernels:
+            if launches.get(kname, 0) > 0:
+                path_launches[kname] = launches[kname]
+        profile_chunk(states, last_chunk, prm, model)
         del states, last_chunk
+        torch.cuda.empty_cache()
     wide_jitter(params, dev)
     small_reference(dev)
 
-    if failures or launches is None or None in kernels:
-        log("chip_smoke: FAILED:\n  " + "\n  ".join(failures))
+    missing = [k for k, v in kernels.items()
+               if v is None or k not in path_launches]
+    if failures or missing or len(kernels) != 4:
+        log("chip_smoke: FAILED:\n  " + "\n  ".join(
+            failures + [f"{k}: not checked or not launched on its path"
+                        for k in missing]))
         return 1
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    for name, k in kernels.items():
+        k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in kernels]}))
+                                  for kern in kernels.values()]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

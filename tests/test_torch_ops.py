@@ -234,7 +234,7 @@ def test_config_mirrors_jax():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(selection="topk"), dict(phase_correlate=True), dict(fixed_iters=4),
+    dict(selection="topk"), dict(dtype="bfloat16"), dict(fixed_iters=4),
     dict(merge_coarse=2), dict(pair_vmap=True)])
 def test_unported_settings_raise(kwargs):
     with pytest.raises(NotImplementedError):
@@ -242,8 +242,22 @@ def test_unported_settings_raise(kwargs):
 
 
 def test_unported_output_interp_raises():
+    """An interpolation neither package has is refused; the global-base FIR
+    output warp is not ported and raises."""
+    with pytest.raises(ValueError):
+        tcfg.StabilizerParams(output_interp="bicubic")
     with pytest.raises(NotImplementedError):
-        tcfg.StabilizerParams(output_interp="lanczos2")
+        tcfg.StabilizerParams(output_warp="fir")
+
+
+def test_ported_settings_accepted():
+    """Phase-correlation init and the Lanczos2 output warp are ported, and
+    their params convert from the JAX package's."""
+    jp = jcfg.StabilizerParams(output_interp="lanczos2",
+                               aligner=jcfg.AlignerParams(
+                                   phase_correlate=True))
+    tp = tcfg.params_from_jax_dict(dataclasses.asdict(jp))
+    assert tp.output_interp == "lanczos2" and tp.aligner.phase_correlate
 
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

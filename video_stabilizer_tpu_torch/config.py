@@ -54,7 +54,6 @@ class AlignerParams:
                              f" got {self.gn_kernel!r}")
         unsupported = {
             "selection='topk'": self.selection == "topk",
-            "phase_correlate=True": self.phase_correlate,
             "fixed_iters": self.fixed_iters is not None,
             "merge_coarse>=2": self.merge_coarse >= 2,
             "pair_vmap=True": self.pair_vmap,
@@ -96,10 +95,6 @@ class StabilizerParams:
         if self.output_interp not in ("bilinear", "lanczos2"):
             raise ValueError(f"output_interp must be 'bilinear' or "
                              f"'lanczos2', got {self.output_interp!r}")
-        if self.output_interp == "lanczos2":
-            raise NotImplementedError(
-                "output_interp='lanczos2' is not implemented by the PyTorch "
-                "port")
         if self.output_warp not in ("auto", "pallas", "fir"):
             raise ValueError(f"output_warp must be 'auto', 'pallas' or "
                              f"'fir', got {self.output_warp!r}")

@@ -30,6 +30,9 @@ from video_stabilizer_tpu_torch.ops.patches import (
 from video_stabilizer_tpu_torch.ops.select import histogram_mask
 from video_stabilizer_tpu_torch.utils.spans import span
 
+# Pyramid level of the phase-correlation init (alignment.hpp:69).
+PHASE_LEVEL = 2
+
 
 @dataclasses.dataclass(frozen=True)
 class LevelSpec:
@@ -100,6 +103,20 @@ def _compute_keyframe(key_imgs, specs) -> Tuple[LevelKeyData, ...]:
     return tuple(out)
 
 
+def template_intensities(spec: LevelSpec, key: LevelKeyData, key_index,
+                         templates, template_index):
+    """(B, 2, N) f32 template intensities at each item's keyframe argmax
+    pixels; ``templates`` (M, h, w) u8, picked by ``template_index``."""
+    w, h = spec.width, spec.height
+    n = spec.ht * spec.wt
+    bsz = key_index.shape[0]
+    idx = torch.stack([key.idx_x, key.idx_y], dim=1)[key_index]
+    pos = tile_argmax_flat_index(idx, w, spec.tile).reshape(bsz, 2 * n)
+    flat_tmpl = templates.reshape(templates.shape[0], h * w)
+    tmpl = flat_tmpl[template_index[:, None], pos].reshape(bsz, 2, n)
+    return tmpl.to(torch.float32)
+
+
 def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
                    template_index, transform, params: AlignerParams):
     """Everything of one level before the GN loop, at the incoming transform:
@@ -109,16 +126,9 @@ def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
     jac_masked (B, 4, 2, N) with the ICA X/Y-set average folded in,
     hinv (B, 4, 4), ox, oy)."""
     w, h = spec.width, spec.height
-    n = spec.ht * spec.wt
     p = key.windows.shape[1]
-    bsz = transform.shape[0]
-
-    # Template intensities at the keyframe's argmax pixels.
-    idx = torch.stack([key.idx_x, key.idx_y], dim=1)[key_index]
-    pos = tile_argmax_flat_index(idx, w, spec.tile).reshape(bsz, 2 * n)
-    flat_tmpl = templates.reshape(templates.shape[0], h * w)
-    tmpl = flat_tmpl[template_index[:, None], pos].reshape(bsz, 2, n)
-    tmpl = tmpl.to(torch.float32)
+    tmpl = template_intensities(spec, key, key_index, templates,
+                                template_index)
     jac = key.jac[key_index]                                  # (B, 4, 2, N)
     ox, oy = window_origins_flat(spec.ht, spec.wt, spec.tile, spec.margin,
                                  device=transform.device)

@@ -10,7 +10,13 @@ non-keyframe) aligns against the previous pair's keyframe and reports the
 inverse; frame ``2k+1`` becomes the keyframe and aligns against frame
 ``2k`` directly (alignment.cpp:690-693).
 
-Streams ride a leading axis S everywhere.
+Streams ride a leading axis S everywhere. Both motion models share this
+machinery (``model="similarity"`` or ``"homography"``); ``model_ops`` gives
+the pieces that differ, as ``video_stabilizer_tpu.models.chunked._model_ops``
+does. With ``phase_correlate=True`` each alignment starts from the phase
+correlation of its frame against the previous frame at the phase level;
+the previous frame is known before any alignment runs, so the aligns of a
+chunk stay one batch.
 """
 
 from __future__ import annotations
@@ -23,12 +29,36 @@ from video_stabilizer_tpu_torch import transforms as T
 from video_stabilizer_tpu_torch.config import StabilizerParams
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import (
-    LevelKeyData, _compute_keyframe, align_all_levels, level_specs)
+    PHASE_LEVEL, LevelKeyData, _compute_keyframe, align_all_levels,
+    level_specs)
 from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
+from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
 from video_stabilizer_tpu_torch.utils.spans import span
+
+
+def model_ops(model: str) -> dict:
+    """The pieces of the pipeline that differ between the motion models:
+    parameter count, group algebra, keyframe precompute and level loop, and
+    where a translation sits: TX, TY in pixels for the similarity; p2, p5
+    normalized by the frame width for the homography."""
+    if model == "similarity":
+        return dict(nparams=4, compose=T.compose, inverse=T.inverse,
+                    mcd=T.max_corner_displacement,
+                    compute_keyframe=_compute_keyframe,
+                    align_all_levels=align_all_levels,
+                    translation=(2, 3), normalized=False)
+    if model == "homography":
+        from video_stabilizer_tpu_torch import homography as Hm
+        from video_stabilizer_tpu_torch.models import homography_aligner as ha
+        return dict(nparams=8, compose=Hm.compose, inverse=Hm.inverse,
+                    mcd=Hm.max_corner_displacement,
+                    compute_keyframe=ha._compute_keyframe_h,
+                    align_all_levels=ha.align_all_levels_h,
+                    translation=(2, 5), normalized=True)
+    raise ValueError(f"unknown motion model {model!r}")
 
 
 class PairCarry(NamedTuple):
@@ -38,21 +68,51 @@ class PairCarry(NamedTuple):
     key: tuple       # per level LevelKeyData
 
 
-def init_pair_carry(specs, streams: int, device) -> PairCarry:
+def init_pair_carry(specs, streams: int, device,
+                    model: str = "similarity") -> PairCarry:
     """The zero pre-stream aligner carry (no keyframe seen yet)."""
     zero_pyr = tuple(torch.zeros((streams, s.height, s.width),
                                  dtype=torch.uint8, device=device)
                      for s in specs)
-    return PairCarry(key_pyr=zero_pyr, key=_compute_keyframe(zero_pyr, specs))
+    return PairCarry(key_pyr=zero_pyr,
+                     key=model_ops(model)["compute_keyframe"](zero_pyr, specs))
 
 
-def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen):
+def _phase_inits(levels, carry: PairCarry, specs, params, ops):
+    """(S, T, P) initial transform of every frame: the phase correlation of
+    frame i against frame i - 1 (the carried keyframe for i = 0) at the
+    phase level, as ``_align_pair_step`` and ``_pair_step_h`` form it
+    (batch.py:146-153, aligner.py:455-474, homography_aligner.py:245-258):
+    shift * scale * flip, divided by the frame width for the normalized
+    homography, with flip -1 on keyframes (odd i) and the reference's scale
+    (1 << PHASE_LEVEL) / (1 << levels), an implicit extra 0.5, kept as it
+    is; the identity where the response is at or below the threshold."""
+    num_levels = len(specs)
+    lvl = min(PHASE_LEVEL, num_levels - 1)
+    cur = levels[lvl]                                        # (S, T, h, w)
+    prev = torch.cat([carry.key_pyr[lvl][:, None], cur[:, :-1]], dim=1)
+    shift, resp = phase_correlate(prev, cur)
+    scale = (1 << lvl) / float(1 << num_levels)
+    flip = torch.ones(cur.shape[1], device=cur.device)
+    flip[1::2] = -1.0
+    norm = float(specs[0].width) if ops["normalized"] else 1.0
+    t = torch.zeros(shift.shape[:-1] + (ops["nparams"],), device=cur.device)
+    for k, slot in enumerate(ops["translation"]):
+        t[..., slot] = shift[..., k] * scale * flip / norm
+    ok = (resp > params.phase_correlate_threshold)[..., None]
+    return torch.where(ok, t, torch.zeros_like(t))
+
+
+def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
+                model: str = "similarity"):
     """Align every frame of an even-length (S, T, H, W) u8 gray batch.
 
     ``pairs_seen`` (S,) is the global index of each stream's first pair
     (0 only at stream start: it masks the first frame's alignment).
-    Returns (new carry, meas (S, T, 4), success (S, T)).
+    Returns (new carry, meas (S, T, P), success (S, T)), P = 4 or 8.
     """
+    ops = model_ops(model)
+    npar = ops["nparams"]
     s_n, t_n, h, w = gray.shape
     if t_n % 2:
         raise ValueError(f"frame count {t_n} must be even")
@@ -65,7 +125,7 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen):
                  for lv in levels]
     pyr_b = [lv[:, 1::2] for lv in levels]
     with span("keyframe"):
-        key_b = _compute_keyframe(
+        key_b = ops["compute_keyframe"](
             [lv.reshape((s_n * p_n,) + lv.shape[2:]) for lv in pyr_b], specs)
         # Keyframes: the S carried ones, then the S*P new ones
         # (stream-major).
@@ -80,19 +140,24 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen):
     key_index = torch.stack([key_prev, key_new], dim=-1).reshape(-1)
     template_index = (s_idx * p_n + p_idx)[..., None].expand(
         s_n, p_n, 2).reshape(-1)
-    t0 = T.identity((s_n * t_n,), device=dev)
-    t, failed = align_all_levels(templates, template_index, key_all,
-                                 key_index, specs, params, t0)
-    t = t.reshape(s_n, p_n, 2, 4)
+    if params.phase_correlate:
+        with span("phase"):
+            t0 = _phase_inits(levels, carry, specs, params, ops)
+        t0 = t0.reshape(s_n * t_n, npar)
+    else:
+        t0 = torch.zeros((s_n * t_n, npar), device=dev)
+    t, failed = ops["align_all_levels"](templates, template_index, key_all,
+                                        key_index, specs, params, t0)
+    t = t.reshape(s_n, p_n, 2, npar)
     failed = failed.reshape(s_n, p_n, 2)
     t_a, t_b = t[:, :, 0], t[:, :, 1]
     failed_a, failed_b = failed[:, :, 0], failed[:, :, 1]
-    t_a = torch.where(failed_a[..., None], t_a, T.inverse(t_a))
+    t_a = torch.where(failed_a[..., None], t_a, ops["inverse"](t_a))
     pair_idx = pairs_seen.to(dev)[:, None] + p_idx
     ok_a = (pair_idx > 0) & ~failed_a
     t_a = torch.where((pair_idx > 0)[..., None], t_a, torch.zeros_like(t_a))
     ok_b = ~failed_b
-    meas = torch.stack([t_a, t_b], dim=2).reshape(s_n, t_n, 4)
+    meas = torch.stack([t_a, t_b], dim=2).reshape(s_n, t_n, npar)
     ok = torch.stack([ok_a, ok_b], dim=2).reshape(s_n, t_n)
 
     last = tuple(
@@ -105,15 +170,17 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen):
 
 
 def fold_jitter(accum, meas, smoothed, params: StabilizerParams, width: int,
-                height: int):
+                height: int, model: str = "similarity"):
     """One accumulator fold (stabilizer.cpp:48-87): jitter = meas o
-    smoothed^-1 folded into ``accum`` with displacement-based decay."""
+    smoothed^-1 folded into ``accum`` with displacement-based decay, which
+    multiplies every parameter of either model."""
+    ops = model_ops(model)
     if params.enable_smoother:
-        jitter = T.compose(meas, T.inverse(smoothed))
+        jitter = ops["compose"](meas, ops["inverse"](smoothed))
     else:
         jitter = meas
-    new = T.compose(accum, jitter)
-    disp = T.max_corner_displacement(new, width, height)[..., None]
+    new = ops["compose"](accum, jitter)
+    disp = ops["mcd"](new, width, height)[..., None]
     f = torch.clamp((disp - params.min_disp)
                     / (params.max_disp - params.min_disp), 0.0, 1.0)
     decay = torch.where(
@@ -125,15 +192,15 @@ def fold_jitter(accum, meas, smoothed, params: StabilizerParams, width: int,
 
 
 def smooth_trajectory(meas, params: StabilizerParams):
-    """Sliding-window TV-L1 smooth of (S, T, 4) measurements
+    """Sliding-window TV-L1 smooth of (S, T, P) measurements
     (smoother.cpp:91-113): output k smooths [max(0, k - lag), k + memory]
-    and takes element k. Returns (S, T - memory, 4)."""
-    s_n, t_total, _ = meas.shape
+    and takes element k. Returns (S, T - memory, P)."""
+    s_n, t_total, npar = meas.shape
     lag, memory = params.lag, params.smoother_memory
     window = lag + memory + 1
     n_out = t_total - memory
     if n_out <= 0:
-        return meas.new_zeros((s_n, 0, 4))
+        return meas.new_zeros((s_n, 0, npar))
     dev = meas.device
     ks = torch.arange(n_out, device=dev)
     starts = torch.clamp(ks - lag, min=0)
@@ -142,20 +209,21 @@ def smooth_trajectory(meas, params: StabilizerParams):
                          max=t_total - 1)
     wins = meas[:, gather].transpose(-1, -2)             # (S, n_out, 4, win)
     sm = tvl1_smooth(wins, params.lambda_, valid_len=valid[None, :, None])
-    middle = (ks - starts)[None, :, None, None].expand(s_n, n_out, 4, 1)
+    middle = (ks - starts)[None, :, None, None].expand(s_n, n_out, npar, 1)
     return torch.gather(sm, -1, middle)[..., 0]
 
 
 def accumulate_corrections(meas, success, smoothed, params: StabilizerParams,
-                           width: int, height: int):
+                           width: int, height: int,
+                           model: str = "similarity"):
     """The accumulator scan (stabilizer.cpp:32-88) in the streaming event
     order: a failure at step i resets the accumulator; from i >= lag,
     measurement i - lag folds with smoothed[i - memory]. Returns the
-    (S, T - lag, 4) correction of each output frame."""
-    s_n, t_total, _ = meas.shape
+    (S, T - lag, P) correction of each output frame."""
+    s_n, t_total, npar = meas.shape
     lag = params.lag
     offset = lag - params.smoother_memory
-    accum = meas.new_zeros((s_n, 4))
+    accum = meas.new_zeros((s_n, npar))
     accums = []
     for i in range(t_total):
         accum = torch.where(success[:, i, None], accum,
@@ -164,32 +232,41 @@ def accumulate_corrections(meas, success, smoothed, params: StabilizerParams,
         if m >= 0:
             sm = smoothed[:, min(m + offset, smoothed.shape[1] - 1)] \
                 if params.enable_smoother else None
-            accum = fold_jitter(accum, meas[:, m], sm, params, width, height)
+            accum = fold_jitter(accum, meas[:, m], sm, params, width, height,
+                                model)
             accums.append(accum)
     return torch.stack(accums, dim=1)
 
 
 def warp_delayed(delayed, accums, params: StabilizerParams, width: int,
-                 height: int):
+                 height: int, model: str = "similarity"):
     """Warp + crop a batch of delayed frames by their accumulated
-    corrections in ONE launch of kernel A. ``delayed``: (..., H, W[, C]) u8,
-    ``accums``: (..., 4)."""
-    t_ul = T.center_to_ul(accums.to(torch.float32), width, height,
-                          minus_one=True)
+    corrections in ONE launch of kernel A, in ``params.output_interp``.
+    ``delayed``: (..., H, W[, C]) u8, ``accums``: (..., P). A similarity
+    correction samples through its origin-based form; a homography
+    correction is the sampling homography itself
+    (homography_aligner.py:392-394)."""
+    accums = accums.to(torch.float32)
+    if model == "similarity":
+        t_s = T.center_to_ul(accums, width, height, minus_one=True)
+    else:
+        t_s = accums
     squeeze = delayed.shape[-1] != 3 and delayed.dim() == accums.dim() + 1
     if squeeze:
         delayed = delayed[..., None]
     batch_shape = delayed.shape[:-3]
     out = warp_frames(delayed.reshape((-1,) + delayed.shape[-3:]),
-                      t_ul.reshape(-1, 4).contiguous(), params.crop_pixels)
+                      t_s.reshape(-1, t_s.shape[-1]).contiguous(),
+                      params.crop_pixels, interp=params.output_interp,
+                      model=model)
     out = out.reshape(batch_shape + out.shape[1:])
     return out[..., 0] if squeeze else out
 
 
 def stabilize_clip_core(frames, params: StabilizerParams, width: int,
-                        height: int):
+                        height: int, model: str = "similarity"):
     """Align, smooth and accumulate an (S, T, H, W[, 3]) u8 batch: returns
-    (delayed (S, T - lag, ...), accums (S, T - lag, 4), meas (S, T, 4),
+    (delayed (S, T - lag, ...), accums (S, T - lag, P), meas (S, T, P),
     success (S, T))."""
     t_in = frames.shape[1]
     if t_in <= params.lag:
@@ -200,19 +277,21 @@ def stabilize_clip_core(frames, params: StabilizerParams, width: int,
     if t_in % 2:
         gray = torch.cat([gray, gray[:, -1:]], dim=1)
     specs = level_specs(width, height, params.aligner)
-    carry = init_pair_carry(specs, frames.shape[0], frames.device)
+    carry = init_pair_carry(specs, frames.shape[0], frames.device, model)
     pairs_seen = torch.zeros(frames.shape[0], dtype=torch.int32,
                              device=frames.device)
-    _, meas, ok = align_pairs(gray, specs, params.aligner, carry, pairs_seen)
+    _, meas, ok = align_pairs(gray, specs, params.aligner, carry, pairs_seen,
+                              model)
     meas, ok = meas[:, :t_in], ok[:, :t_in]
     smoothed = smooth_trajectory(meas, params) if params.enable_smoother \
         else meas
-    accums = accumulate_corrections(meas, ok, smoothed, params, width, height)
+    accums = accumulate_corrections(meas, ok, smoothed, params, width, height,
+                                    model)
     return frames[:, :t_in - params.lag], accums, meas, ok
 
 
-def align_clip(frames, params=None, device=None):
-    """(T, H, W) or (T, H, W, 3) u8 clip -> (meas (T, 4), success (T,)),
+def align_clip(frames, params=None, device=None, model: str = "similarity"):
+    """(T, H, W) or (T, H, W, 3) u8 clip -> (meas (T, P), success (T,)),
     per-frame motion from the previous frame; the first frame is reported
     unsuccessful like the streaming path."""
     from video_stabilizer_tpu_torch.config import AlignerParams
@@ -224,27 +303,28 @@ def align_clip(frames, params=None, device=None):
     if t_in % 2:
         gray = torch.cat([gray, gray[:, -1:]], dim=1)
     specs = level_specs(w, h, params)
-    carry = init_pair_carry(specs, 1, dev)
+    carry = init_pair_carry(specs, 1, dev, model)
     pairs_seen = torch.zeros(1, dtype=torch.int32, device=dev)
-    _, meas, ok = align_pairs(gray, specs, params, carry, pairs_seen)
+    _, meas, ok = align_pairs(gray, specs, params, carry, pairs_seen, model)
     return meas[0, :t_in], ok[0, :t_in]
 
 
 def stabilize_streams(frames, params: StabilizerParams = StabilizerParams(),
-                      device=None):
+                      device=None, model: str = "similarity"):
     """(S, T, H, W[, 3]) u8 -> (stabilized (S, T - lag, H - 2c, W - 2c[, 3])
-    u8, meas (S, T, 4), success (S, T)); the warp runs once over the whole
+    u8, meas (S, T, P), success (S, T)); the warp runs once over the whole
     (S, T - lag) batch."""
     dev = resolve_device(device)
     frames = torch.as_tensor(frames).to(dev)
     h, w = frames.shape[2], frames.shape[3]
-    delayed, accums, meas, ok = stabilize_clip_core(frames, params, w, h)
-    return warp_delayed(delayed, accums, params, w, h), meas, ok
+    delayed, accums, meas, ok = stabilize_clip_core(frames, params, w, h,
+                                                    model)
+    return warp_delayed(delayed, accums, params, w, h, model), meas, ok
 
 
 def stabilize_clip(frames, params: StabilizerParams = StabilizerParams(),
-                   device=None):
+                   device=None, model: str = "similarity"):
     """(T, H, W[, 3]) u8 clip -> (stabilized (T - lag, ...), meas, success)."""
     out, meas, ok = stabilize_streams(torch.as_tensor(frames)[None], params,
-                                      device)
+                                      device, model)
     return out[0], meas[0], ok[0]

@@ -1,7 +1,9 @@
 """Chunked streaming-batch stabilization: unbounded streams at batch speed.
 
-Port of ``video_stabilizer_tpu.models.chunked`` (similarity model). A
-fixed-size ``StreamState`` carries across successive even-length chunks:
+Port of ``video_stabilizer_tpu.models.chunked``, for the similarity model
+(4 parameters) and the 8-DOF homography model (``model="homography"``,
+``batch.model_ops``). A fixed-size ``StreamState`` carries across successive
+even-length chunks:
 
   - the aligner's keyframe carry and the global pair counter,
   - the trailing ``lag + smoother_memory`` measurements,
@@ -32,7 +34,8 @@ from video_stabilizer_tpu_torch.config import (  # noqa: F401 (re-export)
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import LevelKeyData, level_specs
 from video_stabilizer_tpu_torch.models.batch import (
-    PairCarry, align_pairs, fold_jitter, init_pair_carry, warp_delayed)
+    PairCarry, align_pairs, fold_jitter, init_pair_carry, model_ops,
+    warp_delayed)
 from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
 from video_stabilizer_tpu_torch.utils.spans import span
@@ -42,27 +45,28 @@ class StreamState(NamedTuple):
     """Fixed-size carried state of S stabilization streams."""
     pair: PairCarry              # aligner keyframe carry
     pairs_seen: torch.Tensor     # (S,) int32 global pair counter
-    meas_tail: torch.Tensor      # (S, lag + memory, 4) trailing measurements
-    accum: torch.Tensor          # (S, 4) accumulated correction
+    meas_tail: torch.Tensor      # (S, lag + memory, P) trailing measurements
+    accum: torch.Tensor          # (S, P) accumulated correction, P = 4 or 8
     frame_tail: torch.Tensor     # (S, lag, H, W[, C]) trailing input frames
     steps_seen: torch.Tensor     # (S,) int32 global frames consumed
 
 
 def init_stream_state(width: int, height: int, params: StabilizerParams,
                       channels: int = 3, streams: int = 1,
-                      device=None) -> StreamState:
+                      device=None, model: str = "similarity") -> StreamState:
     """The pre-stream state (zero history) of ``streams`` streams."""
     dev = resolve_device(device)
+    npar = model_ops(model)["nparams"]
     specs = level_specs(width, height, params.aligner)
     tail = params.lag + params.smoother_memory
     shape = ((streams, params.lag, height, width, channels) if channels
              else (streams, params.lag, height, width))
     zeros_i = torch.zeros(streams, dtype=torch.int32, device=dev)
     return StreamState(
-        pair=init_pair_carry(specs, streams, dev),
+        pair=init_pair_carry(specs, streams, dev, model),
         pairs_seen=zeros_i,
-        meas_tail=torch.zeros((streams, tail, 4), device=dev),
-        accum=torch.zeros((streams, 4), device=dev),
+        meas_tail=torch.zeros((streams, tail, npar), device=dev),
+        accum=torch.zeros((streams, npar), device=dev),
         frame_tail=torch.zeros(shape, dtype=torch.uint8, device=dev),
         steps_seen=zeros_i.clone(),
     )
@@ -75,7 +79,7 @@ def _chunk_smoothed(full_meas, steps_seen, tc: int, params: StabilizerParams):
     lag, memory = params.lag, params.smoother_memory
     tail_len = lag + memory
     window = tail_len + 1
-    s_n, m_total, _ = full_meas.shape
+    s_n, m_total, npar = full_meas.shape
     dev = full_meas.device
     js = torch.arange(tc, device=dev)[None, :]
     seen = steps_seen.to(torch.int64)[:, None]
@@ -85,22 +89,22 @@ def _chunk_smoothed(full_meas, steps_seen, tc: int, params: StabilizerParams):
     gather = torch.clamp(pos_start[..., None]
                          + torch.arange(window, device=dev), 0, m_total - 1)
     wins = torch.gather(
-        full_meas[:, None].expand(s_n, tc, m_total, 4), 2,
-        gather[..., None].expand(s_n, tc, window, 4))     # (S, tc, win, 4)
+        full_meas[:, None].expand(s_n, tc, m_total, npar), 2,
+        gather[..., None].expand(s_n, tc, window, npar))  # (S, tc, win, P)
     middle = torch.clamp(sm_g - start_g, min=0)
     valid = sm_g + memory - start_g + 1
     sm = tvl1_smooth(wins.transpose(-1, -2), params.lambda_,
-                     valid_len=valid[..., None])          # (S, tc, 4, win)
-    pick = middle[..., None, None].expand(s_n, tc, 4, 1)
+                     valid_len=valid[..., None])          # (S, tc, P, win)
+    pick = middle[..., None, None].expand(s_n, tc, npar, 1)
     return torch.gather(sm, -1, pick)[..., 0]
 
 
 def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
-                         width: int, height: int):
+                         width: int, height: int, model: str = "similarity"):
     """One chunk of S streams, everything up to (but excluding) the warp.
 
-    Returns (new_state, delayed (S, tc, H, W[, C]), accums (S, tc, 4),
-    meas (S, tc, 4), success (S, tc), out_valid (S, tc)).
+    Returns (new_state, delayed (S, tc, H, W[, C]), accums (S, tc, P),
+    meas (S, tc, P), success (S, tc), out_valid (S, tc)).
     """
     tc = frames.shape[1]
     if tc % 2:
@@ -114,7 +118,7 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
     with span("gray"):
         gray = bgr_to_gray_batched(frames)
     pair, meas_c, succ_c = align_pairs(gray, specs, params.aligner,
-                                       state.pair, state.pairs_seen)
+                                       state.pair, state.pairs_seen, model)
     full_meas = torch.cat([state.meas_tail, meas_c], dim=1)
     with span("smooth"):
         if params.enable_smoother:
@@ -135,7 +139,7 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
             accum = torch.where(succ_c[:, j, None], accum,
                                 torch.zeros_like(accum))
             folded = fold_jitter(accum, meas_m[:, j], smoothed[:, j], params,
-                                 width, height)
+                                 width, height, model)
             accum = torch.where(m_valid[:, j, None], folded, accum)
             accums.append(accum)
 
@@ -155,11 +159,12 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
 
 
 def stabilize_chunk_streams(states: StreamState, frames,
-                            params: StabilizerParams):
+                            params: StabilizerParams,
+                            model: str = "similarity"):
     """One chunk of S streams on the states' device, the whole (S, tc)
     batch warped in one launch of kernel A (chunked.py:245-258).
 
-    Returns (new_states, out (S, tc, H-2c, W-2c[, C]) u8, meas (S, tc, 4),
+    Returns (new_states, out (S, tc, H-2c, W-2c[, C]) u8, meas (S, tc, P),
     success (S, tc), out_valid (S, tc)): ``out_valid`` is False for the
     first ``lag`` outputs of a fresh stream.
     """
@@ -168,28 +173,31 @@ def stabilize_chunk_streams(states: StreamState, frames,
         frames = torch.as_tensor(frames).to(dev)
     h, w = frames.shape[2], frames.shape[3]
     new_states, delayed, accums, meas, succ, valid = stabilize_chunk_core(
-        states, frames, params, w, h)
+        states, frames, params, w, h, model)
     with span("warp"):
-        out = warp_delayed(delayed, accums, params, w, h)
+        out = warp_delayed(delayed, accums, params, w, h, model)
     return new_states, out, meas, succ, valid
 
 
 def stabilize_chunk_impl(state: StreamState, frames,
-                         params: StabilizerParams):
+                         params: StabilizerParams, model: str = "similarity"):
     """One chunk of ONE stream: ``state`` with S = 1, frames
     (tc, H, W[, C])."""
     new_state, out, meas, succ, valid = stabilize_chunk_streams(
-        state, torch.as_tensor(frames)[None], params)
+        state, torch.as_tensor(frames)[None], params, model)
     return new_state, out[0], meas[0], succ[0], valid[0]
 
 
 class ChunkedStabilizer:
     """Stateful wrapper: feed even-length chunks of (T, H, W, 3) u8 frames;
-    each call returns the stabilized outputs that became valid."""
+    each call returns the stabilized outputs that became valid. ``model``
+    selects the 4-DOF similarity or the 8-DOF homography family."""
 
     def __init__(self, params: StabilizerParams = StabilizerParams(),
-                 device=None):
+                 model: str = "similarity", device=None):
+        model_ops(model)
         self.params = params
+        self.model = model
         self.device = resolve_device(device)
         self._state = None
         self._shape = None
@@ -200,18 +208,19 @@ class ChunkedStabilizer:
         ch = frames.shape[3] if frames.dim() == 4 else 0
         if self._state is None or self._shape != (h, w, ch):
             self._state = init_stream_state(w, h, self.params, ch, 1,
-                                            self.device)
+                                            self.device, self.model)
             self._shape = (h, w, ch)
         self._state, out, meas, succ, valid = stabilize_chunk_impl(
-            self._state, frames, self.params)
+            self._state, frames, self.params, self.model)
         return out[valid], meas, succ
 
 
 def stabilize_stream_chunked(frames_bgr, params: StabilizerParams,
-                             chunk_size: int, device=None):
+                             chunk_size: int, model: str = "similarity",
+                             device=None):
     """Stabilize a (T, H, W[, C]) u8 stream in ``chunk_size``-frame chunks
     (T and chunk_size even). Returns numpy (stabilized (T - lag, ...),
-    meas (T, 4), success (T,)), the same as the clip path on those frames."""
+    meas (T, P), success (T,)), the same as the clip path on those frames."""
     dev = resolve_device(device)
     frames = torch.as_tensor(frames_bgr)
     t_total = frames.shape[0]
@@ -220,11 +229,11 @@ def stabilize_stream_chunked(frames_bgr, params: StabilizerParams,
                          f"chunk_size {chunk_size}")
     h, w = frames.shape[1], frames.shape[2]
     ch = frames.shape[3] if frames.dim() == 4 else 0
-    state = init_stream_state(w, h, params, ch, 1, dev)
+    state = init_stream_state(w, h, params, ch, 1, dev, model)
     outs, meas_all, succ_all = [], [], []
     for start in range(0, t_total, chunk_size):
         state, out, meas, succ, valid = stabilize_chunk_impl(
-            state, frames[start:start + chunk_size].to(dev), params)
+            state, frames[start:start + chunk_size].to(dev), params, model)
         outs.append(out[valid].cpu().numpy())
         meas_all.append(meas.cpu().numpy())
         succ_all.append(succ.cpu().numpy())
@@ -236,17 +245,25 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
-def stream_state_from_numpy(d, device=None) -> StreamState:
+def stream_state_from_numpy(d, model: str = "similarity",
+                            device=None) -> StreamState:
     """The port's StreamState from a JAX ``StreamState`` whose leaves are
     numpy arrays (e.g. ``jax.tree.map(np.asarray, state)``), or from a
-    mapping with the same field names. A single stream (scalar
+    mapping with the same field names; ``model`` names the family that
+    built it (its keyframes' ``LevelKeyDataH`` carry the same fields as
+    ``LevelKeyData``, with an 8-row Jacobian). A single stream (scalar
     ``pairs_seen``) gets a leading stream axis of 1; a stacked batch of
     streams keeps its leading axis."""
     dev = resolve_device(device)
+    npar = model_ops(model)["nparams"]
+    got = np.shape(_field(d, "accum"))[-1]
+    if got != npar:
+        raise ValueError(f"a {model} state carries {npar} parameters, this "
+                         f"one {got}")
     single = np.ndim(_field(d, "pairs_seen")) == 0
 
     def conv(x, dtype=None):
-        t = torch.as_tensor(np.asarray(x))
+        t = torch.from_numpy(np.array(x))
         if dtype is not None:
             t = t.to(dtype)
         return (t[None] if single else t).contiguous().to(dev)

@@ -2,8 +2,9 @@
 a plain C interface, at first use, and loads them with ctypes.
 
 Each source is compiled by its own ``nvcc`` for ``sm_90a`` into
-``build/lib<name>_<hash>.so``; the hash covers the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded. Nothing
+``build/lib<name>_<hash>.so``; the hash covers the source, every shared
+header of ``csrc/`` (``*.cuh``) and the flags, so an edited source or header
+is rebuilt and a stale library is never loaded. Nothing
 here runs at import time: the CPU tests import every module of the port.
 """
 
@@ -24,7 +25,7 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-SOURCES = ("warp", "gn_solve")
+SOURCES = ("warp", "gn_solve", "gn8_solve")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,8 +44,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 

@@ -1,0 +1,171 @@
+"""Per-level 8-DOF Gauss-Newton solve: kernel C of the port.
+
+``gn8_solve`` launches ``csrc/gn8_solve.cu`` for CUDA tensors and runs
+``gn8_solve_plain`` for CPU tensors. It replaces
+``video_stabilizer_tpu/ops/pallas_gn.py::_gn8_kernel`` (with ``_compose_h``,
+``_warp_corner_h`` and ``_tap_sample``), batched over items on a leading
+axis as kernel B is (``ops/gn_solve.py``): an item is one alignment at one
+level, and it names its keyframe through ``key_index``. See the source
+note in ``csrc/gn8_solve.cu`` for the bound and the design.
+
+The plain version is the XLA loop of
+``models/homography_aligner.py::_align_level_h`` (175-216) in PyTorch, with
+one host sync per iteration; it is the CPU path and the card's reference,
+never the main path on a card. Both take the keypoints already normalized
+(u, v), which the XLA loop rebuilds from the same pixel coordinates in
+every iteration with the same expressions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from video_stabilizer_tpu_torch import homography as Hm
+from video_stabilizer_tpu_torch.ops import cuda_build
+from video_stabilizer_tpu_torch.ops.gn_solve import gn_corners
+from video_stabilizer_tpu_torch.ops.patches import (
+    clamp_rel, sample_windows_flat)
+
+# Float32 operations of csrc/gn8_solve.cu per keypoint, set and iteration
+# (each add, multiply, divide, min, max, floor and bf16 rounding counted
+# once): the projective warp in normalized coordinates and back to pixels
+# (20), the window offset, clamp and floor (8), eight Lanczos2 weights
+# (8 x 16), their normalizer (7), the 4x4 taps of bf16 products (100), the
+# residual (2) and the eight terms of b (16).
+OPS_PER_SAMPLE = 281
+
+
+def warp_rel_positions_h(p, u, v, width: int, height: int, ox, oy,
+                         psize: int):
+    """Clamped window positions of normalized keypoints (u, v) (..., N)
+    under homographies ``p`` (..., 8) that the caller broadcast
+    (homography_aligner.py:116-123)."""
+    w_l, h_l = float(width), float(height)
+    wp = Hm.warp_norm(p, torch.stack([u, v], -1))
+    wx = wp[..., 0] * w_l + w_l * 0.5
+    wy = wp[..., 1] * w_l + h_l * 0.5
+    return clamp_rel(wx - ox, psize), clamp_rel(wy - oy, psize)
+
+
+def gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u, v, ox,
+                    oy, p_init, *, threshold: float, width: int, height: int,
+                    max_iters: int):
+    """Plain PyTorch version of kernel C: the masked XLA loop of
+    ``_align_level_h``, batched over items."""
+    psize = windows.shape[1]
+    kidx = key_index.to(torch.int64)
+    ui, vi = u[kidx], v[kidx]                            # (B, 2, N)
+    w_l, h_l = float(width), float(height)
+    corners = gn_corners(width, height, windows.device)
+    c0 = Hm.warp_points(p_init[:, None, :], corners, w_l, h_l)
+    p, prev = p_init, c0
+    conv = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    iters = torch.zeros(p.shape[0], dtype=torch.int32, device=p.device)
+    for _ in range(max_iters):
+        active = ~conv
+        if not bool(active.any()):
+            break
+        rel_x, rel_y = warp_rel_positions_h(p[:, None, None, :], ui, vi,
+                                            width, height, ox, oy, psize)
+        warped = sample_windows_flat(windows, rel_x, rel_y, key_index=kidx)
+        residual = tmpl - warped
+        bvec = (jac_masked * residual[:, None]).sum(dim=(2, 3))   # (B, 8)
+        dt = (hinv * bvec[:, None, :]).sum(dim=-1)
+        p_new = Hm.compose(dt, p)
+        new_c = Hm.warp_points(p_new[:, None, :], corners, w_l, h_l)
+        disp12 = torch.linalg.vector_norm(new_c - prev, dim=-1).amax(dim=-1)
+        p = torch.where(active[:, None], p_new, p)
+        prev = torch.where(active[:, None, None], new_c, prev)
+        iters = iters + active.to(torch.int32)
+        conv = conv | (active & (disp12 < threshold))
+    disp01 = torch.linalg.vector_norm(prev - c0, dim=-1).amax(dim=-1)
+    return p, conv, disp01, iters
+
+
+def _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy, p_init):
+    k, p, _, n = windows.shape
+    bsz = p_init.shape[0]
+    want = {
+        "windows": (windows, (k, p, p, n), torch.uint8),
+        "key_index": (key_index, (bsz,), None),
+        "tmpl": (tmpl, (bsz, 2, n), torch.float32),
+        "jac_masked": (jac_masked, (bsz, 8, 2, n), torch.float32),
+        "hinv": (hinv, (bsz, 8, 8), torch.float32),
+        "u": (u, (k, 2, n), torch.float32),
+        "v": (v, (k, 2, n), torch.float32),
+        "ox": (ox, (n,), torch.float32),
+        "oy": (oy, (n,), torch.float32),
+        "p_init": (p_init, (bsz, 8), torch.float32),
+    }
+    for name, (x, shape, dtype) in want.items():
+        if tuple(x.shape) != shape or (dtype is not None
+                                       and x.dtype != dtype):
+            raise ValueError(f"{name}: want {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != windows.device:
+            raise ValueError(f"{name} is on {x.device}, windows on "
+                             f"{windows.device}")
+
+
+def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
+              p_init, *, threshold: float, width: int, height: int,
+              max_iters: int):
+    """Run one level's whole 8-DOF GN loop for every item.
+
+    Args:
+      windows: (K, P, P, N) u8 keyframe sampling windows.
+      key_index: (B,) integer keyframe of each item.
+      tmpl: (B, 2, N) f32 template intensities.
+      jac_masked: (B, 8, 2, N) f32 masked Jacobian rows.
+      hinv: (B, 8, 8) f32 regularized inverse Hessians.
+      u, v: (K, 2, N) f32 keypoints in centered width-normalized coords.
+      ox, oy: (N,) f32 window origins in pixels.
+      p_init: (B, 8) f32 initial homographies.
+    Returns:
+      (p (B, 8) f32, converged (B,) bool, disp01 (B,) f32, iters (B,) i32).
+    """
+    _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy, p_init)
+    kwargs = dict(threshold=threshold, width=width, height=height,
+                  max_iters=max_iters)
+    dev = windows.device
+    if dev.type == "cpu":
+        return gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u,
+                               v, ox, oy, p_init, **kwargs)
+    if dev.type != "cuda":
+        raise ValueError(f"gn8_solve runs on cuda or cpu, not {dev}")
+    args = [windows, key_index.to(torch.int32).contiguous(), tmpl,
+            jac_masked, hinv, u, v, ox, oy, p_init]
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("gn8_solve needs contiguous operands")
+    bsz = p_init.shape[0]
+    _, p, _, n = windows.shape
+    p_out = torch.empty((bsz, 8), dtype=torch.float32, device=dev)
+    conv = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    disp01 = torch.empty((bsz,), dtype=torch.float32, device=dev)
+    iters = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    # The convergence corners in normalized coordinates, formed in double
+    # and rounded once, as gn8_solve_pallas forms them.
+    w_l, h_l = float(width), float(height)
+    cx, cy = w_l * 0.5, h_l * 0.5
+    corners = [((x - cx) / w_l, (y - cy) / w_l)
+               for x, y in ((0.0, 0.0), (w_l - 1.0, 0.0), (0.0, h_l - 1.0),
+                            (w_l - 1.0, h_l - 1.0))]
+    fn = cuda_build.load("gn8_solve").vs_gn8_solve
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 13 + [ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*(x.data_ptr() for x in args + [p_out, conv, disp01, iters]),
+             bsz, p, n, w_l, cx, cy, *(c[0] for c in corners),
+             *(c[1] for c in corners), p - 3.0 - 1e-3, threshold, max_iters,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"gn8_solve kernel launch failed: CUDA error "
+                           f"{err}")
+    gn8_solve.launches += 1
+    return p_out, conv.to(torch.bool), disp01, iters
+
+
+gn8_solve.launches = 0

@@ -2,9 +2,12 @@
 
 ``warp_frames`` launches ``csrc/warp.cu`` for a CUDA tensor and runs
 ``warp_frames_plain`` for a CPU tensor. It replaces
-``video_stabilizer_tpu/ops/pallas_warp.py::_warp_kernel`` in its similarity +
-bilinear form (the main path's); see the source note in ``csrc/warp.cu`` for
-what it computes, what bounds it on the card and how the design meets it.
+``video_stabilizer_tpu/ops/pallas_warp.py::_warp_kernel`` in each of its
+forms: the sampling transform is a 4-parameter origin-based similarity or
+an 8-parameter normalized homography (``model``), and the interpolation is
+bilinear or weight-normalized Lanczos2 (``interp``). See the source note in
+``csrc/warp.cu`` for what it computes, what bounds it on the card and how
+the design meets it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import ctypes
 import torch
 
 from video_stabilizer_tpu_torch.ops import cuda_build
+from video_stabilizer_tpu_torch.ops.lanczos import lanczos2
 
 TILE_H = 216          # the Pallas grid's output tile: part of the contract
 TILE_W = 512
@@ -22,28 +26,76 @@ LOCAL_BOUND = 3       # residual bound m after the per-tile base
 _XT = LOCAL_BOUND + 2
 _PAD_LO = MAX_SHIFT + _XT + 128   # fixes the Pallas kernel's row remainder
 MAX_CHANNELS = 4
+MODELS = {"similarity": (0, 4), "homography": (1, 8)}   # (code, parameters)
+INTERPS = {"bilinear": 0, "lanczos2": 1}
 
 
-def OPS_PER_PIXEL(channels: int) -> int:
+def OPS_PER_PIXEL(channels: int, interp: str = "bilinear",
+                  model: str = "similarity") -> int:
     """Float32 operations of csrc/warp.cu per output pixel (each add,
-    multiply, min, max, abs, floor and rint counted once): the x position
-    and its residual (9), then for each of the two x taps its weight, read
-    column, y residual and two y taps of 2 ops per channel (25 + 6 C),
-    and the rounding and clamp of each channel (3 C)."""
-    return 9 + 2 * (25 + 6 * channels) + 3 * channels
+    multiply, divide, min, max, abs, floor and rint counted once).
+
+    A sample position takes 4 (similarity, after 1 + a) or 17 (homography:
+    normalized coordinates, numerator, denominator, its reciprocal, back to
+    pixels) ops per coordinate. A weight takes 4 (bilinear hat) or 16
+    (Lanczos2 polynomial). The x position and its residual: 5 + 4 or
+    17 + 4. Per x tap: its weight, read column (2), y position, y residual
+    (4), row offset (2) and floor (1), then per y tap its weight, 2 ops per
+    channel and, for Lanczos2, 1 for the y normalizer; then 2 ops per
+    channel and, for Lanczos2, 2 for the normalizer. Lanczos2 ends with the
+    clamp of the normalizer and a division per channel; every form with
+    the rounding and clamp of each channel (3 per channel)."""
+    lanczos = interp == "lanczos2"
+    taps, wt, dn = (4, 16, 1) if lanczos else (2, 4, 0)
+    pos_x, pos_y = (5, 4) if model == "similarity" else (17, 17)
+    per_y = wt + 2 * channels + dn
+    per_x = wt + 2 + pos_y + 4 + 2 + 1 + taps * per_y + 2 * channels + 2 * dn
+    tail = (1 + channels if lanczos else 0) + 3 * channels
+    return pos_x + 4 + taps * per_x + tail
 
 
 def _hat(t):
     return torch.clamp(1.0 - torch.abs(t), min=0.0)
 
 
-def warp_frames_plain(frames, ts, crop: int = 0):
-    """Plain PyTorch version of kernel A: same per-pixel arithmetic, in the
-    same f32 order, with the two non-zero bilinear taps per axis gathered."""
+def _positions(ts, rows, cols, model: str, width: int, height: int):
+    """Sampling positions (wx, wy) of output pixels (rows, cols) under the
+    per-frame transforms ``ts`` (B, P): pallas_warp.py:91-114, in the same
+    f32 order."""
+    bsz = ts.shape[0]
+    t = [ts[:, k].to(torch.float32).reshape(bsz, 1, 1)
+         for k in range(ts.shape[1])]
+    if model == "similarity":
+        a, b, tx, ty = t
+        pa = 1.0 + a
+        return pa * cols - b * rows + tx, b * cols + pa * rows + ty
+    img_w, img_h = float(width), float(height)
+    cx, cy = img_w * 0.5, img_h * 0.5
+    inv_w = 1.0 / img_w
+    u = (cols - cx) * inv_w
+    v = (rows - cy) * inv_w
+    num_x = (1.0 + t[0]) * u + t[1] * v + t[2]
+    num_y = t[3] * u + (1.0 + t[4]) * v + t[5]
+    den = t[6] * u + t[7] * v + 1.0
+    inv_den = 1.0 / den
+    return num_x * inv_den * img_w + cx, num_y * inv_den * img_w + cy
+
+
+def warp_frames_plain(frames, ts, crop: int = 0, interp: str = "bilinear",
+                      model: str = "similarity"):
+    """Plain PyTorch version of kernel A: the same per-pixel arithmetic, in
+    the same f32 order, with the taps of non-zero weight gathered (2 per
+    axis for bilinear, the <= 4 with |argument| < 2 for Lanczos2). A tap
+    outside the frame reads 0, and its Lanczos2 weight still counts in the
+    normalizer, as the Pallas kernel's zero-padded source gives."""
     bsz, h, w, c = frames.shape
     dev = frames.device
     f32 = torch.float32
     m = float(LOCAL_BOUND)
+    lanczos = interp == "lanczos2"
+    weight = lanczos2 if lanczos else _hat
+    ntaps = 4 if lanczos else 2
+    first = -1 if lanczos else 0
     ho, wo = h - 2 * crop, w - 2 * crop
     r = torch.arange(crop, crop + ho, device=dev)[None, :, None]
     col = torch.arange(crop, crop + wo, device=dev)[None, None, :]
@@ -51,56 +103,69 @@ def warp_frames_plain(frames, ts, crop: int = 0):
     x0 = (col // TILE_W) * TILE_W
     y0f, x0f = y0.to(f32), x0.to(f32)
     rowf, colf = r.to(f32), col.to(f32)
-    a, b, tx, ty = (ts[:, k].to(f32).reshape(bsz, 1, 1) for k in range(4))
-    pa = 1.0 + a
+
+    def positions(rows, cols):
+        return _positions(ts, rows, cols, model, w, h)
 
     # Integer base of each pixel's 216x512 tile: the warp at the tile centre.
     xc = x0f + TILE_W * 0.5
     yc = y0f + TILE_H * 0.5
-    wxc = pa * xc - b * yc + tx
-    wyc = b * xc + pa * yc + ty
+    wxc, wyc = positions(yc, xc)
     kxf = torch.clamp(torch.round(wxc - xc), -MAX_SHIFT, MAX_SHIFT)
     kyf = torch.clamp(torch.round(wyc - yc), -MAX_SHIFT, MAX_SHIFT)
     kx, ky = kxf.to(torch.int64), kyf.to(torch.int64)
     qy = (y0 + ky + _PAD_LO - _XT) % 8
     qyf = qy.to(f32)
 
-    wx = pa * colf - b * rowf + tx
+    wx = positions(rowf, colf)[0]
     rx = torch.clamp((wx - colf) - kxf, -m, m)
-    e0 = torch.floor(rx)
+    e0 = torch.floor(rx) + first
     flat_src = frames.reshape(-1, c)
     bidx = torch.arange(bsz, device=dev).reshape(bsz, 1, 1)
     out = torch.zeros((bsz, ho, wo, c), dtype=f32, device=dev)
-    for k in range(2):
+    den = torch.zeros((bsz, ho, wo), dtype=f32, device=dev)
+    for k in range(ntaps):
         e = e0 + k
-        wgt = _hat(rx - e)
+        wgt = weight(rx - e)
         u = (colf - x0f) + _XT + e
         colr = (u - _XT) + x0f
-        wy = b * colr + pa * rowf + ty
+        wy = positions(rowf, colr)[1]
         ry = torch.clamp((wy - rowf) - kyf, -m, m)
         ry_eff = (ry + _XT) + qyf
-        d0 = torch.floor(ry_eff)
+        d0 = torch.floor(ry_eff) + first
         sc = col + kx + e.to(torch.int64)
         tmp = torch.zeros_like(out)
-        for l in range(2):
+        den_y = torch.zeros_like(den)
+        for l in range(ntaps):
             d = d0 + l
-            wyw = _hat(ry_eff - d)
+            wyw = weight(ry_eff - d)
             sr = r + ky - _XT - qy + d.to(torch.int64)
             inside = (sr >= 0) & (sr < h) & (sc >= 0) & (sc < w)
             idx = (bidx * h + sr.clamp(0, h - 1)) * w + sc.clamp(0, w - 1)
             v = flat_src[idx].to(f32) * inside[..., None]
             tmp = tmp + wyw[..., None] * v
+            den_y = den_y + wyw
         out = out + wgt[..., None] * tmp
+        den = den + wgt * den_y
+    if lanczos:
+        out = out / torch.clamp(den, min=1e-6)[..., None]
     return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
 
 
-def _check(frames, ts, crop):
+def _check(frames, ts, crop, interp, model):
+    if model not in MODELS:
+        raise ValueError(f"model must be one of {sorted(MODELS)}, got "
+                         f"{model!r}")
+    if interp not in INTERPS:
+        raise ValueError(f"interp must be one of {sorted(INTERPS)}, got "
+                         f"{interp!r}")
     if frames.dtype != torch.uint8 or frames.dim() != 4:
         raise ValueError(f"frames must be (B, H, W, C) uint8, got "
                          f"{tuple(frames.shape)} {frames.dtype}")
     bsz, h, w, c = frames.shape
-    if ts.shape != (bsz, 4) or ts.dtype != torch.float32:
-        raise ValueError(f"ts must be ({bsz}, 4) float32, got "
+    npar = MODELS[model][1]
+    if ts.shape != (bsz, npar) or ts.dtype != torch.float32:
+        raise ValueError(f"ts must be ({bsz}, {npar}) float32, got "
                          f"{tuple(ts.shape)} {ts.dtype}")
     if ts.device != frames.device:
         raise ValueError("frames and ts must be on one device")
@@ -110,19 +175,26 @@ def _check(frames, ts, crop):
         raise ValueError(f"at most {MAX_CHANNELS} channels, got {c}")
 
 
-def warp_frames(frames, ts, crop: int = 0):
-    """Batched dst(p) = bilinear(src, W(p)) with zero border, cropped.
+def warp_frames(frames, ts, crop: int = 0, interp: str = "bilinear",
+                model: str = "similarity"):
+    """Batched dst(p) = interp(src, W(p)) with zero border, cropped.
 
     Args:
       frames: (B, H, W, C) u8.
-      ts: (B, 4) float32 origin-based sampling similarity [a, b, tx, ty].
+      ts: (B, 4) float32 origin-based sampling similarity [a, b, tx, ty],
+        or (B, 8) float32 normalized sampling homography with
+        ``model="homography"``.
       crop: pixels cut from each side of the output.
+      interp: "bilinear" or "lanczos2" (normalized by its weight sum).
     Returns:
       (B, H - 2*crop, W - 2*crop, C) u8.
+
+    Each launch adds one to ``warp_frames.launches`` and to
+    ``warp_frames.form_launches[(model, interp)]``.
     """
-    _check(frames, ts, crop)
+    _check(frames, ts, crop, interp, model)
     if frames.device.type == "cpu":
-        return warp_frames_plain(frames, ts, crop)
+        return warp_frames_plain(frames, ts, crop, interp, model)
     if frames.device.type != "cuda":
         raise ValueError(f"warp_frames runs on cuda or cpu, not "
                          f"{frames.device}")
@@ -132,17 +204,26 @@ def warp_frames(frames, ts, crop: int = 0):
     lib = cuda_build.load("warp")
     fn = lib.vs_warp_frames
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
+        [ctypes.c_float, ctypes.c_void_p]
     out = torch.empty((bsz, h - 2 * crop, w - 2 * crop, c), dtype=torch.uint8,
                       device=frames.device)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
     err = fn(frames.data_ptr(), ts.data_ptr(), out.data_ptr(), bsz, h, w, c,
-             crop, stream)
+             crop, MODELS[model][0], INTERPS[interp], 1.0 / w, stream)
     if err != 0:
         raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
     warp_frames.launches += 1
+    form = (model, interp)
+    warp_frames.form_launches[form] = warp_frames.form_launches.get(form,
+                                                                    0) + 1
     return out
 
 
-warp_frames.launches = 0
+def reset_launches():
+    """Set kernel A's launch counts to 0."""
+    warp_frames.launches = 0
+    warp_frames.form_launches = {}
+
+
+reset_launches()
