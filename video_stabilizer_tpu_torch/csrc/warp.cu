@@ -2,42 +2,69 @@
 // zero border, u8 HWC in and out, with the stabilizer's crop fused into the
 // output indexing. W is a 4-parameter origin-based similarity or an
 // 8-parameter normalized homography; interp is bilinear or Lanczos2
-// normalized by its weight sum. One template instance per (model, interp).
+// normalized by its weight sum. One template instance per (model, interp,
+// channel count).
 //
 // Replaces video_stabilizer_tpu/ops/pallas_warp.py::_warp_kernel
-// (qy_mode="taps"). It computes what that kernel computes, not how: each
-// 216x512 output tile of the Pallas grid removes its own integer base (the
-// warp at the tile centre, rounded half to even and clipped to +-192), then
-// a separable FIR with residual bound m = 3 runs, y pass first. The y-pass
-// weight is evaluated at the READ column x0 + u - xt, the x-pass weight at
-// the output column. The 216x512 grid is part of the contract: a CUDA block
-// here is 32x8 pixels, but every pixel uses the base of the 216x512 tile it
-// lies in. The Pallas kernel's (8, 128) DMA rounding leaves one trace in the
-// arithmetic: the row remainder qy, which shifts the argument of the y
-// weight by an exact integer whose f32 rounding the result depends on; it
-// is reproduced below.
+// (qy_mode="taps"). What it computes: each 216x512 tile of the Pallas grid,
+// in source coordinates (r, c), removes its own integer base (kx, ky): the
+// warp at the tile centre, rounded half to even and clipped to +-192. A
+// separable FIR with residual bound m = 3 follows, y pass first. The y-pass
+// value at (row r, read column u) depends on r and u alone: its weight is
+// evaluated at the READ column x0 + u - xt, not at the output column that
+// uses it. The x pass weighs those values at the output column. The
+// Pallas kernel's (8, 128) DMA rounding leaves one trace in the arithmetic:
+// the row remainder qy, an exact integer added to the y argument whose f32
+// rounding the result depends on; it is reproduced below.
 //
 // Homography positions (pallas_warp.py:99-114): u = (x - W/2) * (1/W),
 // v = (y - H/2) * (1/W), then num * (1/den) * W + W/2, in that order.
 //
-// Only the taps with non-zero weight are read: 2 per axis for bilinear, the
-// <= 4 with |argument| < 2 for Lanczos2. Every other tap of the Pallas FIR
-// adds an exact 0.0, so skipping them keeps the f32 sums bit for bit as
-// long as the kept taps stay in ascending order. Reads outside the image
-// give 0, so no padded copy of the frame is made; a Lanczos2 tap there
-// still adds its weight to the normalizer, as the zero-padded Pallas source
-// does: den_y is the sum of the y weights at each read column, den =
-// sum_e wx_e * den_y, and the output is out / max(den, 1e-6). Built with
-// -fmad=false (a contracted a*b+c moves u8 rounding at .5 boundaries) and
-// IEEE division.
+// Structure. A block of 128 threads covers BH x BW = 8 x 128 output pixels
+// of one frame, aligned to the tile grid, so the block lies inside one tile
+// (216 and 512 are multiples of 8 and 128); pixels in the crop border and
+// past the frame are masked. Per block:
+//   1. thread 0 computes the tile's kx, ky and qy once;
+//   2. the source window the taps can reach, (BH + span - 1) rows x
+//      (BW + span - 1) columns x C around (r0 + ky, c0 + kx), is staged in
+//      shared memory with 16-byte loads (span = 8 bilinear, 10 Lanczos2).
+//      Each shared row starts at its global row's address mod 16, so whole
+//      aligned chunks copy as they are; bytes outside the frame are written
+//      as 0, which is the zero border, and no padded copy of the frame is
+//      made;
+//   3. the y pass computes tmp[ch][row][u] (and, for Lanczos2, the y weight
+//      sum den_y[row][u]) once per (row, read column) into shared memory;
+//   4. the x pass, one thread per output pixel, computes the x position
+//      once and sums its 2 or 4 tmp values;
+//   5. the u8 results are staged in shared memory (over the window) with
+//      the same mod-16 row offset, and the block's output row segments leave
+//      as 16-byte stores, byte stores only at their ends.
+// The channel count is a template parameter, so every per-channel array is
+// in registers.
 //
-// Bound on an H100: bytes. Each output pixel reads at most 4x4 source
-// pixels that neighbouring threads share through L1/L2, so the traffic the
-// card must carry is one read of every frame and one write of every cropped
-// output (at 4K, 2 streams x 16 frames: 32 x (24.9 MB + 23.7 MB)). The
-// design keeps to one pass with no intermediate in device memory; the
-// Lanczos2 homography form also spends about 600 float operations per
-// pixel (ops/warp_kernel.py::OPS_PER_PIXEL), 6x the bilinear similarity's.
+// The f32 order is that of the per-pixel loop (warp_kernel.py::
+// warp_frames_plain): taps in ascending order, products and sums rounded
+// one by one (-fmad=false), rintf, IEEE division. A tap whose weight is 0,
+// or that reads outside the frame (a 0 in the window), adds an exact +-0.0,
+// which leaves the sum as it was, so the result is the same whether or not
+// it is skipped; a Lanczos2 tap outside the frame still adds its weight to
+// den_y, as the Pallas kernel's zero-padded source does. den = sum_e wx_e *
+// den_y, and the output is out / max(den, 1e-6).
+//
+// Bound on an H100: bytes for the bilinear forms (one read of every frame,
+// one write of every cropped output), float operations for the Lanczos2
+// forms (~220 per output pixel with the similarity, ~250 with the
+// homography, at 3 channels: ops/warp_kernel.py::OPS_PER_PIXEL). With
+// -fmad=false every product and sum is its own instruction, so an
+// operation-bound form can reach at best about half the 67 TFLOP/s figure.
+//
+// ptxas -v (sm_90a, CUDA 12.8; chip_smoke.py phase 1 prints it and fails
+// otherwise): every instance has a 0-byte stack frame and no spills.
+// Registers for C = 1, 2, 3, 4 and static shared memory in bytes:
+//   similarity + bilinear   32 39 40 41   6832 13072 19552 25792
+//   similarity + Lanczos2   35 40 43 48  11600 18432 24992 31824
+//   homography + bilinear   40 48 48 53   6832 13072 19552 25792
+//   homography + Lanczos2   47 48 52 53  11600 18432 24992 31824
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +80,11 @@ constexpr int M = 3;                          // residual bound after the base
 constexpr int XT = M + 2;                     // tap reach per side
 constexpr int PAD_LO = MAX_SHIFT + XT + 128;  // the Pallas source's low pad
 constexpr int MAX_C = 4;
+constexpr int BH = 8;                         // output rows of a block
+constexpr int BW = 128;                       // output columns of a block
+constexpr int THREADS = 128;
+static_assert(TILE_H % BH == 0 && TILE_W % BW == 0,
+              "a block must lie inside one tile");
 
 __device__ __forceinline__ float hat(float t) {
   return fmaxf(0.0f, 1.0f - fabsf(t));
@@ -106,118 +138,261 @@ struct Warp<1> {  // normalized homography p0..p7
 constexpr int BILINEAR = 0;
 constexpr int LANCZOS2 = 1;
 
-template <int MODEL, int INTERP>
-__global__ void warp_kernel(const uint8_t* __restrict__ src,
-                            const float* __restrict__ ts,
-                            uint8_t* __restrict__ dst, int H, int W, int C,
-                            int crop, float inv_w) {
+// Taps of one axis: N taps from floor(residual) + FIRST. With the residual
+// in [-M, M] they reach offsets [-LO, SPAN - 1 - LO] around the base.
+template <int INTERP>
+struct Taps {
+  static constexpr int N = INTERP == BILINEAR ? 2 : 4;
+  static constexpr int FIRST = INTERP == BILINEAR ? 0 : -1;
+  static constexpr int LO = M - FIRST;
+  static constexpr int SPAN = 2 * M + N;
+  __device__ static float weight(float t) {
+    return INTERP == BILINEAR ? hat(t) : lanczos2(t);
+  }
+};
+
+// Shared-memory layout of one block.
+template <int INTERP, int C>
+struct Smem {
+  static constexpr int NJ = BW + Taps<INTERP>::SPAN - 1;  // read columns
+  static constexpr int WR = BH + Taps<INTERP>::SPAN - 1;  // window rows
+  // A row of NJ * C bytes starting at any address mod 16 spans at most
+  // (NJ * C + 30) / 16 aligned chunks.
+  static constexpr int WPITCH = (NJ * C + 30) / 16 * 16;
+  static constexpr int SPITCH = (BW * C + 30) / 16 * 16;
+  static_assert(BH * SPITCH <= WR * WPITCH, "output stage fits the window");
+  static constexpr bool DEN = INTERP == LANCZOS2;
+  uint4 win[WR * WPITCH / 16];                  // window, then output stage
+  float tmp[C * BH * NJ];                       // y pass, planar by channel
+  float den_y[DEN ? BH * NJ : 1];               // Lanczos2 y weight sums
+  int win_row[WR];                      // row start: wr * WPITCH + mod 16
+  int out_shift[BH];
+  int kx, ky, qy;
+};
+
+template <int MODEL, int INTERP, int C>
+__global__ void __launch_bounds__(THREADS)
+    warp_kernel(const uint8_t* __restrict__ src, const float* __restrict__ ts,
+                uint8_t* __restrict__ dst, int H, int W, int crop, int bx0,
+                int by0, float inv_w) {
+  using T = Taps<INTERP>;
+  using S = Smem<INTERP, C>;
+  constexpr int NJ = S::NJ;
+  __shared__ S sm;
+  uint8_t* const win = reinterpret_cast<uint8_t*>(sm.win);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int r0 = (by0 + blockIdx.y) * BH;
+  const int c0 = (bx0 + blockIdx.x) * BW;
   const int Ho = H - 2 * crop;
   const int Wo = W - 2 * crop;
-  const int xo = blockIdx.x * blockDim.x + threadIdx.x;
-  const int yo = blockIdx.y * blockDim.y + threadIdx.y;
-  const int b = blockIdx.z;
-  if (xo >= Wo || yo >= Ho) return;
-  const int r = yo + crop;
-  const int c = xo + crop;
+  const long long row_bytes = (long long)W * C;
+  const long long src_frame = (long long)(uintptr_t)src +
+                              (long long)b * H * row_bytes;
+  const long long dst_frame = (long long)(uintptr_t)dst +
+                              (long long)b * Ho * Wo * C;
   const Warp<MODEL> warp(ts + (size_t)Warp<MODEL>::NPAR * b, (float)W,
                          (float)H, inv_w);
 
-  // Integer base of the 216x512 tile holding (r, c).
-  const int y0 = (r / TILE_H) * TILE_H;
-  const int x0 = (c / TILE_W) * TILE_W;
-  const float y0f = (float)y0;
-  const float x0f = (float)x0;
-  const float xc = x0f + TILE_W * 0.5f;
-  const float yc = y0f + TILE_H * 0.5f;
-  const float wxc = warp.x(yc, xc);
-  const float wyc = warp.y(yc, xc);
-  const int kx = (int)clampf(rintf(wxc - xc), -MAX_SHIFT, MAX_SHIFT);
-  const int ky = (int)clampf(rintf(wyc - yc), -MAX_SHIFT, MAX_SHIFT);
-  const int qy = (y0 + ky + PAD_LO - XT) & 7;  // >= 0: PAD_LO > MAX_SHIFT+XT
+  // 1. The integer base of the 216x512 tile holding the block.
+  if (tid == 0) {
+    const int y0 = (r0 / TILE_H) * TILE_H;
+    const int x0 = (c0 / TILE_W) * TILE_W;
+    const float xc = (float)x0 + TILE_W * 0.5f;
+    const float yc = (float)y0 + TILE_H * 0.5f;
+    const float wxc = warp.x(yc, xc);
+    const float wyc = warp.y(yc, xc);
+    const int kx = (int)clampf(rintf(wxc - xc), -MAX_SHIFT, MAX_SHIFT);
+    const int ky = (int)clampf(rintf(wyc - yc), -MAX_SHIFT, MAX_SHIFT);
+    sm.kx = kx;
+    sm.ky = ky;
+    sm.qy = (y0 + ky + PAD_LO - XT) & 7;  // >= 0: PAD_LO > MAX_SHIFT + XT
+  }
+  // Output row rl's byte address at column c0 (in the crop or not), mod 16.
+  if (tid < BH)
+    sm.out_shift[tid] = (int)((dst_frame + ((long long)(r0 + tid - crop) * Wo +
+                                            (c0 - crop)) * C) & 15);
+  __syncthreads();
+  const int kx = sm.kx;
+  const int ky = sm.ky;
+  const int qy = sm.qy;
 
-  const float rowf = (float)r;
-  const float colf = (float)c;
-  const float wx = warp.x(rowf, colf);
-  const float rx = clampf((wx - colf) - (float)kx, -(float)M, (float)M);
-
-  float out[MAX_C];
-  for (int ch = 0; ch < MAX_C; ++ch) out[ch] = 0.0f;
-  uint8_t* o = dst + (((size_t)b * Ho + yo) * Wo + xo) * C;
-  if (INTERP == BILINEAR) {
-    const int e0 = (int)floorf(rx);
-    for (int k = 0; k < 2; ++k) {
-      const int e = e0 + k;
-      const float wgt = hat(rx - (float)e);
-      if (wgt == 0.0f) continue;
-      // y pass at extended column u, weight at its read column x0 + u - xt.
-      const int u = (c - x0) + XT + e;
-      const float colr = ((float)u - (float)XT) + x0f;
-      const float wy = warp.y(rowf, colr);
-      const float ry = clampf((wy - rowf) - (float)ky, -(float)M, (float)M);
-      const float ry_eff = (ry + (float)XT) + (float)qy;
-      const int d0 = (int)floorf(ry_eff);
-      const int sc = c + kx + e;
-      float tmp[MAX_C];
-      for (int ch = 0; ch < MAX_C; ++ch) tmp[ch] = 0.0f;
-      for (int l = 0; l < 2; ++l) {
-        const int d = d0 + l;
-        const float wyw = hat(ry_eff - (float)d);
-        const int sr = r + ky - XT - qy + d;
-        if (wyw == 0.0f || sr < 0 || sr >= H || sc < 0 || sc >= W) continue;
-        const uint8_t* px = src + (((size_t)b * H + sr) * W + sc) * C;
-        for (int ch = 0; ch < C; ++ch) tmp[ch] = tmp[ch] + wyw * (float)px[ch];
+  // 2. Window row wr holds source row r0 + ky - LO + wr, columns from
+  // c0 + kx - LO, starting at byte win_row[wr] of the window.
+  {
+    constexpr int CHUNKS = S::WPITCH / 16;
+    const long long col_bytes = (long long)(c0 + kx - T::LO) * C;
+    for (int k = tid; k < S::WR * CHUNKS; k += THREADS) {
+      const int wr = k / CHUNKS;
+      const int q = k - wr * CHUNKS;
+      const int sr = r0 + ky - T::LO + wr;
+      const long long row = src_frame + (long long)sr * row_bytes;
+      const long long start = row + col_bytes;
+      const long long a = (start & ~15LL) + 16 * q;
+      const bool row_in = sr >= 0 && sr < H;
+      const long long lo = row_in ? row : 0;
+      const long long hi = row_in ? row + row_bytes : 0;
+      uint4 v;
+      if (a >= lo && a + 16 <= hi) {
+        v = __ldg(reinterpret_cast<const uint4*>(a));
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          const long long p = a + t;
+          if (p >= lo && p < hi)
+            w[t >> 2] |= (uint32_t)__ldg(reinterpret_cast<const uint8_t*>(p))
+                         << (8 * (t & 3));
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
       }
-      for (int ch = 0; ch < C; ++ch) out[ch] = out[ch] + wgt * tmp[ch];
+      sm.win[wr * CHUNKS + q] = v;
+      if (q == 0) sm.win_row[wr] = wr * S::WPITCH + (int)(start & 15);
     }
-    for (int ch = 0; ch < C; ++ch)
-      o[ch] = (uint8_t)clampf(rintf(out[ch]), 0.0f, 255.0f);
-    return;
   }
+  __syncthreads();
 
-  // Lanczos2: the 4 taps per axis around the position; a tap outside the
-  // image reads 0 but its weight counts in the normalizer.
-  float den = 0.0f;
-  const int e0 = (int)floorf(rx) - 1;
-  for (int k = 0; k < 4; ++k) {
-    const int e = e0 + k;
-    const float wgt = lanczos2(rx - (float)e);
-    const int u = (c - x0) + XT + e;
-    const float colr = ((float)u - (float)XT) + x0f;
+  // 3. y pass: tmp at (row rl, read column j) = source column
+  // c0 + kx - LO + j, read column c0 - LO + j.
+  const float kyf = (float)ky;
+  const float qyf = (float)qy;
+  for (int k = tid; k < BH * NJ; k += THREADS) {
+    const int rl = k / NJ;
+    const int j = k - rl * NJ;
+    const float rowf = (float)(r0 + rl);
+    const float colr = (float)(c0 - T::LO + j);
     const float wy = warp.y(rowf, colr);
-    const float ry = clampf((wy - rowf) - (float)ky, -(float)M, (float)M);
-    const float ry_eff = (ry + (float)XT) + (float)qy;
-    const int d0 = (int)floorf(ry_eff) - 1;
-    const int sc = c + kx + e;
-    const bool col_in = sc >= 0 && sc < W;
-    float tmp[MAX_C];
-    for (int ch = 0; ch < MAX_C; ++ch) tmp[ch] = 0.0f;
+    const float ry = clampf((wy - rowf) - kyf, -(float)M, (float)M);
+    const float ry_eff = (ry + (float)XT) + qyf;
+    const int d0 = (int)floorf(ry_eff) + T::FIRST;
+    // Tap d reads source row r + ky - XT - qy + d: window row below.
+    const int wr0 = rl + d0 - qy - XT + T::LO;
+    float acc[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
     float den_y = 0.0f;
-    for (int l = 0; l < 4; ++l) {
-      const int d = d0 + l;
-      const float wyw = lanczos2(ry_eff - (float)d);
+#pragma unroll
+    for (int l = 0; l < T::N; ++l) {
+      const float wyw = T::weight(ry_eff - (float)(d0 + l));
       den_y = den_y + wyw;
-      const int sr = r + ky - XT - qy + d;
-      if (!col_in || sr < 0 || sr >= H) continue;
-      const uint8_t* px = src + (((size_t)b * H + sr) * W + sc) * C;
-      for (int ch = 0; ch < C; ++ch) tmp[ch] = tmp[ch] + wyw * (float)px[ch];
+      const uint8_t* px = win + sm.win_row[wr0 + l] + j * C;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch)
+        acc[ch] = acc[ch] + wyw * (float)px[ch];
     }
-    for (int ch = 0; ch < C; ++ch) out[ch] = out[ch] + wgt * tmp[ch];
-    den = den + wgt * den_y;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) sm.tmp[(ch * BH + rl) * NJ + j] = acc[ch];
+    if constexpr (S::DEN) sm.den_y[rl * NJ + j] = den_y;
   }
-  const float dn = fmaxf(den, 1e-6f);
-  for (int ch = 0; ch < C; ++ch)
-    o[ch] = (uint8_t)clampf(rintf(out[ch] / dn), 0.0f, 255.0f);
+  __syncthreads();
+
+  // 4. x pass, one thread per output pixel; results to the output stage.
+  const float kxf = (float)kx;
+  for (int k = tid; k < BH * BW; k += THREADS) {
+    const int rl = k / BW;
+    const int i = k - rl * BW;
+    const int r = r0 + rl;
+    const int c = c0 + i;
+    if (r < crop || r >= H - crop || c < crop || c >= W - crop) continue;
+    const float rowf = (float)r;
+    const float colf = (float)c;
+    const float wx = warp.x(rowf, colf);
+    const float rx = clampf((wx - colf) - kxf, -(float)M, (float)M);
+    const int e0 = (int)floorf(rx) + T::FIRST;
+    float out[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) out[ch] = 0.0f;
+    float den = 0.0f;
+#pragma unroll
+    for (int l = 0; l < T::N; ++l) {
+      const int e = e0 + l;
+      const float wgt = T::weight(rx - (float)e);
+      const int j = i + e + T::LO;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch)
+        out[ch] = out[ch] + wgt * sm.tmp[(ch * BH + rl) * NJ + j];
+      if constexpr (S::DEN) den = den + wgt * sm.den_y[rl * NJ + j];
+    }
+    uint8_t* o = win + rl * S::SPITCH + sm.out_shift[rl] + i * C;
+    if constexpr (S::DEN) {
+      const float dn = fmaxf(den, 1e-6f);
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch)
+        o[ch] = (uint8_t)clampf(rintf(out[ch] / dn), 0.0f, 255.0f);
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch)
+        o[ch] = (uint8_t)clampf(rintf(out[ch]), 0.0f, 255.0f);
+    }
+  }
+  __syncthreads();
+
+  // 5. Stores: stage row rl byte s holds output byte (start & ~15) + s.
+  {
+    constexpr int CHUNKS = S::SPITCH / 16;
+    const int cl = max(c0, crop);
+    const int ch_end = min(c0 + BW, W - crop);
+    for (int k = tid; k < BH * CHUNKS; k += THREADS) {
+      const int rl = k / CHUNKS;
+      const int q = k - rl * CHUNKS;
+      const int r = r0 + rl;
+      if (r < crop || r >= H - crop) continue;
+      const long long row = dst_frame + (long long)(r - crop) * Wo * C;
+      const long long start = row + (long long)(c0 - crop) * C;
+      const long long a = (start & ~15LL) + 16 * q;
+      const long long lo = row + (long long)(cl - crop) * C;
+      const long long hi = row + (long long)(ch_end - crop) * C;
+      if (a + 16 <= lo || a >= hi) continue;
+      const uint4 v = sm.win[rl * (S::SPITCH / 16) + q];
+      if (a >= lo && a + 16 <= hi) {
+        *reinterpret_cast<uint4*>(a) = v;
+      } else {
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+          const long long p = a + t;
+          if (p >= lo && p < hi)
+            *reinterpret_cast<uint8_t*>(p) =
+                (uint8_t)(w[t >> 2] >> (8 * (t & 3)));
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
 
-template <int MODEL, int INTERP>
-void launch(dim3 grid, dim3 block, cudaStream_t stream, const void* src,
-            const void* ts, void* dst, int height, int width, int channels,
-            int crop, float inv_w) {
-  warp_kernel<MODEL, INTERP><<<grid, block, 0, stream>>>(
+template <int MODEL, int INTERP, int C>
+void launch(dim3 grid, cudaStream_t stream, const void* src, const void* ts,
+            void* dst, int height, int width, int crop, int bx0, int by0,
+            float inv_w) {
+  warp_kernel<MODEL, INTERP, C><<<grid, THREADS, 0, stream>>>(
       (const uint8_t*)src, (const float*)ts, (uint8_t*)dst, height, width,
-      channels, crop, inv_w);
+      crop, bx0, by0, inv_w);
+}
+
+template <int MODEL, int INTERP>
+void launch_form(int channels, dim3 grid, cudaStream_t stream,
+                 const void* src, const void* ts, void* dst, int height,
+                 int width, int crop, int bx0, int by0, float inv_w) {
+  switch (channels) {
+    case 1:
+      launch<MODEL, INTERP, 1>(grid, stream, src, ts, dst, height, width,
+                               crop, bx0, by0, inv_w);
+      break;
+    case 2:
+      launch<MODEL, INTERP, 2>(grid, stream, src, ts, dst, height, width,
+                               crop, bx0, by0, inv_w);
+      break;
+    case 3:
+      launch<MODEL, INTERP, 3>(grid, stream, src, ts, dst, height, width,
+                               crop, bx0, by0, inv_w);
+      break;
+    default:
+      launch<MODEL, INTERP, 4>(grid, stream, src, ts, dst, height, width,
+                               crop, bx0, by0, inv_w);
+  }
 }
 
 extern "C" int vs_warp_frames(const void* src, const void* ts, void* dst,
@@ -225,24 +400,28 @@ extern "C" int vs_warp_frames(const void* src, const void* ts, void* dst,
                               int crop, int model, int interp, float inv_w,
                               void* stream) {
   if (channels < 1 || channels > MAX_C || batch < 1 || batch > 65535 ||
-      height - 2 * crop < 1 || width - 2 * crop < 1 || model < 0 ||
-      model > 1 || interp < 0 || interp > 1)
+      crop < 0 || height - 2 * crop < 1 || width - 2 * crop < 1 ||
+      model < 0 || model > 1 || interp < 0 || interp > 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(32, 8);
-  const dim3 grid((width - 2 * crop + block.x - 1) / block.x,
-                  (height - 2 * crop + block.y - 1) / block.y, batch);
+  // Blocks on the BH x BW grid of source coordinates that hold output.
+  const int bx0 = crop / BW;
+  const int by0 = crop / BH;
+  const int bx1 = (width - crop + BW - 1) / BW;
+  const int by1 = (height - crop + BH - 1) / BH;
+  if (by1 - by0 > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(bx1 - bx0, by1 - by0, batch);
   const cudaStream_t st = (cudaStream_t)stream;
   if (model == 0 && interp == BILINEAR)
-    launch<0, BILINEAR>(grid, block, st, src, ts, dst, height, width,
-                        channels, crop, inv_w);
+    launch_form<0, BILINEAR>(channels, grid, st, src, ts, dst, height, width,
+                             crop, bx0, by0, inv_w);
   else if (model == 0)
-    launch<0, LANCZOS2>(grid, block, st, src, ts, dst, height, width,
-                        channels, crop, inv_w);
+    launch_form<0, LANCZOS2>(channels, grid, st, src, ts, dst, height, width,
+                             crop, bx0, by0, inv_w);
   else if (interp == BILINEAR)
-    launch<1, BILINEAR>(grid, block, st, src, ts, dst, height, width,
-                        channels, crop, inv_w);
+    launch_form<1, BILINEAR>(channels, grid, st, src, ts, dst, height, width,
+                             crop, bx0, by0, inv_w);
   else
-    launch<1, LANCZOS2>(grid, block, st, src, ts, dst, height, width,
-                        channels, crop, inv_w);
+    launch_form<1, LANCZOS2>(channels, grid, st, src, ts, dst, height, width,
+                             crop, bx0, by0, inv_w);
   return (int)cudaGetLastError();
 }

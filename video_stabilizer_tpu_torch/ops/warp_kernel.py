@@ -5,7 +5,10 @@
 ``video_stabilizer_tpu/ops/pallas_warp.py::_warp_kernel`` in each of its
 forms: the sampling transform is a 4-parameter origin-based similarity or
 an 8-parameter normalized homography (``model``), and the interpolation is
-bilinear or weight-normalized Lanczos2 (``interp``). See the source note in
+bilinear or weight-normalized Lanczos2 (``interp``). On the card a block
+covers 8 x 128 output pixels inside one 216x512 tile: it stages the source
+window in shared memory, computes each y-pass value once per (row, read
+column) and shares it across the x taps. See the source note in
 ``csrc/warp.cu`` for what it computes, what bounds it on the card and how
 the design meets it.
 """
@@ -32,26 +35,34 @@ INTERPS = {"bilinear": 0, "lanczos2": 1}
 
 def OPS_PER_PIXEL(channels: int, interp: str = "bilinear",
                   model: str = "similarity") -> int:
-    """Float32 operations of csrc/warp.cu per output pixel (each add,
-    multiply, divide, min, max, abs, floor and rint counted once).
+    """Float32 operations the separable warp needs per output pixel (each
+    add, multiply, divide, min, max, abs, floor and rint counted once).
+
+    The y-pass value at (row, read column) serves every output pixel whose
+    x taps read that column, so it is counted once per output pixel: one
+    read column per output column (csrc/warp.cu computes it once per block;
+    the few extra columns of a block's halo are not counted).
 
     A sample position takes 4 (similarity, after 1 + a) or 17 (homography:
     normalized coordinates, numerator, denominator, its reciprocal, back to
     pixels) ops per coordinate. A weight takes 4 (bilinear hat) or 16
-    (Lanczos2 polynomial). The x position and its residual: 5 + 4 or
-    17 + 4. Per x tap: its weight, read column (2), y position, y residual
-    (4), row offset (2) and floor (1), then per y tap its weight, 2 ops per
-    channel and, for Lanczos2, 1 for the y normalizer; then 2 ops per
-    channel and, for Lanczos2, 2 for the normalizer. Lanczos2 ends with the
-    clamp of the normalizer and a division per channel; every form with
-    the rounding and clamp of each channel (3 per channel)."""
+    (Lanczos2 polynomial). The y pass at one read column: the column (2),
+    the y position, its residual (4), row offset (2) and floor (1), then per
+    y tap its weight, 2 ops per channel and, for Lanczos2, 1 for the y
+    normalizer. The x pass: the x position and its residual (5 + 4 or
+    17 + 4), then per x tap its weight, 2 ops per channel and, for
+    Lanczos2, 2 for the normalizer. Lanczos2 ends with the clamp of the
+    normalizer and a division per channel; every form with the rounding and
+    clamp of each channel (3 per channel). Similarity + bilinear at 3
+    channels: 33 + 29 + 9 = 71; homography + Lanczos2: 118 + 117 + 13 =
+    248."""
     lanczos = interp == "lanczos2"
     taps, wt, dn = (4, 16, 1) if lanczos else (2, 4, 0)
     pos_x, pos_y = (5, 4) if model == "similarity" else (17, 17)
-    per_y = wt + 2 * channels + dn
-    per_x = wt + 2 + pos_y + 4 + 2 + 1 + taps * per_y + 2 * channels + 2 * dn
+    y_pass = 2 + pos_y + 4 + 2 + 1 + taps * (wt + 2 * channels + dn)
+    x_pass = pos_x + 4 + taps * (wt + 2 * channels + 2 * dn)
     tail = (1 + channels if lanczos else 0) + 3 * channels
-    return pos_x + 4 + taps * per_x + tail
+    return y_pass + x_pass + tail
 
 
 def _hat(t):
