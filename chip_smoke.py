@@ -8,7 +8,8 @@ Run from the root of the repository. Phases:
   1. Build the port's CUDA kernels from ``video_stabilizer_tpu_torch/csrc``
      (one nvcc per source, all at once) and print what ptxas reports for
      each kernel; all 16 instances of kernel A (2 models x 2 interps x 1-4
-     channels) must report a 0-byte stack frame and no spills.
+     channels) and every block-size instance of kernels B and C must
+     report a 0-byte stack frame and no spills.
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
   3. Drive the 1080p similarity path over two chunks to capture real
@@ -25,7 +26,16 @@ Run from the root of the repository. Phases:
   5. Kernel B (per-level 4-DOF GN solve) against its plain version on the
      card, at each of the six 1080p level shapes, with the items of that
      chunk. Bar, over every item: converged equal, A/B within 1e-5, TX/TY
-     within 1e-3 px; and the items' A/B at least 10x the A/B bar.
+     within 1e-3 px; and the items' A/B at least 10x the A/B bar. Two
+     launches must give bit-identical outputs. Reported per level: the
+     launch plan (cluster size, block size, shared memory), mean and max
+     iterations, the wrapper's time between CUDA events (host launch
+     overhead included, as earlier runs took it: the ``ms`` of the
+     kernels line) beside the kernel's device time (20 launches replayed
+     from a CUDA graph: its ``device_ms``), the time per iteration and the
+     fixed cost (a line through the device times at max_iters 1, 4 and 16
+     with threshold 0), and the device time under every cluster size
+     (1-8) and block size the kernel is built for.
   6. Drive the 4K homography path (config 4 of apps/bench_configs.py:
      3840x2160 BGR, 2 streams x 16-frame chunks, phase-correlation init,
      8-DOF model, Lanczos2 output, crop 32) over two chunks to capture
@@ -41,9 +51,11 @@ Run from the root of the repository. Phases:
      >= 99.9 % of pixels equal.
   8. Kernel C (per-level 8-DOF GN solve) against its plain version at all
      7 level shapes, on the captured and the perspective items. Bar, over
-     every item: converged equal, corner error between the two <= 1e-3 px
-     at the level's size; and the perspective items' median max(|p6|,|p7|)
-     at least 10x the largest p6/p7 gap.
+     every item: converged equal, corner error between the two <= 0.02 px
+     (the GN threshold) at the level's size; and the perspective items'
+     median max(|p6|,|p7|) at least 10x the largest p6/p7 gap. Two
+     launches must give bit-identical outputs. Reported per level as in
+     phase 5.
   9. The 1080p similarity path, timed, on bench.py's content (translation
      only, 1 px jitter): 4 chunks with carried state from a fresh start,
      with every launch count set to 0 before and read after. Checks the
@@ -138,6 +150,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one ``fn()`` with the host's launch
+    overhead out of the way: ``reps`` calls captured once in a CUDA graph
+    (after one warm-up call outside it), one replay timed between CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -213,22 +246,28 @@ def launch_counts() -> dict:
 
 @phase("build")
 def build_kernels():
-    from video_stabilizer_tpu_torch.ops import cuda_build
+    from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
+    # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
+    # per block size.
+    instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
+                     gn8_solve=len(gn8_solve.THREADS))
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
             if any(k in line for k in ("Function properties", "registers",
                                        "spill", "error")):
                 log(f"  {name}: {line.strip()}")
-        if name == "warp":
-            # Kernel A's per-channel arrays must live in registers.
+        # Every kernel instance's arrays must live in registers.
+        want = instances.get(name)
+        if want is not None:
             stacks = [ln.strip() for ln in text.splitlines()
                       if "bytes stack frame" in ln]
             clean = [ln for ln in stacks if ln == "0 bytes stack frame, 0 "
                      "bytes spill stores, 0 bytes spill loads"]
-            check(len(stacks) == 16 and len(clean) == 16,
-                  f"warp.cu: {len(clean)} of {len(stacks)} kernel instances "
-                  "(of 16) with a 0-byte stack frame and no spills")
+            check(len(stacks) == want and len(clean) == want,
+                  f"{name}.cu: {len(clean)} of {len(stacks)} kernel "
+                  f"instances (of {want}) with a 0-byte stack frame and no "
+                  "spills")
     for name in cuda_build.SOURCES:
         check(cuda_build.library_path(name).exists(), f"built {name}.cu")
     return True
@@ -440,17 +479,78 @@ def gn_bytes(args, t_out, iters):
         + out_bytes
 
 
+def deterministic(fn) -> bool:
+    """Whether two launches on the same inputs give bit-identical
+    outputs."""
+    first, second = fn(), fn()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# max_iters of the fit of a GN kernel's time against its iterations.
+FIT_ITERS = (1, 4, 16)
+
+
+def iteration_fit(solve, args, kw):
+    """(ms per iteration, fixed ms) of a GN kernel on these items: the
+    least-squares line through its device times (``graph_ms``) at
+    max_iters = 1, 4 and 16 with threshold 0, where no item converges and
+    each runs max_iters iterations."""
+    times = [graph_ms(lambda m=m: solve(*args, **dict(
+        kw, threshold=0.0, max_iters=m)), 10) for m in FIT_ITERS]
+    slope, fixed = np.polyfit(FIT_ITERS, times, 1)
+    return float(slope), float(fixed)
+
+
+def plan_sweep(module, solve_with_plan, args, kw) -> str:
+    """The kernel's device time (``graph_ms``) at this level under every
+    cluster size and block size it is built for: the measurement behind
+    ``launch_plan``. Every plan must launch: a refused one raises."""
+    from video_stabilizer_tpu_torch.ops.gn_solve import (
+        CLUSTER_SIZES, make_plan)
+    items, n = args[-1].shape[0], args[0].shape[3]
+    out = []
+    for cs in CLUSTER_SIZES:
+        for threads in module.THREADS:
+            plan = make_plan(items, n, cs, threads, module.CACHE_FLOATS)
+            ms = graph_ms(lambda: solve_with_plan(plan, *args, **kw), 5)
+            out.append(f"{cs}x{threads} {ms:.3f}")
+    return ", ".join(out)
+
+
+def describe_plan(plan) -> str:
+    return (f"{plan.cluster} CTA{'s' if plan.cluster > 1 else ''} x "
+            f"{plan.threads} threads per item, grid {plan.grid}, "
+            f"{plan.cached} of {plan.slice} keypoints per CTA cached in "
+            f"{plan.smem} B of shared memory")
+
+
+def level_table(rows):
+    """Print the per-level table of a GN kernel."""
+    log("  level      P  N      items mean-it max-it ms/iter fixed ms "
+        "kernel ms device ms bound ms plain ms plan (CTAs x threads, smem "
+        "B)")
+    for r in rows:
+        log(f"  {r['level']:<10} {r['p']:<2} {r['n']:<6} {r['items']:<5} "
+            f"{r['mean_it']:<7.2f} {r['max_it']:<6d} {r['per_it']:<7.4f} "
+            f"{r['fixed']:<8.4f} {r['ms']:<9.4f} {r['device']:<9.4f} "
+            f"{r['bound']:<8.4f} {r['plain']:<8.3f} {r['plan'].cluster} x "
+            f"{r['plan'].threads}, {r['plan'].smem}")
+
+
 @phase("kernel B: per-level GN solve vs its plain version")
 def check_gn(cap):
+    from video_stabilizer_tpu_torch.ops import gn_solve as module
     from video_stabilizer_tpu_torch.ops.gn_solve import (
-        OPS_PER_SAMPLE, gn_solve, gn_solve_plain)
+        OPS_PER_SAMPLE, gn_solve, gn_solve_plain, gn_solve_with_plan,
+        launch_plan)
 
     calls = cap["gn_calls"]
     check(len(calls) == cap["levels"],
           f"{len(calls)} GN launches per chunk ({cap['levels']} levels)")
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     bound_share = dict(bytes=0.0, operations=0.0)
     worst = 0.0
+    rows = []
     for args, kw in calls:
         p, n = args[0].shape[1], args[0].shape[3]
         t_g, c_g, d_g, i_g = gn_solve(*args, **kw)
@@ -479,26 +579,47 @@ def check_gn(cap):
               f"{level}: the items' max(|A|,|B|) has median "
               f"{float(ab.median()):.2e} and max {float(ab.max()):.2e}, "
               f">= 10x the A/B bar")
+        plan = launch_plan(t_g.shape[0], n)
+        log(f"    plan: {describe_plan(plan)}")
+        check(deterministic(lambda: gn_solve(*args, **kw)),
+              f"{level}: two launches give bit-identical outputs")
+        # The wrapper's time between CUDA events, host launch overhead
+        # included, as earlier runs took it; and the kernel's device time.
         ms = cuda_ms(lambda: gn_solve(*args, **kw), 20)
+        device_ms = graph_ms(lambda: gn_solve(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: gn_solve_plain(*args, **kw), 2)
+        per_it, fixed = iteration_fit(gn_solve, args, kw)
         bytes_moved = gn_bytes(args, t_g, i_g)
         # Operations: every item's own iteration count, both sets.
         ops = int(i_g.sum()) * 2 * n * OPS_PER_SAMPLE
         bound_ms, bound_by = roofline(bytes_moved, ops)
         bound_share[bound_by] += bound_ms
-        log(f"    kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
-            f"{ops / 1e9:.3f} GFLOP), kernel / bound {ms / bound_ms:.1f}")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("bound_ms", bound_ms)):
+        log(f"    kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel / "
+            f"bound {ms / bound_ms:.1f}; threshold 0: {per_it:.4f} ms per "
+            f"iteration + {fixed:.4f} ms")
+        log("    plans (CTAs x threads ms): "
+            + plan_sweep(module, gn_solve_with_plan, args, kw))
+        rows.append(dict(level=f"{kw['width']}x{kw['height']}", p=p, n=n,
+                         items=t_g.shape[0],
+                         mean_it=float(i_g.float().mean()),
+                         max_it=int(i_g.max()), per_it=per_it, fixed=fixed,
+                         ms=ms, device=device_ms, bound=bound_ms,
+                         plain=plain_ms, plan=plan))
+        for k, v in (("ms", ms), ("device_ms", device_ms),
+                     ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
             totals[k] += v
+    level_table(rows)
     log(f"  per chunk (sum of {len(calls)} levels): kernel "
-        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
+        f"plain {totals['plain_ms']:.3f} ms, bound "
         f"{totals['bound_ms']:.4f} ms")
     return dict(name="gn_solve", route="cuda",
                 source="video_stabilizer_tpu_torch/csrc/gn_solve.cu",
                 replaces=GN_REPLACES, max_abs_err=worst, ms=totals["ms"],
-                plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
+                device_ms=totals["device_ms"], plain_ms=totals["plain_ms"],
+                bound_ms=totals["bound_ms"],
                 bound_by=max(bound_share, key=bound_share.get),
                 library_ms=None)
 
@@ -634,16 +755,19 @@ GN8_CORNER_BAR = 0.02
 
 @phase("kernel C: per-level 8-DOF GN solve vs its plain version")
 def check_gn8(cap):
+    from video_stabilizer_tpu_torch.ops import gn8_solve as module
     from video_stabilizer_tpu_torch.ops.gn8_solve import (
-        OPS_PER_SAMPLE, gn8_solve, gn8_solve_plain)
+        OPS_PER_SAMPLE, gn8_solve, gn8_solve_plain, gn8_solve_with_plan,
+        launch_plan)
 
     calls, persp = cap["gn8_calls"], cap["persp_calls"]
     check(len(calls) == cap["levels"] == len(persp),
           f"{len(calls)} kernel C launches per chunk and {len(persp)} for "
           f"the perspective pairs ({cap['levels']} levels)")
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
     bound_share = dict(bytes=0.0, operations=0.0)
     worst = 0.0
+    rows = []
     for (args, kw), (pargs, pkw) in zip(calls, persp):
         w, h = kw["width"], kw["height"]
         p_size, n = args[0].shape[1], args[0].shape[3]
@@ -654,6 +778,8 @@ def check_gn8(cap):
                              ("perspective", (pargs, pkw))):
             p_g, c_g, d_g, i_g = gn8_solve(*a, **k)
             p_w, c_w, d_w, i_w = gn8_solve_plain(*a, **k)
+            check(deterministic(lambda: gn8_solve(*a, **k)),
+                  f"{level} {name}: two launches give bit-identical outputs")
             same = bool((c_g == c_w).all())
             conv_equal &= same
             item_gap = corner_gap(p_g, p_w, w, h)
@@ -687,26 +813,43 @@ def check_gn8(cap):
               f"{level}: the perspective items' max(|p6|,|p7|) has median "
               f"{medians:.2e}, >= 10x the largest p6/p7 gap {p67_gap:.2e}")
         p_out, _, _, iters = gn8_solve(*args, **kw)
+        plan = launch_plan(p_out.shape[0], n)
+        log(f"    plan: {describe_plan(plan)}")
         ms = cuda_ms(lambda: gn8_solve(*args, **kw), 10)
+        device_ms = graph_ms(lambda: gn8_solve(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: gn8_solve_plain(*args, **kw), 1)
+        per_it, fixed = iteration_fit(gn8_solve, args, kw)
         bytes_moved = gn_bytes(args, p_out, iters)
         ops = int(iters.sum()) * 2 * n * OPS_PER_SAMPLE
         bound_ms, bound_by = roofline(bytes_moved, ops)
         bound_share[bound_by] += bound_ms
-        log(f"    kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
-            f"{ops / 1e9:.3f} GFLOP), kernel / bound {ms / bound_ms:.1f}; "
-            f"mean iters {float(iters.float().mean()):.2f}")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("bound_ms", bound_ms)):
+        log(f"    kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), kernel / "
+            f"bound {ms / bound_ms:.1f}; mean iters "
+            f"{float(iters.float().mean()):.2f}; threshold 0: {per_it:.4f} "
+            f"ms per iteration + {fixed:.4f} ms")
+        log("    plans (CTAs x threads ms): "
+            + plan_sweep(module, gn8_solve_with_plan, args, kw))
+        rows.append(dict(level=f"{w}x{h}", p=p_size, n=n,
+                         items=p_out.shape[0],
+                         mean_it=float(iters.float().mean()),
+                         max_it=int(iters.max()), per_it=per_it, fixed=fixed,
+                         ms=ms, device=device_ms, bound=bound_ms,
+                         plain=plain_ms, plan=plan))
+        for key, val in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
             totals[key] += val
+    level_table(rows)
     log(f"  per chunk (sum of {len(calls)} levels): kernel "
-        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
+        f"plain {totals['plain_ms']:.3f} ms, bound "
         f"{totals['bound_ms']:.4f} ms")
     return dict(name="gn8_solve", route="cuda",
                 source="video_stabilizer_tpu_torch/csrc/gn8_solve.cu",
                 replaces=GN8_REPLACES, max_abs_err=worst, ms=totals["ms"],
-                plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
+                device_ms=totals["device_ms"], plain_ms=totals["plain_ms"],
+                bound_ms=totals["bound_ms"],
                 bound_by=max(bound_share, key=bound_share.get),
                 library_ms=None)
 
@@ -1015,8 +1158,10 @@ def main() -> int:
         k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in kernels.values()]}))
+    # Kernels B and C also give their device time beside the wrapper's ms.
+    print(json.dumps({"kernels": [
+        {k: kern[k] for k in keys + ("device_ms",) if k in keys or k in kern}
+        for kern in kernels.values()]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@
 ``_warp_corner_h`` and ``_tap_sample``), batched over items on a leading
 axis as kernel B is (``ops/gn_solve.py``): an item is one alignment at one
 level, and it names its keyframe through ``key_index``. See the source
-note in ``csrc/gn8_solve.cu`` for the bound and the design.
+note in ``csrc/gn8_solve.cu`` for the bound and the design. Each item runs
+on a thread-block cluster that splits its N keypoints; ``launch_plan``
+picks the cluster and block size.
 
 The plain version is the XLA loop of
 ``models/homography_aligner.py::_align_level_h`` (175-216) in PyTorch, with
@@ -19,12 +21,14 @@ every iteration with the same expressions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from video_stabilizer_tpu_torch import homography as Hm
 from video_stabilizer_tpu_torch.ops import cuda_build
-from video_stabilizer_tpu_torch.ops.gn_solve import gn_corners
+from video_stabilizer_tpu_torch.ops.gn_solve import (
+    CLUSTER_SIZES, LaunchPlan, gn_corners, make_plan)
 from video_stabilizer_tpu_torch.ops.patches import (
     clamp_rel, sample_windows_flat)
 
@@ -35,6 +39,21 @@ from video_stabilizer_tpu_torch.ops.patches import (
 # (8 x 16), their normalizer (7), the 4x4 taps of bf16 products (100), the
 # residual (2) and the eight terms of b (16).
 OPS_PER_SAMPLE = 281
+
+# Floats of csrc/gn8_solve.cu's operand cache per keypoint (CACHE_FLOATS):
+# ox, oy, and per set u, v, template and 8 Jacobian rows.
+CACHE_FLOATS = 24
+THREADS = (256, 512)   # the block sizes csrc/gn8_solve.cu is built for
+
+
+def launch_plan(items: int, n: int) -> LaunchPlan:
+    """Kernel C's plan for ``items`` items of ``n`` keypoints (a pure
+    function; the measurements behind it are in PERF.md): the fewest CTAs
+    per item, up to 8, that leave each at most 1024 keypoints, 256 threads
+    for a slice of at most 1024 keypoints and 512 above."""
+    cluster = next((c for c in CLUSTER_SIZES if -(-n // c) <= 1024), 8)
+    threads = 256 if -(-n // cluster) <= 1024 else 512
+    return make_plan(items, n, cluster, threads, CACHE_FLOATS)
 
 
 def warp_rel_positions_h(p, u, v, width: int, height: int, ox, oy,
@@ -126,23 +145,40 @@ def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
     Returns:
       (p (B, 8) f32, converged (B,) bool, disp01 (B,) f32, iters (B,) i32).
     """
-    _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy, p_init)
     kwargs = dict(threshold=threshold, width=width, height=height,
                   max_iters=max_iters)
-    dev = windows.device
-    if dev.type == "cpu":
+    if windows.device.type == "cpu":
+        _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
+               p_init)
         return gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u,
                                v, ox, oy, p_init, **kwargs)
+    plan = launch_plan(p_init.shape[0], windows.shape[3])
+    return gn8_solve_with_plan(plan, windows, key_index, tmpl, jac_masked,
+                               hinv, u, v, ox, oy, p_init, **kwargs)
+
+
+def gn8_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
+                        jac_masked, hinv, u, v, ox, oy, p_init, *,
+                        threshold: float, width: int, height: int,
+                        max_iters: int):
+    """Launch kernel C with a given plan (``gn8_solve`` takes
+    ``launch_plan``'s); CUDA tensors only. Raises if the launch is
+    refused."""
+    _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy, p_init)
+    dev = windows.device
     if dev.type != "cuda":
-        raise ValueError(f"gn8_solve runs on cuda or cpu, not {dev}")
-    args = [windows, key_index.to(torch.int32).contiguous(), tmpl,
+        raise ValueError(f"kernel C runs on cuda, not {dev}")
+    bsz = p_init.shape[0]
+    _, p, _, n = windows.shape
+    if ((plan.items, plan.n) != (bsz, n) or plan.threads not in THREADS
+            or plan.cluster not in CLUSTER_SIZES):
+        raise ValueError(f"{plan} does not fit {bsz} items of {n} keypoints")
+    args = [windows, key_index.to(torch.int64).contiguous(), tmpl,
             jac_masked, hinv, u, v, ox, oy, p_init]
     if not all(x.is_contiguous() for x in args):
         raise ValueError("gn8_solve needs contiguous operands")
-    bsz = p_init.shape[0]
-    _, p, _, n = windows.shape
     p_out = torch.empty((bsz, 8), dtype=torch.float32, device=dev)
-    conv = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    conv = torch.empty((bsz,), dtype=torch.bool, device=dev)
     disp01 = torch.empty((bsz,), dtype=torch.float32, device=dev)
     iters = torch.empty((bsz,), dtype=torch.int32, device=dev)
     # The convergence corners in normalized coordinates, formed in double
@@ -152,20 +188,28 @@ def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
     corners = [((x - cx) / w_l, (y - cy) / w_l)
                for x, y in ((0.0, 0.0), (w_l - 1.0, 0.0), (0.0, h_l - 1.0),
                             (w_l - 1.0, h_l - 1.0))]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in args + [p_out, conv, disp01, iters]]
+    err = _kernel()(*ptrs, bsz, p, n, w_l, cx, cy, *(c[0] for c in corners),
+                    *(c[1] for c in corners), p - 3.0 - 1e-3, threshold,
+                    max_iters, plan.threads, plan.cluster, plan.slice,
+                    plan.cached, stream)
+    if err != 0:
+        raise RuntimeError(f"gn8_solve kernel launch failed ({plan}): CUDA "
+                           f"error {err}")
+    gn8_solve.launches += 1
+    return p_out, conv, disp01, iters
+
+
+@functools.cache
+def _kernel():
+    """``vs_gn8_solve`` of the built ``csrc/gn8_solve.cu``, typed."""
     fn = cuda_build.load("gn8_solve").vs_gn8_solve
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 13 + [ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*(x.data_ptr() for x in args + [p_out, conv, disp01, iters]),
-             bsz, p, n, w_l, cx, cy, *(c[0] for c in corners),
-             *(c[1] for c in corners), p - 3.0 - 1e-3, threshold, max_iters,
-             stream)
-    if err != 0:
-        raise RuntimeError(f"gn8_solve kernel launch failed: CUDA error "
-                           f"{err}")
-    gn8_solve.launches += 1
-    return p_out, conv.to(torch.bool), disp01, iters
+                   + [ctypes.c_float] * 13 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    return fn
 
 
 gn8_solve.launches = 0

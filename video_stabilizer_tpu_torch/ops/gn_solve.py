@@ -6,7 +6,9 @@
 batched over items on a leading axis: an item is one alignment at one level,
 and it names the keyframe whose windows and keypoints it samples through
 ``key_index``, so keyframes shared by several items are stored once. See the
-source note in ``csrc/gn_solve.cu`` for the bound and the design.
+source note in ``csrc/gn_solve.cu`` for the bound and the design. Each item
+runs on a thread-block cluster that splits its N keypoints;
+``launch_plan`` picks the cluster size.
 
 The plain version loops in Python with one host sync per iteration; it is
 the CPU path and the card's reference, never the main path on a card.
@@ -15,6 +17,8 @@ the CPU path and the card's reference, never the main path on a card.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +34,60 @@ from video_stabilizer_tpu_torch.ops.patches import (
 # (8 x 16), their normalizer (7), the 4x4 taps of bf16 products (100), the
 # residual (2) and the four terms of b (8).
 OPS_PER_SAMPLE = 263
+
+# Launch shapes of csrc/gn_solve.cu and csrc/gn8_solve.cu on an H100.
+SMEM_LIMIT = 232_448   # dynamic shared memory a block may opt into
+CACHE_BYTES = 98_304   # operand cache per CTA: two CTAs still fit on an SM
+CLUSTER_SIZES = (1, 2, 4, 8)   # the portable cluster sizes
+# Floats of csrc/gn_solve.cu's operand cache per keypoint (CACHE_FLOATS):
+# ox, oy, and per set fx, fy, template and 4 Jacobian rows.
+CACHE_FLOATS = 16
+THREADS = (256,)       # the block sizes csrc/gn_solve.cu is built for
+
+
+class LaunchPlan(NamedTuple):
+    """How a GN kernel launch spreads ``items`` items of ``n`` keypoints:
+    ``cluster`` CTAs of ``threads`` threads per item, CTA r of a cluster
+    walking keypoints [r * slice, (r + 1) * slice) of [0, n), the first
+    ``cached`` of them kept in ``smem`` bytes of dynamic shared memory."""
+    items: int
+    n: int
+    cluster: int
+    threads: int
+    slice: int
+    cached: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.items * self.cluster
+
+    def slices(self):
+        """[lo, hi) of each CTA of a cluster, as the kernel forms them."""
+        return [(min(r * self.slice, self.n),
+                 min((r + 1) * self.slice, self.n))
+                for r in range(self.cluster)]
+
+
+def make_plan(items: int, n: int, cluster: int, threads: int,
+              cache_floats: int) -> LaunchPlan:
+    """The plan of one cluster and block size: even slices, and as much of
+    each slice's operands cached as CACHE_BYTES holds."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {cluster} not in {CLUSTER_SIZES}")
+    size = -(-n // cluster)
+    cached = min(size, CACHE_BYTES // (4 * cache_floats))
+    return LaunchPlan(items, n, cluster, threads, size, cached,
+                      cached * 4 * cache_floats)
+
+
+def launch_plan(items: int, n: int) -> LaunchPlan:
+    """Kernel B's plan for ``items`` items of ``n`` keypoints (a pure
+    function; the measurements behind it are in PERF.md): the fewest CTAs
+    per item, up to 8, that leave each at most 512 keypoints, of 256
+    threads."""
+    cluster = next((c for c in CLUSTER_SIZES if -(-n // c) <= 512), 8)
+    return make_plan(items, n, cluster, THREADS[0], CACHE_FLOATS)
 
 
 def gn_corners(width: int, height: int, device=None):
@@ -122,37 +180,64 @@ def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
     Returns:
       (t (B, 4) f32, converged (B,) bool, disp01 (B,) f32, iters (B,) i32).
     """
-    _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy, t_init)
     kwargs = dict(threshold=threshold, width=width, height=height,
                   max_iters=max_iters)
-    dev = windows.device
-    if dev.type == "cpu":
+    if windows.device.type == "cpu":
+        _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
+               t_init)
         return gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx,
                               fy, ox, oy, t_init, **kwargs)
+    plan = launch_plan(t_init.shape[0], windows.shape[3])
+    return gn_solve_with_plan(plan, windows, key_index, tmpl, jac_masked,
+                              hinv, fx, fy, ox, oy, t_init, **kwargs)
+
+
+def gn_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
+                       jac_masked, hinv, fx, fy, ox, oy, t_init, *,
+                       threshold: float, width: int, height: int,
+                       max_iters: int):
+    """Launch kernel B with a given plan (``gn_solve`` takes
+    ``launch_plan``'s); CUDA tensors only. Raises if the launch is
+    refused."""
+    _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy, t_init)
+    dev = windows.device
     if dev.type != "cuda":
-        raise ValueError(f"gn_solve runs on cuda or cpu, not {dev}")
-    args = [windows, key_index.to(torch.int32).contiguous(), tmpl,
+        raise ValueError(f"kernel B runs on cuda, not {dev}")
+    bsz = t_init.shape[0]
+    _, p, _, n = windows.shape
+    if ((plan.items, plan.n) != (bsz, n) or plan.threads not in THREADS
+            or plan.cluster not in CLUSTER_SIZES):
+        raise ValueError(f"{plan} does not fit {bsz} items of {n} keypoints")
+    args = [windows, key_index.to(torch.int64).contiguous(), tmpl,
             jac_masked, hinv, fx, fy, ox, oy, t_init]
     if not all(x.is_contiguous() for x in args):
         raise ValueError("gn_solve needs contiguous operands")
-    bsz = t_init.shape[0]
-    _, p, _, n = windows.shape
     t_out = torch.empty((bsz, 4), dtype=torch.float32, device=dev)
-    conv = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    conv = torch.empty((bsz,), dtype=torch.bool, device=dev)
     disp01 = torch.empty((bsz,), dtype=torch.float32, device=dev)
     iters = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in args + [t_out, conv, disp01, iters]]
+    err = _kernel()(*ptrs, bsz, p, n, width * 0.5, height * 0.5,
+                    width - 1.0, height - 1.0, 1.0 / width, p - 3.0 - 1e-3,
+                    threshold, max_iters, plan.threads, plan.cluster,
+                    plan.slice, plan.cached, stream)
+    if err != 0:
+        raise RuntimeError(f"gn_solve kernel launch failed ({plan}): CUDA "
+                           f"error {err}")
+    gn_solve.launches += 1
+    return t_out, conv, disp01, iters
+
+
+@functools.cache
+def _kernel():
+    """``vs_gn_solve`` of the built ``csrc/gn_solve.cu``, typed."""
     fn = cuda_build.load("gn_solve").vs_gn_solve
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*(x.data_ptr() for x in args + [t_out, conv, disp01, iters]),
-             bsz, p, n, width * 0.5, height * 0.5, width - 1.0, height - 1.0,
-             1.0 / width, p - 3.0 - 1e-3, threshold, max_iters, stream)
-    if err != 0:
-        raise RuntimeError(f"gn_solve kernel launch failed: CUDA error {err}")
-    gn_solve.launches += 1
-    return t_out, conv.to(torch.bool), disp01, iters
+                   + [ctypes.c_float] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    return fn
 
 
 gn_solve.launches = 0
