@@ -72,10 +72,35 @@ Run from the root of the repository. Phases:
      error for each.
  12. The port on the card against the port on the CPU (the plain versions)
      on a small clip: ok equal, >= 99 % of output pixels within 1 LSB.
+ S1. The streaming path, timed: ``VideoStabilizer`` (crop 32, defaults
+     otherwise: lag 10, smoother memory 5, bilinear) over 48 frames of one
+     1080p stream of bench.py's content (seed 100) from a fresh state,
+     with every launch count set to 0 before and read after. Checks 38
+     outputs of (1016, 1856, 3) u8, align success >= 0.9 of the 47
+     alignable frames, TX/TY against the known motion (phase 9's bars),
+     and the launches: kernel A once per output, kernel B once per level
+     of every frame (the first frame runs the level loop, as in the JAX
+     package), kernel C never. Prints the per-frame latency (host clock up
+     to each frame's sync; median and p90 of frames 12-47) and the
+     per-frame stage table from the spans; then 8 more frames run under
+     torch.profiler (device busy share) and 4 more with kernel A's and B's
+     inputs captured.
+ S2. Streaming vs chunked on the card: S1's first 32 frames against
+     ``stabilize_stream_chunked`` (16-frame chunks): ok equal,
+     measurements within 1e-5, >= 99.5 % of output pixels within 1 LSB
+     (the JAX package's bars, test_batch.py:28-83).
+ S3. Kernel B at one item per launch on the captured frames' six levels
+     (phase 5's bars; two launches bit-identical; wrapper and device time
+     per level) and kernel A at one frame per launch on the 4 captured
+     frames (max 1 LSB, >= 99.9 % equal), with ``grid_sample`` on one frame
+     as the yardstick.
+ S4. The streaming path on the card against the CPU on a small clip
+     (96x128, 20 frames): ok equal, >= 99 % of pixels within 1 LSB.
 
 Every phase runs; the script exits 1 if any failed, 2 without a card. On
-success it prints the per-stage times, one ``{"kernels": [...]}`` line, the
-card's name and power limit, and as its last line
+success it prints the per-stage times, one ``{"kernels": [...]}`` line (six
+entries: kernel A's two chunked forms and its one-frame form, B per chunk
+and at one item, C), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -378,6 +403,28 @@ def warp_bound(frames, ts, crop, interp, model):
     return bound_ms, bound_by, bytes_moved / 1e9, ops / 1e9
 
 
+def grid_sample_ms(frames, ts, crop, reps):
+    """Yardstick of kernel A's similarity + bilinear form: one library call
+    computing the same bilinear, zero-border warp on the same (B, H, W, C)
+    frames, float NCHW in and out, timed between CUDA events."""
+    _, height, width, _ = frames.shape
+    dev = frames.device
+    ho, wo = height - 2 * crop, width - 2 * crop
+    src = frames.permute(0, 3, 1, 2).float()
+    ys, xs = torch.meshgrid(
+        torch.arange(crop, crop + ho, device=dev, dtype=torch.float32),
+        torch.arange(crop, crop + wo, device=dev, dtype=torch.float32),
+        indexing="ij")
+    a, b, tx, ty = (ts[:, k, None, None] for k in range(4))
+    sx = (1.0 + a) * xs - b * ys + tx
+    sy = b * xs + (1.0 + a) * ys + ty
+    grid = torch.stack([sx / (width - 1) * 2 - 1, sy / (height - 1) * 2 - 1],
+                       dim=-1)
+    return cuda_ms(lambda: torch.nn.functional.grid_sample(
+        src, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), reps)
+
+
 @phase("kernel A: output warp vs its plain version (1080p, similarity)")
 def check_warp(cap, crop, dev):
     from video_stabilizer_tpu_torch.ops.warp_kernel import (
@@ -411,24 +458,7 @@ def check_warp(cap, crop, dev):
             warp_frames_plain(frames[i:i + 16], ts[i:i + 16], crop)
     plain_ms = cuda_ms(plain, 2)
 
-    # Yardstick: one library call computing the same bilinear, zero-border
-    # warp on the same frames, float NCHW in and out.
-    ho, wo = HEIGHT - 2 * crop, WIDTH - 2 * crop
-    src = frames.permute(0, 3, 1, 2).float()
-    ys, xs = torch.meshgrid(
-        torch.arange(crop, crop + ho, device=dev, dtype=torch.float32),
-        torch.arange(crop, crop + wo, device=dev, dtype=torch.float32),
-        indexing="ij")
-    a, b, tx, ty = (ts[:, k, None, None] for k in range(4))
-    sx = (1.0 + a) * xs - b * ys + tx
-    sy = b * xs + (1.0 + a) * ys + ty
-    grid = torch.stack([sx / (WIDTH - 1) * 2 - 1, sy / (HEIGHT - 1) * 2 - 1],
-                       dim=-1)
-    library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
-        src, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True), 5)
-    del src, grid, sx, sy
-
+    library_ms = grid_sample_ms(frames, ts, crop, 5)
     bound_ms, bound_by, gb, gflop = warp_bound(frames, ts, crop, "bilinear",
                                                "similarity")
     log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, grid_sample "
@@ -1081,6 +1111,329 @@ def small_reference(dev):
           "1 LSB")
 
 
+# --------------------------------------------------------------------------
+# The streaming path: one stream, one frame in and one out (VideoStabilizer)
+# --------------------------------------------------------------------------
+
+STREAM_FRAMES = 48        # S1's timed frames from a fresh state
+STREAM_PROFILED = 8       # then these under torch.profiler
+STREAM_CAPTURED = 4       # then these with the kernels' inputs captured
+STREAM_STEADY = 12        # latency over frames STREAM_STEADY .. 47
+STREAM_VS_CHUNKED = 32    # S2: frames through both paths
+# The entries of S3 in the kernels line, each with the launch count of S1
+# that it reports.
+STREAM_KERNELS = (("warp_frames[similarity,bilinear,1 frame]",
+                   "warp_frames[similarity,bilinear]"),
+                  ("gn_solve[1 item]", "gn_solve"))
+STREAM_TOP = ("ConvertToGray", "AlignNextFrame", "SmootherUpdate",
+              "WarpBySimilarityTransform")
+
+
+def recording(stab):
+    """Wrap ``stab``'s aligner so that every frame's (transform, ok) device
+    tensors are kept (read after the run, so no extra host sync)."""
+    record = []
+    align = stab.aligner.align_next_frame
+
+    def recorded(gray):
+        t, ok = align(gray)
+        record.append((t, ok))
+        return t, ok
+    stab.aligner.align_next_frame = recorded
+    return record
+
+
+def read_record(record):
+    """(meas (T, 4), ok (T,)) numpy of a ``recording``."""
+    meas = torch.stack([t for t, _ in record]).cpu().numpy()
+    ok = torch.stack([k for _, k in record]).cpu().numpy()
+    return meas, ok
+
+
+@phase("S1. streaming path: 1080p, one stream, VideoStabilizer, timed")
+def streaming_path(frames, poses, params, dev):
+    """``STREAM_FRAMES`` frames through ``VideoStabilizer`` from a fresh
+    state with every launch count set to 0 before and read after, each
+    frame timed on the host clock up to its sync; then
+    ``STREAM_PROFILED`` more under torch.profiler and ``STREAM_CAPTURED``
+    more with kernel A's and B's inputs captured. Returns the first
+    ``STREAM_VS_CHUNKED`` frames' results for S2, the launches and the
+    captured inputs for S3."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_stabilizer_tpu_torch.models import aligner, batch
+    from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+    from video_stabilizer_tpu_torch.utils.spans import Recorder
+
+    lag, crop = params.lag, params.crop_pixels
+    # Each frame arrives in its own pinned host buffer, as a camera's
+    # decoder would leave it; filling the buffers is set-up, not timed.
+    host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
+            for f in frames]
+    stab = VideoStabilizer(params, dev)
+    record = recording(stab)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    walls, device_ms, stage_runs, outs = [], [], [], []
+    for i in range(STREAM_FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with Recorder() as rec:
+            out = stab.process_frame(host[i])
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+        stage_runs.append(rec.totals())
+        if out is not None:
+            outs.append(out)
+    launches = launch_counts()
+
+    want_shape = (HEIGHT - 2 * crop, WIDTH - 2 * crop, 3)
+    check(len(outs) == STREAM_FRAMES - lag
+          and all(tuple(o.shape) == want_shape and o.dtype == torch.uint8
+                  for o in outs),
+          f"{len(outs)} outputs (want {STREAM_FRAMES - lag}), each "
+          f"{want_shape} u8: {sorted({tuple(o.shape) for o in outs})}")
+    check(all(bool(o.any()) for o in outs), "no output blank")
+    meas, ok = read_record(record)
+    rate = float(ok[1:].mean())
+    check(rate >= 0.9, f"align success {rate:.4f} ({int(ok[1:].sum())} of "
+          f"{STREAM_FRAMES - 1} alignable frames)")
+    rms, max_err = known_motion_error(meas[None, :, 2:], ok[None],
+                                      poses[None, :STREAM_FRAMES])
+    check(max_err < 0.5 and rms < 0.2,
+          f"measured TX/TY against the clip's known motion: RMS {rms:.4f} "
+          f"px, max {max_err:.4f} px")
+    levels = len(aligner.level_specs(WIDTH, HEIGHT, params.aligner))
+    want_b = levels * STREAM_FRAMES
+    n_a = launches.get("warp_frames[similarity,bilinear]", 0)
+    check(n_a == STREAM_FRAMES - lag and launches["gn_solve"] == want_b
+          and launches["gn8_solve"] == 0
+          and sum(launches.values()) == n_a + want_b,
+          f"launches {launches}: kernel A {STREAM_FRAMES - lag} (one per "
+          f"output), kernel B {want_b} (one per level of every frame, the "
+          "first included), kernel C 0")
+
+    steady = np.asarray(walls[STREAM_STEADY:])
+    log(f"  per-frame latency, host clock up to the frame's sync, frames "
+        f"{STREAM_STEADY}-{STREAM_FRAMES - 1}: median "
+        f"{np.median(steady):.1f} ms, p90 {np.percentile(steady, 90):.1f} "
+        f"ms, min {steady.min():.1f}, max {steady.max():.1f}; on the "
+        f"device timeline median "
+        f"{np.median(device_ms[STREAM_STEADY:]):.1f} ms")
+    log(f"  frames 0-{STREAM_STEADY - 1} (host clock): "
+        + ", ".join(f"{w:.0f}" for w in walls[:STREAM_STEADY]) + " ms")
+    runs = stage_runs[STREAM_STEADY:]
+    names = sorted({k for r in runs for k in r},
+                   key=lambda k: (k not in STREAM_TOP,
+                                  STREAM_TOP.index(k) if k in STREAM_TOP
+                                  else 0, k))
+    log(f"  per-frame stage device times, mean of frames {STREAM_STEADY}-"
+        f"{STREAM_FRAMES - 1} (CUDA events; the aligner's stages nest in "
+        "AlignNextFrame, keyframe runs every other frame):")
+    for k in names:
+        pad = "" if k in STREAM_TOP else "  "
+        log(f"    {pad}{k:<26} {np.mean([r.get(k, 0.0) for r in runs]):9.3f}"
+            " ms")
+    log(f"    sum of the top stages      "
+        f"{sum(np.mean([r.get(k, 0.0) for r in runs]) for k in STREAM_TOP):9.3f}"
+        " ms")
+
+    # Device busy share over more frames. A frame issues some 40k device
+    # operations, too many to build the profiler's event tree
+    # (key_averages) in time: the device events' durations are summed
+    # straight from its raw results.
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for f in host[STREAM_FRAMES:STREAM_FRAMES + STREAM_PROFILED]:
+            stab.process_frame(f)
+        end.record()
+        torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in events) / 1e6
+    if busy > 0:
+        log(f"  {STREAM_PROFILED} frames under torch.profiler: "
+            f"{span_ms:.1f} ms on the device timeline, {len(events)} "
+            f"kernels and copies {busy:.1f} ms: busy "
+            f"{busy / span_ms * 100:.1f} %, idle "
+            f"{(1 - busy / span_ms) * 100:.1f} %")
+    else:
+        log("  the profiler recorded no device time: busy share not "
+            "measured")
+
+    # Kernel inputs of a few more frames, for S3.
+    with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as gn_spy, \
+            mock.patch.object(batch, "warp_frames",
+                              wraps=warp_frames) as warp_spy:
+        first = STREAM_FRAMES + STREAM_PROFILED
+        for f in host[first:first + STREAM_CAPTURED]:
+            stab.process_frame(f)
+    torch.cuda.synchronize()
+    n_vs = STREAM_VS_CHUNKED - lag
+    return dict(launches=launches, levels=levels,
+                meas=meas[:STREAM_VS_CHUNKED],
+                ok=ok[:STREAM_VS_CHUNKED],
+                outs=torch.stack(outs[:n_vs]).cpu().numpy(),
+                gn_calls=[(c.args, c.kwargs) for c in gn_spy.call_args_list],
+                warp_calls=[(c.args, c.kwargs)
+                            for c in warp_spy.call_args_list])
+
+
+@phase("S2. streaming vs chunked on the card (first 32 frames of S1's clip)")
+def streaming_vs_chunked(frames, params, dev, s1):
+    """The JAX package's own bars for streaming vs clip (test_batch.py:
+    28-83): ok equal, measurements within 1e-5, >= 99.5 % of output pixels
+    within 1 LSB (the chunked path accumulates in float32 on the card, the
+    streaming one in float64 on the host)."""
+    from video_stabilizer_tpu_torch.models import chunked
+
+    out, meas, ok = chunked.stabilize_stream_chunked(
+        frames[:STREAM_VS_CHUNKED], params, CHUNK, device=dev)
+    same_ok = bool((ok == s1["ok"]).all())
+    d_meas = float(np.abs(meas - s1["meas"]).max())
+    check(out.shape == s1["outs"].shape,
+          f"output {out.shape} (streaming {s1['outs'].shape})")
+    within = float((np.abs(out.astype(np.int32) - s1["outs"]) <= 1).mean())
+    equal = float((out == s1["outs"]).mean())
+    check(same_ok and d_meas <= 1e-5 and within >= 0.995,
+          f"ok equal {same_ok}; |d meas| {d_meas:.2e} (bar 1e-5); "
+          f"{within * 100:.3f} % of pixels within 1 LSB (bar 99.5 %), "
+          f"{equal * 100:.3f} % equal")
+
+
+@phase("S3. kernels B and A at one item / one frame vs their plain "
+       "versions (captured from S1)")
+def check_one_item(s1, crop):
+    from video_stabilizer_tpu_torch.ops.gn_solve import (
+        OPS_PER_SAMPLE, gn_solve, gn_solve_plain, launch_plan)
+    from video_stabilizer_tpu_torch.ops.warp_kernel import (
+        warp_frames, warp_frames_plain)
+
+    calls, levels = s1["gn_calls"], s1["levels"]
+    check(len(calls) == levels * STREAM_CAPTURED,
+          f"{len(calls)} kernel B calls over {STREAM_CAPTURED} frames "
+          f"({levels} levels)")
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_share = dict(bytes=0.0, operations=0.0)
+    worst = 0.0
+    for lvl in range(levels):
+        items = calls[lvl::levels]           # this level of every frame
+        kw = items[0][1]
+        p, n = items[0][0][0].shape[1], items[0][0][0].shape[3]
+        level = f"{kw['width']}x{kw['height']} (P={p}, N={n})"
+        same, d_ab, d_t, iters = True, 0.0, 0.0, []
+        one_item = all(args[-1].shape[0] == 1 for args, _ in items)
+        for args, k in items:
+            t_g, c_g, _, i_g = gn_solve(*args, **k)
+            t_w, c_w, _, i_w = gn_solve_plain(*args, **k)
+            same &= bool((c_g == c_w).all())
+            d_ab = max(d_ab, float((t_g[:, :2] - t_w[:, :2]).abs().max()))
+            d_t = max(d_t, float((t_g[:, 2:] - t_w[:, 2:]).abs().max()))
+            iters.append(int(i_g[0]))
+        worst = max(worst, d_ab, d_t)
+        check(one_item and same and d_ab <= GN_AB_BAR and d_t <= GN_T_BAR,
+              f"{level}, {len(items)} frames, one item per launch "
+              f"{one_item}: converged equal {same}; "
+              f"|dA,dB| {d_ab:.2e} (bar {GN_AB_BAR:.0e}), |dTX,dTY| "
+              f"{d_t:.2e} px (bar {GN_T_BAR:.0e}); iterations {iters}")
+        args, kw = items[0]
+        check(deterministic(lambda: gn_solve(*args, **kw)),
+              f"{level}: two launches give bit-identical outputs")
+        t_g, _, _, i_g = gn_solve(*args, **kw)
+        ms = cuda_ms(lambda: gn_solve(*args, **kw), 20)
+        device_ms = graph_ms(lambda: gn_solve(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: gn_solve_plain(*args, **kw), 2)
+        bytes_moved = gn_bytes(args, t_g, i_g)
+        ops = int(i_g.sum()) * 2 * n * OPS_PER_SAMPLE
+        bound_ms, bound_by = roofline(bytes_moved, ops)
+        bound_share[bound_by] += bound_ms
+        log(f"    plan: {describe_plan(launch_plan(1, n))}; kernel "
+            f"{ms:.4f} ms (device {device_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{int(i_g[0])} iterations")
+        for key, val in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            totals[key] += val
+    log(f"  per frame (sum of {levels} levels, one item each): kernel "
+        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
+        f"plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.4f} ms")
+    gn_entry = dict(name="gn_solve[1 item]", route="cuda",
+                    source="video_stabilizer_tpu_torch/csrc/gn_solve.cu",
+                    replaces=GN_REPLACES, max_abs_err=worst,
+                    ms=totals["ms"], device_ms=totals["device_ms"],
+                    plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
+                    bound_by=max(bound_share, key=bound_share.get),
+                    library_ms=None)
+
+    warps = s1["warp_calls"]
+    check(len(warps) == STREAM_CAPTURED,
+          f"{len(warps)} kernel A calls over {STREAM_CAPTURED} frames")
+    max_err, equal = 0, 1.0
+    forms = {(tuple(a[0].shape), a[2], tuple(sorted(k.items())))
+             for a, k in warps}
+    for (frame, ts, c), _ in warps:
+        e, q = warp_compare(frame, ts, c)
+        max_err, equal = max(max_err, e), min(equal, q)
+    check(forms == {((1, HEIGHT, WIDTH, 3), crop, (("interp", "bilinear"),))}
+          and max_err <= 1 and equal >= 0.999,
+          f"{len(warps)} streaming frames, calls {forms}: max |diff| "
+          f"{max_err} LSB, at least {equal * 100:.4f} % equal per frame")
+    (frame, ts, c), _ = warps[0]
+    ms = cuda_ms(lambda: warp_frames(frame, ts, c), 20)
+    device_ms = graph_ms(lambda: warp_frames(frame, ts, c), 20)
+    plain_ms = cuda_ms(lambda: warp_frames_plain(frame, ts, c), 2)
+    library_ms = grid_sample_ms(frame, ts, c, 20)
+    bound_ms, bound_by, gb, gflop = warp_bound(frame, ts, c, "bilinear",
+                                               "similarity")
+    log(f"  one frame: kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
+        f"plain {plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {gb * 1e3:.2f} MB, {gflop:.3f} "
+        f"GFLOP); device / bound {device_ms / bound_ms:.1f}")
+    warp_entry = dict(name="warp_frames[similarity,bilinear,1 frame]",
+                      route="cuda",
+                      source="video_stabilizer_tpu_torch/csrc/warp.cu",
+                      replaces=WARP_REPLACES, max_abs_err=max_err, ms=ms,
+                      device_ms=device_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=library_ms)
+    return warp_entry, gn_entry
+
+
+@phase("S4. small clip: the streaming path on the card vs on the CPU")
+def streaming_small_reference(dev):
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
+    from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
+
+    params = StabilizerParams(lag=4, smoother_memory=2, crop_pixels=8)
+    frames = synth_shaky_clip(20, 96, 128, seed=52, jitter_px=0.8,
+                              pan_px_per_frame=0.3, rot_jitter=0.002)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        stab = VideoStabilizer(params, d)
+        record = recording(stab)
+        outs = [stab.process_frame(f) for f in frames]
+        runs[name] = (np.stack([o.cpu().numpy() for o in outs
+                                if o is not None]),) + read_record(record)
+    (o_g, m_g, k_g), (o_c, m_c, k_c) = runs["card"], runs["cpu"]
+    same_ok = bool((k_g == k_c).all())
+    within = float((np.abs(o_g.astype(np.int32) - o_c) <= 1).mean())
+    check(same_ok and o_g.shape == o_c.shape and within >= 0.99,
+          f"ok equal {same_ok} ({int(k_g.sum())} of {k_g.size} aligned); "
+          f"outputs {o_g.shape}; |d meas| {np.abs(m_g - m_c).max():.2e}; "
+          f"{within * 100:.3f} % of pixels within 1 LSB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1147,9 +1500,32 @@ def main() -> int:
     wide_jitter(params, dev)
     small_reference(dev)
 
+    # The streaming path: its own clip, its own launch counts (S1), read
+    # into the two one-frame / one-item entries of kernels A and B (S3).
+    t0 = time.perf_counter()
+    frames, poses = synth_streams(
+        dev, STREAM_FRAMES + STREAM_PROFILED + STREAM_CAPTURED, MAIN_CONTENT,
+        seeds=[SEED])
+    frames, poses = frames[0], poses[0]
+    log(f"== streaming path's clip {frames.shape} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    s1 = streaming_path(frames, poses, params, dev)
+    one = (None, None)
+    if s1 is not None:
+        streaming_vs_chunked(frames, params, dev, s1)
+        one = check_one_item(s1, crop) or one
+        for name, counted in STREAM_KERNELS:
+            if s1["launches"].get(counted, 0) > 0:
+                path_launches[name] = s1["launches"][counted]
+    del frames, s1
+    torch.cuda.empty_cache()
+    for (name, _), entry in zip(STREAM_KERNELS, one):
+        kernels[name] = entry
+    streaming_small_reference(dev)
+
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 4:
+    if failures or missing or len(kernels) != 6:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))

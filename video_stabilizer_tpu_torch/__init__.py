@@ -12,16 +12,36 @@ Layer map, mirroring the JAX package:
                      per-level 4-DOF GN loop, csrc/gn_solve.cu) and
                      gn8_solve.py (kernel C, per-level 8-DOF GN loop,
                      csrc/gn8_solve.cu), built at first use by cuda_build.py
-  models/aligner.py  batched coarse-to-fine inverse-compositional LK aligner
+  models/aligner.py  coarse-to-fine inverse-compositional LK aligner: the
+                     batched level loop, and its streaming form
+                     (init_state, align_next_frame, VideoAligner)
   models/homography_aligner.py  its 8-DOF homography counterpart
+  models/smoother.py TV-L1 smoother, and the streaming L1SmootherCenter
+  models/stabilizer.py  VideoStabilizer: one frame in, one stabilized
+                     frame out, ``lag`` frames late (kernel A at one frame,
+                     kernel B at one item per level)
   models/batch.py    clip and multi-stream pipelines (model="similarity" or
-                     "homography")
+                     "homography"), and the streaming output_warp
   models/chunked.py  chunked serving with carried StreamState
+  utils/checkpoint.py  save / load of a VideoStabilizer mid-stream, in the
+                     JAX package's .npz layout
+  utils/spans.py     named CUDA-event spans of the pipeline stages
   utils/io.py        synthetic footage (numpy)
 
 Entry points take ``device=None``, which means the CUDA card, and raise when
 there is none; ``device="cpu"`` runs the plain PyTorch versions. The package
 imports neither jax nor the JAX package.
+
+Streaming, on the card or the CPU::
+
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import VideoStabilizer
+    stab = VideoStabilizer(StabilizerParams(), device="cpu")  # None: card
+    for frame in frames:                     # (H, W, 3) BGR u8
+        out = stab.process_frame(frame)      # None for the first ``lag``
+
+Resuming a stream that the JAX package checkpointed with its
+``save_stabilizer``: ``utils.checkpoint.load_stabilizer(path, params)``.
 """
 
 __version__ = "0.1.0"

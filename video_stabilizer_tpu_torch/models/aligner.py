@@ -1,12 +1,19 @@
-"""The coarse-to-fine inverse-compositional Lucas-Kanade aligner, batched.
+"""The coarse-to-fine inverse-compositional Lucas-Kanade aligner.
 
 Port of ``video_stabilizer_tpu.models.aligner`` (the XLA path): keyframe
 precompute (gradients, per-tile argmax, Jacobian rows, u8 sampling windows),
 then per level the warp-diff keypoint selection and the Hessian at the
 incoming transform, its regularized inverse, and the GN loop in kernel B
-(``ops/gn_solve.py``). Every function works on a batch of items: an item is
-one alignment of a template pyramid against a keyframe, and it names its
-keyframe by index so that several items share one keyframe's windows.
+(``ops/gn_solve.py``). Every function of the level loop works on a batch of
+items: an item is one alignment of a template pyramid against a keyframe,
+and it names its keyframe by index so that several items share one
+keyframe's windows.
+
+The streaming form (``init_state``, ``align_next_frame``, ``VideoAligner``)
+aligns one frame at a time against the alternating keyframe through the same
+level loop, with one item and one keyframe. Its buffer index and frame count
+are host ints, so the branch "compute the keyframe on keyframe frames"
+(aligner.py:703-708) is taken on the host without reading the device.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 from video_stabilizer_tpu_torch import transforms as T
 from video_stabilizer_tpu_torch.config import (
     AlignerParams, pyramid_shapes, tile_size_for)
+from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.ops.argmax import (
     grad_argmax, take_at_tile_argmax, tile_argmax_flat_index)
 from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
@@ -26,10 +34,15 @@ from video_stabilizer_tpu_torch.ops.grad import grad_xy
 from video_stabilizer_tpu_torch.ops.linalg import regularized_pinv_sym4
 from video_stabilizer_tpu_torch.ops.patches import (
     extract_tile_windows_flat, sample_windows_flat, warp_rel_positions_flat,
-    window_origins_flat)
+    window_origins_flat, window_size)
+from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
+from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 from video_stabilizer_tpu_torch.ops.select import histogram_mask
 from video_stabilizer_tpu_torch.utils.spans import span
 
+# Alternating keyframe buffers (alignment.hpp:61-66).
+KEYFRAME_INDEX = 1
+NON_KEYFRAME_INDEX = 0
 # Pyramid level of the phase-correlation init (alignment.hpp:69).
 PHASE_LEVEL = 2
 
@@ -202,3 +215,144 @@ def align_all_levels(templates, template_index, key, key_index, specs,
         transform = torch.where(failed[:, None], transform, t_next)
         failed = failed | level_failed
     return transform, failed
+
+
+def phase_shift(img_prev, img_curr, num_levels: int, params: AlignerParams,
+                flip):
+    """Phase-correlation TX/TY init from two phase-level images
+    (alignment.cpp:369-388, aligner.py:455-474), batched over leading axes:
+    (shift * scale * flip (..., 2) f32, ok (...,) bool). The scale is the
+    reference's (1 << PHASE_LEVEL) / (1 << levels), an implicit extra 0.5,
+    kept as it is; ``flip`` is -1 on keyframes (alignment.cpp:383-386); ok
+    is the response above the threshold."""
+    lvl = min(PHASE_LEVEL, num_levels - 1)
+    shift, response = phase_correlate(img_prev, img_curr)
+    scale = (1 << lvl) / float(1 << num_levels)
+    return shift * scale * flip, response > params.phase_correlate_threshold
+
+
+def phase_init_pair(img_prev, img_curr, num_levels: int,
+                    params: AlignerParams, is_keyframe: bool):
+    """The (..., 4) initial transform of one alignment: the phase-correlation
+    translation, or the identity where the response is at or below the
+    threshold."""
+    shift, ok = phase_shift(img_prev, img_curr, num_levels, params,
+                            -1.0 if is_keyframe else 1.0)
+    t = torch.cat([torch.zeros_like(shift), shift], dim=-1)
+    return torch.where(ok[..., None], t, torch.zeros_like(t))
+
+
+class AlignerState(NamedTuple):
+    """Carried state of the streaming aligner. Axis 0 of each pyramid level
+    is the double buffer: 0 = non-keyframe, 1 = keyframe
+    (alignment.hpp:62-66). ``key`` holds one keyframe (K = 1)."""
+    pyramid: Tuple[torch.Tensor, ...]   # per level (2, h, w) u8
+    key: Tuple[LevelKeyData, ...]
+    curr_idx: int                       # which buffer holds frame t
+    frames_seen: int                    # saturates at 2
+
+
+def init_state(width: int, height: int, params: AlignerParams,
+               device=None) -> AlignerState:
+    """The zero pre-stream state (aligner.py:139-160) on ``device`` (the
+    CUDA card unless given)."""
+    dev = resolve_device(device)
+    specs = level_specs(width, height, params)
+    pyramid = tuple(torch.zeros((2, s.height, s.width), dtype=torch.uint8,
+                                device=dev) for s in specs)
+    key = []
+    for s in specs:
+        n, p = s.ht * s.wt, window_size(s.tile, s.margin)
+        key.append(LevelKeyData(
+            idx_x=torch.zeros((1, s.ht, s.wt), dtype=torch.int32,
+                              device=dev),
+            idx_y=torch.zeros((1, s.ht, s.wt), dtype=torch.int32,
+                              device=dev),
+            coords=torch.zeros((1, 2, 2, n), device=dev),
+            jac=torch.zeros((1, 4, 2, n), device=dev),
+            windows=torch.zeros((1, p, p, n), dtype=torch.uint8,
+                                device=dev)))
+    return AlignerState(pyramid=pyramid, key=tuple(key), curr_idx=0,
+                        frames_seen=0)
+
+
+def align_next_frame(state: AlignerState, gray, params: AlignerParams):
+    """Align one (H, W) u8 gray frame, on the state's device, against the
+    alternating keyframe (aligner.py:683-754).
+
+    Returns (new_state, transform (4,) f32, success () bool), both on the
+    device: ``transform`` measures the motion from the previous frame to
+    this one; ``success`` is False for the first frame and on track loss.
+    """
+    h, w = gray.shape[-2], gray.shape[-1]
+    specs = level_specs(w, h, params)
+    # Buffer flip (alignment.cpp:158-159, 206-207): first frame -> buffer 0.
+    curr = 0 if state.frames_seen == 0 else 1 - state.curr_idx
+    with span("pyramid"):
+        levels = build_pyramid(gray, len(specs))
+        pyramid = tuple(torch.stack([lv, buf[1]] if curr == 0
+                                    else [buf[0], lv])
+                        for buf, lv in zip(state.pyramid, levels))
+    # Keyframe precompute on keyframe frames (alignment.cpp:357-367).
+    if curr == KEYFRAME_INDEX:
+        with span("keyframe"):
+            key = _compute_keyframe(
+                [p[KEYFRAME_INDEX:KEYFRAME_INDEX + 1] for p in pyramid],
+                specs)
+    else:
+        key = state.key
+    if params.phase_correlate:
+        lvl = min(PHASE_LEVEL, len(specs) - 1)
+        with span("phase"):
+            t_init = phase_init_pair(pyramid[lvl][1 - curr][None],
+                                     pyramid[lvl][curr][None], len(specs),
+                                     params, curr == KEYFRAME_INDEX)
+    else:
+        t_init = torch.zeros((1, 4), device=gray.device)
+    one = torch.zeros(1, dtype=torch.int64, device=gray.device)
+    templates = [p[NON_KEYFRAME_INDEX:NON_KEYFRAME_INDEX + 1]
+                 for p in pyramid]
+    transform, failed = align_all_levels(templates, one, key, one, specs,
+                                         params, t_init)
+    transform, failed = transform[0], failed[0]
+    # Non-keyframes report the inverse (alignment.cpp:690-693); the
+    # early-return failure paths skip the inversion.
+    if curr != KEYFRAME_INDEX:
+        transform = torch.where(failed, transform, T.inverse(transform))
+    # The first frame has nothing to align to (alignment.cpp:231-234).
+    if state.frames_seen == 0:
+        transform = torch.zeros_like(transform)
+        success = torch.zeros_like(failed)
+    else:
+        success = ~failed
+    new_state = AlignerState(pyramid=pyramid, key=key, curr_idx=curr,
+                             frames_seen=min(state.frames_seen + 1, 2))
+    return new_state, transform, success
+
+
+class VideoAligner:
+    """Stateful wrapper with the reference's VideoAligner API
+    (alignment.hpp:51-58, aligner.py:757-779): re-initializes its state on a
+    change of resolution (alignment.cpp:155). Runs on ``device``, the CUDA
+    card unless given; ``device="cpu"`` runs the plain versions."""
+
+    def __init__(self, params: AlignerParams = AlignerParams(), device=None):
+        self.params = params
+        self.device = resolve_device(device)
+        self._state = None
+        self._shape = None
+
+    def align_next_frame(self, gray):
+        """(H, W) u8 frame -> (transform (4,), success ()) on the device."""
+        gray = torch.as_tensor(gray).to(self.device)
+        shape = (gray.shape[-2], gray.shape[-1])
+        if self._state is None or shape != self._shape:
+            self._state = init_state(shape[1], shape[0], self.params,
+                                     self.device)
+            self._shape = shape
+        self._state, t, ok = align_next_frame(self._state, gray, self.params)
+        return t, ok
+
+    def reset(self):
+        self._state = None
+        self._shape = None

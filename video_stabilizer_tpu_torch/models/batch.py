@@ -30,10 +30,9 @@ from video_stabilizer_tpu_torch.config import StabilizerParams
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import (
     PHASE_LEVEL, LevelKeyData, _compute_keyframe, align_all_levels,
-    level_specs)
+    level_specs, phase_shift)
 from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
-from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
 from video_stabilizer_tpu_torch.utils.spans import span
@@ -83,24 +82,20 @@ def _phase_inits(levels, carry: PairCarry, specs, params, ops):
     frame i against frame i - 1 (the carried keyframe for i = 0) at the
     phase level, as ``_align_pair_step`` and ``_pair_step_h`` form it
     (batch.py:146-153, aligner.py:455-474, homography_aligner.py:245-258):
-    shift * scale * flip, divided by the frame width for the normalized
-    homography, with flip -1 on keyframes (odd i) and the reference's scale
-    (1 << PHASE_LEVEL) / (1 << levels), an implicit extra 0.5, kept as it
-    is; the identity where the response is at or below the threshold."""
-    num_levels = len(specs)
-    lvl = min(PHASE_LEVEL, num_levels - 1)
+    ``aligner.phase_shift`` with flip -1 on keyframes (odd i), divided by
+    the frame width for the normalized homography; the identity where the
+    response is at or below the threshold."""
+    lvl = min(PHASE_LEVEL, len(specs) - 1)
     cur = levels[lvl]                                        # (S, T, h, w)
     prev = torch.cat([carry.key_pyr[lvl][:, None], cur[:, :-1]], dim=1)
-    shift, resp = phase_correlate(prev, cur)
-    scale = (1 << lvl) / float(1 << num_levels)
-    flip = torch.ones(cur.shape[1], device=cur.device)
+    flip = torch.ones((cur.shape[1], 1), device=cur.device)
     flip[1::2] = -1.0
+    shift, ok = phase_shift(prev, cur, len(specs), params, flip)
     norm = float(specs[0].width) if ops["normalized"] else 1.0
     t = torch.zeros(shift.shape[:-1] + (ops["nparams"],), device=cur.device)
     for k, slot in enumerate(ops["translation"]):
-        t[..., slot] = shift[..., k] * scale * flip / norm
-    ok = (resp > params.phase_correlate_threshold)[..., None]
-    return torch.where(ok, t, torch.zeros_like(t))
+        t[..., slot] = shift[..., k] / norm
+    return torch.where(ok[..., None], t, torch.zeros_like(t))
 
 
 def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
@@ -236,6 +231,18 @@ def accumulate_corrections(meas, success, smoothed, params: StabilizerParams,
                                 model)
             accums.append(accum)
     return torch.stack(accums, dim=1)
+
+
+def output_warp(frame, t_sample_ul, params: StabilizerParams):
+    """The streaming output warp of ONE (H, W, C) u8 frame by its (4,)
+    origin-based sampling similarity (batch.py:52-65): one launch of kernel
+    A at B = 1, in ``params.output_interp``, with the crop of
+    ``params.crop_pixels`` fused. The kernel's 216x512 tile grid is anchored
+    at the uncropped frame, so the pixels are those of warping the whole
+    frame and slicing [c:-c, c:-c] (stabilizer.py:193-195)."""
+    ts = t_sample_ul.to(torch.float32).reshape(1, 4).contiguous()
+    return warp_frames(frame[None].contiguous(), ts, params.crop_pixels,
+                       interp=params.output_interp)[0]
 
 
 def warp_delayed(delayed, accums, params: StabilizerParams, width: int,

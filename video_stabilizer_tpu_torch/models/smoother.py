@@ -4,11 +4,16 @@ Per transform parameter, 100 fixed iterations of (a) relaxation toward the
 data (alpha = 0.5) and (b) a sequential left-to-right sweep of pairwise
 difference shrinkage. Same expressions as
 ``video_stabilizer_tpu.models.smoother.tvl1_smooth`` (smoother.py:30-80).
+``L1SmootherCenter`` is the streaming form (smoother.py:109-159): one
+measurement in, one finalized smoothed transform out, ``lag_ahead`` late.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from video_stabilizer_tpu_torch.device import resolve_device
 
 
 def tvl1_smooth(data, lam: float, iterations: int = 100, valid_len=None):
@@ -46,3 +51,86 @@ def tvl1_smooth(data, lam: float, iterations: int = 100, valid_len=None):
             cols[i] = torch.where(active[i], new_i, xi)
             cols[i + 1] = torch.where(active[i], new_j, xj)
     return torch.stack(cols, dim=-1)
+
+
+def tvl1_smooth_np(data, lam, iterations: int = 100):
+    """Pure-numpy float64 twin of ``tvl1_smooth`` (smoother.py:83-99): the
+    host mode of ``L1SmootherCenter`` and an oracle for tests."""
+    x = np.array(data, np.float64, copy=True)
+    d = np.asarray(data, np.float64)
+    n = x.shape[-1]
+    for _ in range(iterations):
+        x = 0.5 * x + 0.5 * d
+        for i in range(n - 1):
+            diff = x[..., i + 1] - x[..., i]
+            mag = np.abs(diff)
+            gt = mag > lam
+            shrink = np.where(gt, (mag - lam) / np.maximum(mag, 1e-300) * 0.5,
+                              0.0)
+            mid = 0.5 * (x[..., i] + x[..., i + 1])
+            x[..., i] = np.where(gt, x[..., i] + diff * shrink, mid)
+            x[..., i + 1] = np.where(gt, x[..., i + 1] - diff * shrink, mid)
+    return x
+
+
+def _smooth_window(buf, lam: float, middle: int, count: int,
+                   iterations: int):
+    """Smooth a (window, 4) float32 buffer whose first ``count`` rows are
+    valid and return its ``middle`` row (smoother.py:101-106)."""
+    sm = tvl1_smooth(buf.T, lam, iterations=iterations, valid_len=count)
+    return sm[:, middle]
+
+
+class L1SmootherCenter:
+    """Streaming lagged smoother (smoother.cpp:66-127, smoother.py:109-159):
+    finalizes measurement k once k + lag_ahead measurements exist, smoothing
+    the window [k - lag_behind, k + lag_ahead] and emitting its element k.
+
+    The window is a fixed ring buffer on the host. ``jit_smooth=True`` (the
+    JAX package's default, whose jitted float32 smooth it mirrors) smooths
+    in float32 on ``device`` (the CUDA card unless given) through
+    ``tvl1_smooth``; ``jit_smooth=False`` smooths in float64 on the host
+    (the reference's double math).
+    """
+
+    def __init__(self, lag_behind: int, lag_ahead: int, lambda_: float = 1.0,
+                 iterations: int = 100, jit_smooth: bool = True,
+                 device=None):
+        self.lag_behind = lag_behind
+        self.lag_ahead = lag_ahead
+        self.lambda_ = lambda_
+        self.iterations = iterations
+        self.jit_smooth = jit_smooth
+        self.device = resolve_device(device)
+        self.window = lag_behind + lag_ahead + 1
+        self._buf = np.zeros((self.window, 4), np.float64)  # ring
+        self._total = 0           # measurements received
+        self._next_to_finalize = 0
+
+    def update(self, meas):
+        """Push one (4,) measurement. Returns the finalized (4,) float64
+        numpy transform, or None until the window ahead is full
+        (smoother.cpp:84-86)."""
+        self._buf[self._total % self.window] = np.asarray(meas, np.float64)
+        self._total += 1
+        newest = self._total - 1
+        k = self._next_to_finalize
+        if k + self.lag_ahead > newest:
+            return None
+        start = max(0, k - self.lag_behind)
+        end = k + self.lag_ahead                      # inclusive
+        idx = np.arange(start, end + 1)
+        window_vals = self._buf[idx % self.window]    # (n, 4)
+        middle = k - start
+        if self.jit_smooth:
+            buf = np.zeros((self.window, 4), np.float32)
+            buf[:len(idx)] = window_vals
+            sm = _smooth_window(torch.from_numpy(buf).to(self.device),
+                                self.lambda_, middle, len(idx),
+                                self.iterations)
+            out = sm.cpu().numpy().astype(np.float64)
+        else:
+            sm = tvl1_smooth_np(window_vals.T, self.lambda_, self.iterations)
+            out = sm[:, middle]
+        self._next_to_finalize += 1
+        return out
