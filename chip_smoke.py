@@ -36,6 +36,11 @@ Run from the root of the repository. Phases:
      fixed cost (a line through the device times at max_iters 1, 4 and 16
      with threshold 0), and the device time under every cluster size
      (1-8) and block size the kernel is built for.
+ 5F. Kernel B in its fixed-iteration mode (``fixed_iters`` = K: exactly K
+     iterations, converged = the last step moved no corner by the
+     threshold) against its plain version on phase 5's items at K = 1 and
+     4: converged equal, iters == K on every item, A/B 1e-5, TX/TY 1e-3
+     px, two launches bit-identical; wrapper and device time per level.
   6. Drive the 4K homography path (config 4 of apps/bench_configs.py:
      3840x2160 BGR, 2 streams x 16-frame chunks, phase-correlation init,
      8-DOF model, Lanczos2 output, crop 32) over two chunks to capture
@@ -56,20 +61,42 @@ Run from the root of the repository. Phases:
      median max(|p6|,|p7|) at least 10x the largest p6/p7 gap. Two
      launches must give bit-identical outputs. Reported per level as in
      phase 5.
+ 8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
+     a fresh state, stream 0 a moving perspective sequence (each frame the
+     previous one warped by a known homography with p6/p7 != 0, through
+     kernel A's homography form): kernel C against its plain version at
+     all 7 levels to phase 8's bars, the perspective check on stream 0's
+     items. The same content through the 4K similarity path: kernel B at
+     its 7 levels to phase 5's bars.
   9. The 1080p similarity path, timed, on bench.py's content (translation
      only, 1 px jitter): 4 chunks with carried state from a fresh start,
      with every launch count set to 0 before and read after. Checks the
      output shape, the align success rate (>= 0.9) and the measured motion
      against the clip's known motion. One more chunk runs under
      torch.profiler.
+ 9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
+     selection): the same checks, its stage table beside phase 9's.
+ 9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
+     against the gather oracle (ops/warp.py) on phase 9's 128 delayed
+     frames and corrections and on 8 of them at integer translations
+     (bit-exact), subpixel translations (<= 1 LSB) and rotation / zoom
+     within the envelope (<= 2 LSB on > 99.9 %); timed beside kernel A and
+     grid_sample on the 128 frames.
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
      p2*W, p5*W against the known motion; one more chunk under the
      profiler.
+10F. The FIR warp's homography + Lanczos2 form against the gather oracle
+     on phase 10's 32 delayed frames and corrections and on 4 frames with
+     random homographies within the envelope (<= 2 LSB on > 99.9 %); timed
+     beside kernel A.
  11. Reported, no bar: one chunk of 4 px jitter content through kernel B
      and through its plain version, with convergence and known-motion
-     error for each.
+     error for each. Each item whose converged flag differs between the
+     two runs is named (stream, frame, level), and on each run's inputs of
+     that level both engines' own loops and their per-iteration max corner
+     moves (fixed mode, K = 1 .. max_iters) are printed side by side.
  12. The port on the card against the port on the CPU (the plain versions)
      on a small clip: ok equal, >= 99 % of output pixels within 1 LSB.
  S1. The streaming path, timed: ``VideoStabilizer`` (crop 32, defaults
@@ -83,29 +110,36 @@ Run from the root of the repository. Phases:
      package), kernel C never. Prints the per-frame latency (host clock up
      to each frame's sync; median and p90 of frames 12-47) and the
      per-frame stage table from the spans; then 8 more frames run under
-     torch.profiler (device busy share) and 4 more with kernel A's and B's
-     inputs captured.
+     torch.profiler (device busy share).
  S2. Streaming vs chunked on the card: S1's first 32 frames against
      ``stabilize_stream_chunked`` (16-frame chunks): ok equal,
      measurements within 1e-5, >= 99.5 % of output pixels within 1 LSB
      (the JAX package's bars, test_batch.py:28-83).
- S3. Kernel B at one item per launch on the captured frames' six levels
-     (phase 5's bars; two launches bit-identical; wrapper and device time
-     per level) and kernel A at one frame per launch on the 4 captured
-     frames (max 1 LSB, >= 99.9 % equal), with ``grid_sample`` on one frame
-     as the yardstick.
+ S5. S1's clip and checks with ``AlignerParams(fixed_iters=4)`` (kernel
+     B's fixed mode, the card's counterpart of bench_latency's ``_fixed4``):
+     per-frame median and p90, AlignNextFrame, success and known-motion
+     error printed beside S1's.
+ S3. Kernel A's and B's inputs captured from 4 frames of a 1080p stream
+     with rotation and zoom (after ``lag`` frames from a fresh state):
+     kernel B at one item per launch at the six levels (phase 5's bars,
+     the items' A/B >= 10x the A/B bar too; two launches bit-identical;
+     wrapper and device time per level) and kernel A at one frame per
+     launch (max 1 LSB, >= 99.9 % equal), with ``grid_sample`` on one
+     frame as the yardstick.
  S4. The streaming path on the card against the CPU on a small clip
      (96x128, 20 frames): ok equal, >= 99 % of pixels within 1 LSB.
 
 Every phase runs; the script exits 1 if any failed, 2 without a card. On
-success it prints the per-stage times, one ``{"kernels": [...]}`` line (six
-entries: kernel A's two chunked forms and its one-frame form, B per chunk
-and at one item, C), the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.
+success it prints the per-stage times, one ``{"kernels": [...]}`` line
+(seven entries: kernel A's two chunked forms and its one-frame form, B per
+chunk, at one item and in its fixed mode at K = 4 (S5's launches), C), the
+card's name and power limit, and as its last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -654,6 +688,102 @@ def check_gn(cap):
                 library_ms=None)
 
 
+def gn_compare(args, kw, level, ab_check=True):
+    """Kernel B against its plain version on one level's items, phase 5's
+    bars: converged equal, A/B within GN_AB_BAR, TX/TY within GN_T_BAR px,
+    two launches bit-identical, and (``ab_check``) the items' A/B median at
+    least 10x the A/B bar. Returns (the kernel's outputs, the largest
+    gap)."""
+    from video_stabilizer_tpu_torch.ops.gn_solve import (
+        gn_solve, gn_solve_plain)
+
+    got = gn_solve(*args, **kw)
+    want = gn_solve_plain(*args, **kw)
+    (t_g, c_g, _, i_g), (t_w, c_w, _, i_w) = got, want
+    d_ab = float((t_g[:, :2] - t_w[:, :2]).abs().max())
+    d_t = float((t_g[:, 2:] - t_w[:, 2:]).abs().max())
+    same_conv = bool((c_g == c_w).all())
+    for i in torch.nonzero(c_g != c_w).flatten().tolist():
+        log(f"    item {i}: converged {bool(c_g[i])} (kernel) vs "
+            f"{bool(c_w[i])} (plain), iters {int(i_g[i])} vs {int(i_w[i])}")
+    check(same_conv and d_ab <= GN_AB_BAR and d_t <= GN_T_BAR,
+          f"{level}: converged equal on all items {same_conv}; |dA,dB| "
+          f"{d_ab:.2e} (bar {GN_AB_BAR:.0e}), |dTX,dTY| {d_t:.2e} px (bar "
+          f"{GN_T_BAR:.0e}), |d iters| {int((i_g - i_w).abs().max())}; mean "
+          f"iters {float(i_g.float().mean()):.2f}, converged "
+          f"{float(c_g.float().mean()) * 100:.1f} %")
+    if ab_check:
+        ab = t_w[:, :2].abs().amax(dim=1)
+        check(float(ab.median()) >= 10 * GN_AB_BAR,
+              f"{level}: the items' max(|A|,|B|) has median "
+              f"{float(ab.median()):.2e} and max {float(ab.max()):.2e}, "
+              f">= 10x the A/B bar")
+    check(deterministic(lambda: gn_solve(*args, **kw)),
+          f"{level}: two launches give bit-identical outputs")
+    return got, max(d_ab, d_t)
+
+
+# The counts of kernel B's fixed-iteration mode held to its plain version;
+# the last is the streaming latency mode of S5 and the kernels line.
+FIXED_KS = (1, 4)
+FIXED_NAME = f"gn_solve[fixed {FIXED_KS[-1]}]"
+
+
+@phase("kernel B in fixed-iteration mode vs its plain version (the six "
+       "1080p levels, K = 1 and 4)")
+def check_gn_fixed(cap):
+    """Phase 5's items and bars with ``fixed_iters`` = K: converged (the
+    last step moved no corner by the threshold) equal, iters == K on every
+    item, A/B 1e-5, TX/TY 1e-3 px, two launches bit-identical; per level
+    the wrapper's time between CUDA events and the device time (CUDA
+    graph) at each K. Returns the kernels line's entry at the last K."""
+    from video_stabilizer_tpu_torch.ops.gn_solve import (
+        OPS_PER_SAMPLE, gn_solve, gn_solve_plain)
+
+    calls = cap["gn_calls"]
+    worst, entry = 0.0, None
+    for k in FIXED_KS:
+        totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        bound_share = dict(bytes=0.0, operations=0.0)
+        for args, kw in calls:
+            kwf = dict(kw, fixed_iters=k)
+            p, n = args[0].shape[1], args[0].shape[3]
+            level = (f"K={k} {kw['width']}x{kw['height']} (P={p}, N={n}, "
+                     f"{args[-1].shape[0]} items)")
+            (t_g, _, _, i_g), gap = gn_compare(args, kwf, level,
+                                               ab_check=False)
+            worst = max(worst, gap)
+            i_w = gn_solve_plain(*args, **kwf)[3]
+            check(bool((i_g == k).all()) and bool((i_w == k).all()),
+                  f"{level}: iters == {k} on every item, both engines")
+            ms = cuda_ms(lambda: gn_solve(*args, **kwf), 20)
+            device_ms = graph_ms(lambda: gn_solve(*args, **kwf), 20)
+            plain_ms = cuda_ms(lambda: gn_solve_plain(*args, **kwf), 2)
+            bytes_moved = gn_bytes(args, t_g, i_g)
+            ops = int(i_g.sum()) * 2 * n * OPS_PER_SAMPLE
+            bound_ms, bound_by = roofline(bytes_moved, ops)
+            bound_share[bound_by] += bound_ms
+            log(f"    kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            for key, val in (("ms", ms), ("device_ms", device_ms),
+                             ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                totals[key] += val
+        log(f"  K={k}, per chunk (sum of {len(calls)} levels): kernel "
+            f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
+            f"plain {totals['plain_ms']:.3f} ms, bound "
+            f"{totals['bound_ms']:.4f} ms")
+        entry = dict(name=f"gn_solve[fixed {k}]", route="cuda",
+                     source="video_stabilizer_tpu_torch/csrc/gn_solve.cu",
+                     replaces=GN_REPLACES, ms=totals["ms"],
+                     device_ms=totals["device_ms"],
+                     plain_ms=totals["plain_ms"],
+                     bound_ms=totals["bound_ms"],
+                     bound_by=max(bound_share, key=bound_share.get),
+                     library_ms=None)
+    entry["max_abs_err"] = worst
+    return entry
+
+
 @phase("4K homography path: capture two chunks' kernel inputs, and align "
        "16 pairs with known perspective")
 def capture_4k(params, dev):
@@ -884,6 +1014,99 @@ def check_gn8(cap):
                 library_ms=None)
 
 
+# Per-frame homography of the moving perspective stream: random steps
+# within these bounds (p0, p1, p3, p4; p2, p5 normalized by W; p6, p7),
+# with |p6|, |p7| at least half their bound.
+PERSP_STEP = (1e-3, 1e-3, 2.0 / W4K, 1e-3, 1e-3, 2.0 / W4K, 2e-3, 2e-3)
+
+
+def perspective_stream(first, steps):
+    """(T, H, W, 3) u8 frames on the card: ``first``, then each frame the
+    previous one warped by the next (8,) homography of ``steps`` through
+    kernel A's homography + Lanczos2 form (as capture_4k builds its
+    pairs)."""
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+    seq = [first]
+    for p in steps:
+        seq.append(warp_frames(seq[-1][None].contiguous(), p[None], 0,
+                               interp="lanczos2", model=HOMOGRAPHY)[0])
+    return torch.stack(seq)
+
+
+@phase("4K content: kernel C on a moving perspective stream, kernel B at "
+       "4K (similarity)")
+def check_4k_content(params_4k, dev):
+    """A 4K chunk of 2 streams x 16 frames through the 4K path (fresh
+    state), stream 0 a moving perspective sequence (``perspective_stream``,
+    p6/p7 != 0 in every step), stream 1 bench_configs' content with
+    rotation and zoom: kernel C against its plain version at all 7 levels,
+    phase 8's bars (converged equal, corner gap <= 0.02 px, the
+    perspective items' median max(|p6|,|p7|) >= 10x the largest p6/p7
+    gap, bit-identical launches). Then the same content (stream 0 its own
+    seed's frames) through the 4K similarity path: kernel B against its
+    plain version at its 7 levels, phase 5's bars."""
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import aligner, chunked
+    from video_stabilizer_tpu_torch.models import homography_aligner as ha
+    from video_stabilizer_tpu_torch.ops.gn8_solve import (
+        gn8_solve, gn8_solve_plain)
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+
+    host, _ = synth_streams(dev, CHUNK, GN_CONTENT, H4K, W4K, SEEDS_4K)
+    frames = torch.as_tensor(host).to(dev)
+    g = torch.Generator().manual_seed(SEED + 4)
+    bound = torch.tensor(PERSP_STEP)
+    steps = (torch.rand((CHUNK - 1, 8), generator=g) * 2 - 1) * bound
+    sign = torch.where(steps[:, 6:] < 0, -1.0, 1.0)
+    steps[:, 6:] = sign * (0.5 + 0.5 * torch.rand((CHUNK - 1, 2),
+                                                  generator=g)) * bound[6:]
+    persp = frames.clone()
+    persp[0] = perspective_stream(frames[0, 0], steps.to(dev))
+    states = chunked.init_stream_state(W4K, H4K, params_4k, 3, 2, dev,
+                                       model=HOMOGRAPHY)
+    with mock.patch.object(ha, "gn8_solve", wraps=gn8_solve) as spy:
+        chunked.stabilize_chunk_core(states, persp, params_4k, W4K, H4K,
+                                     HOMOGRAPHY)
+    calls = [(c.args, c.kwargs) for c in spy.call_args_list]
+    del persp
+    levels = len(aligner.level_specs(W4K, H4K, params_4k.aligner))
+    check(len(calls) == levels,
+          f"{len(calls)} kernel C launches ({levels} levels)")
+    # Stream 0's items but its first (frame 0 against the zero keyframe).
+    persp_items = torch.arange(1, CHUNK, device=dev)
+    for args, kw in calls:
+        w, h = kw["width"], kw["height"]
+        level = f"4K content {w}x{h} (N={args[0].shape[3]})"
+        p_g, c_g, _, i_g = gn8_solve(*args, **kw)
+        p_w, c_w, _, i_w = gn8_solve_plain(*args, **kw)
+        same = bool((c_g == c_w).all())
+        gap = float(corner_gap(p_g, p_w, w, h).max())
+        p67_gap = float((p_g[:, 6:] - p_w[:, 6:]).abs().max())
+        median = float(p_w[persp_items, 6:].abs().amax(dim=1).median())
+        check(same and gap <= GN8_CORNER_BAR,
+              f"{level}: converged equal {same}; corner gap {gap:.2e} px "
+              f"(bar {GN8_CORNER_BAR:.0e}); |d iters| "
+              f"{int((i_g - i_w).abs().max())}; converged "
+              f"{float(c_g.float().mean()) * 100:.1f} %")
+        check(median >= 10 * p67_gap,
+              f"{level}: the perspective stream's max(|p6|,|p7|) has median "
+              f"{median:.2e}, >= 10x the largest p6/p7 gap {p67_gap:.2e}")
+        check(deterministic(lambda: gn8_solve(*args, **kw)),
+              f"{level}: two launches give bit-identical outputs")
+    del calls
+
+    params = StabilizerParams(crop_pixels=32)
+    states = chunked.init_stream_state(W4K, H4K, params, 3, 2, dev)
+    with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as spy:
+        chunked.stabilize_chunk_core(states, frames, params, W4K, H4K)
+    calls = [(c.args, c.kwargs) for c in spy.call_args_list]
+    check(len(calls) == levels,
+          f"{len(calls)} kernel B launches at 4K ({levels} levels)")
+    for args, kw in calls:
+        gn_compare(args, kw, f"4K similarity {kw['width']}x{kw['height']} "
+                   f"(N={args[0].shape[3]}, {args[-1].shape[0]} items)")
+
+
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
     from a fresh state, with every launch count set to 0 just before and
@@ -956,16 +1179,25 @@ def drive_path(frames, params, dev, model="similarity"):
     check(rate >= 0.9, f"align success rate {rate:.4f} "
           f"({int(ok.sum())} of {ok.size}; each stream's first frame has "
           "nothing to align to)")
-    return (launches, np.concatenate(metas, axis=1), ok, states, chunks[-1])
+    mean["steady chunk (host clock)"] = float(np.mean(steady))
+    return (launches, np.concatenate(metas, axis=1), ok, states, chunks[-1],
+            mean)
 
 
 @phase("main path: 1080p similarity, 8 streams x 16-frame chunks, carried "
        "state")
 def main_path(frames, poses, params, dev):
-    launches, meas, ok, states, last = drive_path(frames, params, dev)
+    launches, meas, ok, states, last, stages = drive_path(frames, params,
+                                                          dev)
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
           and launches["gn_solve"] > 0,
           "kernel A (similarity, bilinear) and kernel B launched")
+    known_motion_checks(meas, ok, poses)
+    return launches, states, last, stages
+
+
+def known_motion_checks(meas, ok, poses):
+    """Phase 9's bars on a translation-only 1080p clip's measurements."""
     # Motion from frame t-1 to t of a translation-only clip is minus the
     # window offset step. The bars allow for the clip's own bias: each
     # bilinear crop blurs its frame by its own sub-pixel phase. On such a
@@ -978,13 +1210,12 @@ def main_path(frames, poses, params, dev):
           f"px, max {max_err:.4f} px")
     ab = float(np.abs(meas[..., :2][ok]).max())
     check(ab < 2e-3, f"measured |A|,|B| on a translation-only clip: {ab:.2e}")
-    return launches, states, last
 
 
 @phase("4K homography path: 2 streams x 16-frame chunks, carried state")
 def main_path_4k(frames, poses, params, dev):
-    launches, meas, ok, states, last = drive_path(frames, params, dev,
-                                                  HOMOGRAPHY)
+    launches, meas, ok, states, last, stages = drive_path(
+        frames, params, dev, HOMOGRAPHY)
     check(launches["gn8_solve"] > 0
           and launches.get("warp_frames[homography,lanczos2]", 0) > 0
           and launches["gn_solve"] == 0,
@@ -1004,7 +1235,7 @@ def main_path_4k(frames, poses, params, dev):
     check(lin < 2e-3 and persp < 3e-3,
           f"measured |p0,p1,p3,p4| {lin:.2e}, |p6,p7| {persp:.2e} on a "
           "translation-only clip")
-    return launches, states, last
+    return launches, states, last, stages
 
 
 @phase("device busy share of one more chunk (torch.profiler)")
@@ -1037,12 +1268,298 @@ def profile_chunk(states, chunk, params, model="similarity"):
         log(f"    {ms:9.3f} ms  {count:6d}x  {key[:70]}")
 
 
+@phase("1080p similarity with selection='topk': 8 streams x 16-frame "
+       "chunks, carried state")
+def topk_path(frames, poses, params, dev, mask_stages):
+    """Phase 9's run with the exact-count keypoint selection: the same
+    checks, and its stage table beside phase 9's (histogram mask)."""
+    launches, meas, ok, _, _, stages = drive_path(frames, params, dev)
+    check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
+          and launches["gn_solve"] > 0,
+          "kernel A (similarity, bilinear) and kernel B launched")
+    known_motion_checks(meas, ok, poses)
+    log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
+        "histogram mask (phase 9) | topk")
+    for k in stages:
+        log(f"    {k:<26} {mask_stages.get(k, float('nan')):9.3f} "
+            f"{stages[k]:9.3f}")
+    for name, st in (("mask", mask_stages), ("topk", stages)):
+        log(f"    select, all levels ({name}): "
+            f"{sum(v for k, v in st.items() if k.startswith('select')):.3f}"
+            " ms")
+    select_op_times(params.aligner, dev)
+    return launches
+
+
+def select_op_times(aligner_params, dev):
+    """The two selections alone, one after the other on the same warp
+    diffs (integer-valued, so with ties), at each 1080p level's (items, 2,
+    N) shape: each call's time between CUDA events, host launch overhead
+    included. The chunk's stage times above move with the host's pace
+    between runs; this compares the two ops within one stretch of it."""
+    from video_stabilizer_tpu_torch.models.aligner import level_specs
+    from video_stabilizer_tpu_torch.ops.select import (
+        histogram_mask, topk_mask)
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    rows = []
+    for spec in level_specs(WIDTH, HEIGHT, aligner_params):
+        n = spec.ht * spec.wt
+        wd = torch.floor(torch.rand((STREAMS * CHUNK, 2, n), generator=g)
+                         * 64).to(dev)
+        frac = aligner_params.smallest_fraction
+        rows.append((f"{spec.width}x{spec.height}",
+                     cuda_ms(lambda: histogram_mask(wd, frac), 20),
+                     cuda_ms(lambda: topk_mask(wd, frac), 20)))
+    log(f"  the selection alone, ({STREAMS * CHUNK}, 2, N) warp diffs, ms "
+        "per call: " + ", ".join(f"{lv} mask {m:.3f} topk {t:.3f}"
+                                 for lv, m, t in rows)
+        + f"; all levels mask {sum(r[1] for r in rows):.3f}, topk "
+        f"{sum(r[2] for r in rows):.3f}")
+
+
+def fir_oracle_gap(frames, ts, fir, oracle, group):
+    """(max |diff| LSB, share within 1, share within 2) between the FIR
+    warp and the gather oracle, ``group`` frames at a time."""
+    worst, within1, within2, total = 0, 0, 0, 0
+    for i in range(0, frames.shape[0], group):
+        f, t = frames[i:i + group], ts[i:i + group]
+        diff = (fir(f, t).to(torch.int16) - oracle(f, t).to(torch.int16)).abs()
+        worst = max(worst, int(diff.max()))
+        within1 += int((diff <= 1).sum())
+        within2 += int((diff <= 2).sum())
+        total += diff.numel()
+    return worst, within1 / total, within2 / total
+
+
+@phase("FIR output warp on the card (1080p, similarity + bilinear): against "
+       "the gather oracle, timed beside kernel A and grid_sample")
+def check_fir(states, chunk, params, dev):
+    """``ops/fast_warp.warp_image_fast`` against ``ops/warp.warp_image_bgr``
+    (zero border) at tests/test_fast_warp_oracle.py's bars: on phase 9's
+    128 delayed frames with their corrections (<= 2 LSB on > 99.9 %); on 8
+    of them at integer translations (bit-exact), at subpixel translations
+    (<= 1 LSB) and at rotation / zoom within the envelope, |A,B| <= 0.0027
+    (<= 2 LSB on > 99.9 %, at most 8). Then the FIR path of the pipeline
+    (``batch._warp_frames`` with output_warp="fir", crop 32) timed on the
+    128 frames beside kernel A and grid_sample."""
+    from video_stabilizer_tpu_torch import transforms as T
+    from video_stabilizer_tpu_torch.config import resolve_residual_bound
+    from video_stabilizer_tpu_torch.models import batch, chunked
+    from video_stabilizer_tpu_torch.ops.fast_warp import warp_image_fast
+    from video_stabilizer_tpu_torch.ops.warp import warp_image_bgr
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+
+    _, delayed, accums, *_ = chunked.stabilize_chunk_core(
+        states, chunk.to(dev), params, WIDTH, HEIGHT)
+    frames = delayed.reshape(-1, HEIGHT, WIDTH, 3).contiguous()
+    ts = T.center_to_ul(accums, WIDTH, HEIGHT,
+                        minus_one=True).reshape(-1, 4).contiguous()
+    rb = resolve_residual_bound(params, WIDTH, HEIGHT)
+
+    def fir(f, t):
+        return warp_image_fast(f, t, residual_bound=rb)
+
+    def oracle(f, t):
+        return warp_image_bgr(f, t, border="zero")
+
+    worst, w1, w2 = fir_oracle_gap(frames, ts, fir, oracle, 8)
+    check(w2 > 0.999 and worst <= 8,
+          f"{frames.shape[0]} frames, real corrections (|A,B| <= "
+          f"{float(ts[:, :2].abs().max()):.1e}), residual bound {rb}: max "
+          f"|diff| {worst} LSB, {w1 * 100:.4f} % within 1, {w2 * 100:.4f} % "
+          "within 2")
+    g = torch.Generator().manual_seed(SEED + 5)
+    sub = frames[:8].contiguous()
+    shifts = torch.randint(-150, 151, (8, 2), generator=g).float()
+    zero = torch.zeros((8, 2))
+    cases = {
+        "integer translation": (torch.cat([zero, shifts], 1), 0, 0.0),
+        "subpixel translation": (torch.cat(
+            [zero, (torch.rand((8, 2), generator=g) * 2 - 1) * 30], 1), 1,
+            0.0),
+        "rotation / zoom, |A,B| <= 0.0027": (torch.cat(
+            [(torch.rand((8, 2), generator=g) * 2 - 1) * 0.0027,
+             (torch.rand((8, 2), generator=g) * 2 - 1) * 10], 1), 8, 0.999),
+    }
+    for name, (t, max_bar, share_bar) in cases.items():
+        worst_c, _, w2_c = fir_oracle_gap(sub, t.to(dev), fir, oracle, 8)
+        check(worst_c <= max_bar and (share_bar == 0.0 or w2_c > share_bar),
+              f"{name} (8 frames): max |diff| {worst_c} LSB (bar "
+              f"{max_bar}), {w2_c * 100:.4f} % within 2")
+    del sub
+
+    params_fir = dataclasses.replace(params, output_warp="fir")
+    crop = params.crop_pixels
+    fir_ms = cuda_ms(lambda: batch._warp_frames(frames, ts, params_fir, WIDTH,
+                                                HEIGHT, "similarity"), 3)
+    kernel_ms = cuda_ms(lambda: warp_frames(frames, ts, crop), 10)
+    library_ms = grid_sample_ms(frames, ts, crop, 5)
+    log(f"  {frames.shape[0]} frames, crop {crop}: FIR {fir_ms:.3f} ms, "
+        f"kernel A {kernel_ms:.3f} ms, grid_sample {library_ms:.3f} ms; FIR "
+        f"/ kernel A {fir_ms / kernel_ms:.1f}")
+
+
+@phase("FIR output warp on the card (4K, homography + Lanczos2): against "
+       "the gather oracle, timed beside kernel A")
+def check_fir_4k(states, chunk, params, dev):
+    """``ops/fast_warp.warp_homography_fast`` + Lanczos2 against the gather
+    oracle (``ops/warp.warp_field_bgr`` on the homography's sample
+    positions, zero border) on phase 10's 32 delayed frames with their
+    corrections and on 4 of them with random homographies within the
+    envelope (|p0,p1,p3,p4| <= 1e-3, |p6,p7| <= 2e-3, |t| <= 40 px):
+    <= 2 LSB on > 99.9 %. Then the FIR path timed on the 32 frames beside
+    kernel A."""
+    from video_stabilizer_tpu_torch.config import resolve_residual_bound
+    from video_stabilizer_tpu_torch.models import batch, chunked
+    from video_stabilizer_tpu_torch.ops.fast_warp import (
+        homography_field, warp_homography_fast)
+    from video_stabilizer_tpu_torch.ops.warp import warp_field_bgr
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+
+    _, delayed, accums, *_ = chunked.stabilize_chunk_core(
+        states, chunk.to(dev), params, W4K, H4K, HOMOGRAPHY)
+    frames = delayed.reshape(-1, H4K, W4K, 3).contiguous()
+    ts = accums.reshape(-1, 8).contiguous()
+    rb = resolve_residual_bound(params, W4K, H4K)
+
+    def fir(f, p):
+        return warp_homography_fast(f, p, interp="lanczos2",
+                                    residual_bound=rb)
+
+    def oracle(f, p):
+        return warp_field_bgr(f, *homography_field(p, H4K, W4K),
+                              interp="lanczos2", border="zero")
+
+    for name, (f, p) in {
+            "real corrections": (frames, ts),
+            "random homographies": (frames[:4], (
+                (torch.rand((4, 8), generator=torch.Generator().manual_seed(
+                    SEED + 6)) * 2 - 1) * torch.tensor(
+                    [1e-3, 1e-3, 40.0 / W4K, 1e-3, 1e-3, 40.0 / W4K, 2e-3,
+                     2e-3])).to(dev))}.items():
+        worst, w1, w2 = fir_oracle_gap(f, p, fir, oracle, 2)
+        check(w2 > 0.999,
+              f"{name} ({f.shape[0]} frames), residual bound {rb}: max "
+              f"|diff| {worst} LSB, {w1 * 100:.4f} % within 1, "
+              f"{w2 * 100:.4f} % within 2")
+    params_fir = dataclasses.replace(params, output_warp="fir")
+    crop = params.crop_pixels
+    fir_ms = cuda_ms(lambda: batch._warp_frames(frames, ts, params_fir, W4K,
+                                                H4K, HOMOGRAPHY), 2)
+    kernel_ms = cuda_ms(lambda: warp_frames(frames, ts, crop,
+                                            interp="lanczos2",
+                                            model=HOMOGRAPHY), 10)
+    log(f"  {frames.shape[0]} frames, crop {crop}: FIR {fir_ms:.3f} ms, "
+        f"kernel A {kernel_ms:.3f} ms; FIR / kernel A "
+        f"{fir_ms / kernel_ms:.1f}; no library call: grid_sample has no "
+        "Lanczos2")
+
+
+def one_item(args, item):
+    """Kernel B's arguments cut to one item: key_index, tmpl, jac_masked,
+    hinv and t_init are per item; the keyframes' operands stay."""
+    one = list(args)
+    for k in (1, 2, 3, 4, 9):
+        one[k] = args[k][item:item + 1]
+    return one
+
+
+def permuted_keypoints(one):
+    """The same item with its keypoints in another (seeded random) order:
+    the same sums, added in another order."""
+    n = one[0].shape[-1]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED))
+    perm = perm.to(one[0].device)
+    out = list(one)
+    for k in (0, 2, 3, 5, 6, 7, 8):  # windows, tmpl, jac, fx, fy, ox, oy
+        out[k] = one[k][..., perm].contiguous()
+    return out
+
+
+def step_sequence(solve, one, kw, steps):
+    """Iterations 1 .. ``steps`` of ``solve`` on one item's arguments, each
+    one step of its fixed-iteration mode from the transform the step before
+    left (a GN step depends only on the transform it starts from). Returns
+    (per step: the max corner move in px at the level's size, the GN
+    corners of t_K against t_(K-1) in float64, and whether the engine's own
+    float32 test found that step below the threshold), and t_steps."""
+    from video_stabilizer_tpu_torch import transforms as T
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_corners
+    w, h = kw["width"], kw["height"]
+    corners = gn_corners(w, h, one[0].device).double()
+
+    def at(t):
+        return T.warp_points_center(t.double()[:, None, :], corners, w * 0.5,
+                                    h * 0.5)
+    args = list(one)
+    out = []
+    for _ in range(steps):
+        t_k, below, _, _ = solve(*args, **dict(kw, fixed_iters=1))
+        out.append((float((at(t_k) - at(args[9])).norm(dim=-1).amax()),
+                    bool(below[0])))
+        args[9] = t_k
+    return out, args[9]
+
+
+def diagnose_item(item, name, args, kw):
+    """Kernel B and its plain version on one item of one level, on the same
+    inputs: their own loops (converged, iterations), and side by side the
+    per-iteration max corner move of each (fixed mode, one step at a time
+    up to max_iters), with the plain version on the keypoints in another
+    order as a third column: the same arithmetic summed in another order.
+    '*' marks a step the engine itself found below the threshold."""
+    from video_stabilizer_tpu_torch.ops.gn_solve import (
+        gn_solve, gn_solve_plain)
+    one = one_item(args, item)
+    own = {}
+    for ename, solve in (("kernel", gn_solve), ("plain", gn_solve_plain)):
+        _, conv, d01, iters = solve(*one, **kw)
+        own[ename] = (bool(conv[0]), int(iters[0]), float(d01[0]))
+    log(f"      on the {name} run's inputs: kernel converged "
+        f"{own['kernel'][0]} in {own['kernel'][1]}, plain "
+        f"{own['plain'][0]} in {own['plain'][1]} iterations (max_iters "
+        f"{kw['max_iters']}); "
+        f"disp01 {own['kernel'][2]:.4f} / {own['plain'][2]:.4f} px")
+    m = kw["max_iters"]
+    seq_k, t_k = step_sequence(gn_solve, one, kw, m)
+    seq_p, _ = step_sequence(gn_solve_plain, one, kw, m)
+    seq_r, _ = step_sequence(gn_solve_plain, permuted_keypoints(one), kw, m)
+    direct = gn_solve(*one, **dict(kw, fixed_iters=m))[0]
+    log(f"      kernel fixed_iters={m} from the start equals its {m} single "
+        f"steps bit for bit: {bool(torch.equal(direct, t_k))}")
+
+    def first_gap(a, b, tol):
+        return next((k + 1 for k, (x, y) in enumerate(zip(a, b))
+                     if abs(x[0] - y[0]) > tol), None)
+
+    for label, other in (("kernel vs plain", seq_k),
+                         ("plain permuted vs plain", seq_r)):
+        gaps = [abs(x[0] - y[0]) for x, y in zip(other, seq_p)]
+        flips = [k + 1 for k, (x, y) in enumerate(zip(other, seq_p))
+                 if x[1] != y[1]]
+        log(f"      {label}: steps equal to 1e-6 px up to step "
+            f"{(first_gap(other, seq_p, 1e-6) or m + 1) - 1}, largest gap "
+            f"{max(gaps):.2e} px (step {gaps.index(max(gaps)) + 1}); "
+            f"own stop test differs at steps {flips[:8]}")
+    log("      step: kernel / plain / plain permuted (px; * below the "
+        "threshold by the engine's own test)")
+    for r in range(0, m, 3):
+        log("        " + "  ".join(
+            f"{k + 1:2d}: " + " / ".join(
+                f"{seq[k][0]:.7f}{'*' if seq[k][1] else ' '}"
+                for seq in (seq_k, seq_p, seq_r))
+            for k in range(r, min(r + 3, m))))
+
+
 @phase("1080p at 4 px jitter: one chunk with kernel B, one with its plain "
        "version")
 def wide_jitter(params, dev):
     """Reported, with no bar: how the GN loop fares past bench.py's 1 px
     jitter, with the kernel and with its plain version (the reference's
-    loop in PyTorch) on the same chunk."""
+    loop in PyTorch) on the same chunk. Each item whose converged flag
+    differs between the two runs is named (stream, frame, level) and
+    diagnosed (``diagnose_item``) on each run's own inputs of that level."""
     from video_stabilizer_tpu_torch.models import aligner, chunked
     from video_stabilizer_tpu_torch.ops.gn_solve import (
         gn_solve, gn_solve_plain)
@@ -1054,7 +1571,7 @@ def wide_jitter(params, dev):
 
         def recorded(*args, engine=engine, levels=levels, **kw):
             out = engine(*args, **kw)
-            levels.append((kw["width"], kw["height"], kw["max_iters"], out))
+            levels.append((args, kw, out))
             return out
         states = chunked.init_stream_state(WIDTH, HEIGHT, params, 3, STREAMS,
                                            dev)
@@ -1067,17 +1584,28 @@ def wide_jitter(params, dev):
         log(f"  {name}: {int(ok.sum())} of {ok.size} frames aligned; "
             f"TX/TY against the known motion RMS {rms:.4f} px, max "
             f"{max_err:.4f} px")
-        for w, h, max_iters, (_, conv, _, iters) in levels:
-            log(f"    {w}x{h}: {float(conv.float().mean()) * 100:.1f} % "
-                f"converged, {int((iters >= max_iters).sum())} of "
+        for _, kw, (_, conv, _, iters) in levels:
+            log(f"    {kw['width']}x{kw['height']}: "
+                f"{float(conv.float().mean()) * 100:.1f} % converged, "
+                f"{int((iters >= kw['max_iters']).sum())} of "
                 f"{iters.numel()} items at max_iters, mean iters "
                 f"{float(iters.float().mean()):.2f}")
-    for (w, h, _, got), (_, _, _, want) in zip(runs["kernel"],
-                                               runs["plain"]):
-        differ = int((got[1] != want[1]).sum())
-        log(f"  {w}x{h}: converged differs on {differ} items; "
+    for (args, kw, got), (pargs, pkw, want) in zip(runs["kernel"],
+                                                   runs["plain"]):
+        level = f"{kw['width']}x{kw['height']}"
+        differ = torch.nonzero(got[1] != want[1]).flatten().tolist()
+        log(f"  {level}: converged differs on {len(differ)} items; "
             f"|dTX,dTY| over all items "
             f"{float((got[0][:, 2:] - want[0][:, 2:]).abs().max()):.2e} px")
+        for item in differ[:2]:
+            # Items are stream-major, then frame (aligner.align_pairs).
+            log(f"    item {item}: stream {item // CHUNK}, frame "
+                f"{item % CHUNK}, level {level}: the kernel run converged "
+                f"{bool(got[1][item])} in {int(got[3][item])} iterations, "
+                f"the plain run {bool(want[1][item])} in "
+                f"{int(want[3][item])}")
+            diagnose_item(item, "kernel", args, kw)
+            diagnose_item(item, "plain", pargs, pkw)
 
 
 @phase("small clip: the port on the card vs the port on the CPU")
@@ -1150,28 +1678,20 @@ def read_record(record):
     return meas, ok
 
 
-@phase("S1. streaming path: 1080p, one stream, VideoStabilizer, timed")
-def streaming_path(frames, poses, params, dev):
-    """``STREAM_FRAMES`` frames through ``VideoStabilizer`` from a fresh
-    state with every launch count set to 0 before and read after, each
-    frame timed on the host clock up to its sync; then
-    ``STREAM_PROFILED`` more under torch.profiler and ``STREAM_CAPTURED``
-    more with kernel A's and B's inputs captured. Returns the first
-    ``STREAM_VS_CHUNKED`` frames' results for S2, the launches and the
-    captured inputs for S3."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from video_stabilizer_tpu_torch.models import aligner, batch
+def timed_stream(host, poses, params, dev):
+    """``STREAM_FRAMES`` pinned host frames through a fresh
+    ``VideoStabilizer`` with every launch count set to 0 before and read
+    after, each frame timed on the host clock up to its sync. Checks the
+    outputs, the align success and TX/TY against the known motion (phase
+    9's bars) and the launches: kernel A once per output, kernel B once per
+    level of every frame (the first included, as in the JAX package),
+    kernel C never. Prints the per-frame latency and stage table; returns
+    its figures, the stabilizer (to run on) and the recorded measurements."""
+    from video_stabilizer_tpu_torch.models import aligner
     from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
-    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
-    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     from video_stabilizer_tpu_torch.utils.spans import Recorder
 
     lag, crop = params.lag, params.crop_pixels
-    # Each frame arrives in its own pinned host buffer, as a camera's
-    # decoder would leave it; filling the buffers is set-up, not timed.
-    host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
-            for f in frames]
     stab = VideoStabilizer(params, dev)
     record = recording(stab)
     torch.cuda.synchronize()
@@ -1233,16 +1753,37 @@ def streaming_path(frames, poses, params, dev):
                    key=lambda k: (k not in STREAM_TOP,
                                   STREAM_TOP.index(k) if k in STREAM_TOP
                                   else 0, k))
+    stages = {k: float(np.mean([r.get(k, 0.0) for r in runs]))
+              for k in names}
     log(f"  per-frame stage device times, mean of frames {STREAM_STEADY}-"
         f"{STREAM_FRAMES - 1} (CUDA events; the aligner's stages nest in "
         "AlignNextFrame, keyframe runs every other frame):")
     for k in names:
         pad = "" if k in STREAM_TOP else "  "
-        log(f"    {pad}{k:<26} {np.mean([r.get(k, 0.0) for r in runs]):9.3f}"
-            " ms")
+        log(f"    {pad}{k:<26} {stages[k]:9.3f} ms")
     log(f"    sum of the top stages      "
-        f"{sum(np.mean([r.get(k, 0.0) for r in runs]) for k in STREAM_TOP):9.3f}"
-        " ms")
+        f"{sum(stages.get(k, 0.0) for k in STREAM_TOP):9.3f} ms")
+    figures = dict(median=float(np.median(steady)),
+                   p90=float(np.percentile(steady, 90)),
+                   align=stages.get("AlignNextFrame", 0.0),
+                   success=rate, rms=rms, max_err=max_err)
+    return dict(launches=launches, levels=levels, stab=stab, meas=meas,
+                ok=ok, outs=outs, figures=figures)
+
+
+@phase("S1. streaming path: 1080p, one stream, VideoStabilizer, timed")
+def streaming_path(frames, poses, params, dev):
+    """``timed_stream`` on S1's clip, then ``STREAM_PROFILED`` more frames
+    under torch.profiler. Returns the first ``STREAM_VS_CHUNKED`` frames'
+    results for S2, the launches and S1's figures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # Each frame arrives in its own pinned host buffer, as a camera's
+    # decoder would leave it; filling the buffers is set-up, not timed.
+    host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
+            for f in frames]
+    run = timed_stream(host, poses, params, dev)
+    stab = run["stab"]
 
     # Device busy share over more frames. A frame issues some 40k device
     # operations, too many to build the profiler's event tree
@@ -1269,23 +1810,62 @@ def streaming_path(frames, poses, params, dev):
     else:
         log("  the profiler recorded no device time: busy share not "
             "measured")
+    n_vs = STREAM_VS_CHUNKED - params.lag
+    return dict(launches=run["launches"], levels=run["levels"],
+                meas=run["meas"][:STREAM_VS_CHUNKED],
+                ok=run["ok"][:STREAM_VS_CHUNKED],
+                outs=torch.stack(run["outs"][:n_vs]).cpu().numpy(),
+                figures=run["figures"])
 
-    # Kernel inputs of a few more frames, for S3.
+
+@phase("S3 capture: kernels A's and B's inputs from a stream with rotation "
+       "and zoom")
+def capture_stream(params, dev):
+    """A fresh ``VideoStabilizer`` over ``params.lag`` frames of one 1080p
+    stream of GN_CONTENT (rotation and zoom jitter), then
+    ``STREAM_CAPTURED`` more with kernel A's and B's inputs captured."""
+    from video_stabilizer_tpu_torch.models import aligner, batch
+    from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+
+    frames, _ = synth_streams(dev, params.lag + STREAM_CAPTURED, GN_CONTENT,
+                              seeds=[SEED])
+    stab = VideoStabilizer(params, dev)
+    for f in frames[0, :params.lag]:
+        stab.process_frame(f)
     with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as gn_spy, \
             mock.patch.object(batch, "warp_frames",
                               wraps=warp_frames) as warp_spy:
-        first = STREAM_FRAMES + STREAM_PROFILED
-        for f in host[first:first + STREAM_CAPTURED]:
+        for f in frames[0, params.lag:]:
             stab.process_frame(f)
     torch.cuda.synchronize()
-    n_vs = STREAM_VS_CHUNKED - lag
-    return dict(launches=launches, levels=levels,
-                meas=meas[:STREAM_VS_CHUNKED],
-                ok=ok[:STREAM_VS_CHUNKED],
-                outs=torch.stack(outs[:n_vs]).cpu().numpy(),
+    return dict(levels=len(aligner.level_specs(WIDTH, HEIGHT,
+                                               params.aligner)),
                 gn_calls=[(c.args, c.kwargs) for c in gn_spy.call_args_list],
                 warp_calls=[(c.args, c.kwargs)
                             for c in warp_spy.call_args_list])
+
+
+@phase("S5. streaming path with fixed_iters=4: 1080p, S1's stream, timed")
+def streaming_fixed(frames, poses, params, dev, s1_figures):
+    """S1's clip and checks (``timed_stream``) with
+    ``AlignerParams(fixed_iters=4)``: every level of every frame runs
+    exactly 4 GN iterations in kernel B's fixed mode (the card's
+    counterpart of apps/bench_configs.py's bench_latency ``_fixed4``).
+    Prints S1's figures beside S5's."""
+    host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
+            for f in frames[:STREAM_FRAMES]]
+    run = timed_stream(host, poses, params, dev)
+    fig = run["figures"]
+    log("  S1 (converging loop) | S5 (fixed_iters=4): per-frame median "
+        f"{s1_figures['median']:.1f} | {fig['median']:.1f} ms, p90 "
+        f"{s1_figures['p90']:.1f} | {fig['p90']:.1f} ms, AlignNextFrame "
+        f"{s1_figures['align']:.2f} | {fig['align']:.2f} ms, success "
+        f"{s1_figures['success']:.4f} | {fig['success']:.4f}, TX/TY RMS "
+        f"{s1_figures['rms']:.4f} | {fig['rms']:.4f} px (max "
+        f"{s1_figures['max_err']:.4f} | {fig['max_err']:.4f})")
+    return run["launches"]
 
 
 @phase("S2. streaming vs chunked on the card (first 32 frames of S1's clip)")
@@ -1311,7 +1891,7 @@ def streaming_vs_chunked(frames, params, dev, s1):
 
 
 @phase("S3. kernels B and A at one item / one frame vs their plain "
-       "versions (captured from S1)")
+       "versions (captured from a stream with rotation and zoom)")
 def check_one_item(s1, crop):
     from video_stabilizer_tpu_torch.ops.gn_solve import (
         OPS_PER_SAMPLE, gn_solve, gn_solve_plain, launch_plan)
@@ -1330,7 +1910,7 @@ def check_one_item(s1, crop):
         kw = items[0][1]
         p, n = items[0][0][0].shape[1], items[0][0][0].shape[3]
         level = f"{kw['width']}x{kw['height']} (P={p}, N={n})"
-        same, d_ab, d_t, iters = True, 0.0, 0.0, []
+        same, d_ab, d_t, iters, ab = True, 0.0, 0.0, [], []
         one_item = all(args[-1].shape[0] == 1 for args, _ in items)
         for args, k in items:
             t_g, c_g, _, i_g = gn_solve(*args, **k)
@@ -1339,12 +1919,16 @@ def check_one_item(s1, crop):
             d_ab = max(d_ab, float((t_g[:, :2] - t_w[:, :2]).abs().max()))
             d_t = max(d_t, float((t_g[:, 2:] - t_w[:, 2:]).abs().max()))
             iters.append(int(i_g[0]))
+            ab.append(float(t_w[0, :2].abs().max()))
         worst = max(worst, d_ab, d_t)
         check(one_item and same and d_ab <= GN_AB_BAR and d_t <= GN_T_BAR,
               f"{level}, {len(items)} frames, one item per launch "
               f"{one_item}: converged equal {same}; "
               f"|dA,dB| {d_ab:.2e} (bar {GN_AB_BAR:.0e}), |dTX,dTY| "
               f"{d_t:.2e} px (bar {GN_T_BAR:.0e}); iterations {iters}")
+        check(float(np.median(ab)) >= 10 * GN_AB_BAR,
+              f"{level}: the items' max(|A|,|B|) has median "
+              f"{float(np.median(ab)):.2e}, >= 10x the A/B bar")
         args, kw = items[0]
         check(deterministic(lambda: gn_solve(*args, **kw)),
               f"{level}: two launches give bit-identical outputs")
@@ -1384,7 +1968,8 @@ def check_one_item(s1, crop):
     for (frame, ts, c), _ in warps:
         e, q = warp_compare(frame, ts, c)
         max_err, equal = max(max_err, e), min(equal, q)
-    check(forms == {((1, HEIGHT, WIDTH, 3), crop, (("interp", "bilinear"),))}
+    check(forms == {((1, HEIGHT, WIDTH, 3), crop,
+                      (("interp", "bilinear"), ("model", "similarity")))}
           and max_err <= 1 and equal >= 0.999,
           f"{len(warps)} streaming frames, calls {forms}: max |diff| "
           f"{max_err} LSB, at least {equal * 100:.4f} % equal per frame")
@@ -1456,6 +2041,10 @@ def main() -> int:
     params_4k = StabilizerParams(
         aligner=AlignerParams(phase_correlate=True),
         output_interp="lanczos2", crop_pixels=32)
+    params_topk = dataclasses.replace(
+        params, aligner=AlignerParams(selection="topk"))
+    params_fixed = dataclasses.replace(
+        params, aligner=AlignerParams(fixed_iters=FIXED_KS[-1]))
     crop = params.crop_pixels
     synth_on_card(dev)
     kernels = {}
@@ -1464,6 +2053,7 @@ def main() -> int:
         kernels["warp_frames[similarity,bilinear]"] = check_warp(cap, crop,
                                                                  dev)
         kernels["gn_solve"] = check_gn(cap)
+        kernels[FIXED_NAME] = check_gn_fixed(cap)
         del cap
     cap = capture_4k(params_4k, dev)
     if cap is not None:
@@ -1471,6 +2061,8 @@ def main() -> int:
             cap, crop, dev)
         kernels["gn8_solve"] = check_gn8(cap)
         del cap
+    torch.cuda.empty_cache()
+    check_4k_content(params_4k, dev)
     torch.cuda.empty_cache()
 
     # Each path runs with every launch count set to 0 just before it and
@@ -1487,25 +2079,35 @@ def main() -> int:
         log(f"== {name} path's clip {frames.shape} in "
             f"{time.perf_counter() - t0:.1f} s")
         result = run(frames, poses, prm, dev)
-        del frames
         if result is None:
+            del frames
             continue
-        launches, states, last_chunk = result
+        launches, states, last_chunk, stages = result
         for kname in kernels:
             if launches.get(kname, 0) > 0:
                 path_launches[kname] = launches[kname]
+        if model == "similarity":
+            # Right after phase 9, so that both runs meet the same host
+            # pace: on an NVIDIA H100 80GB HBM3 (700.00 W) a run after the
+            # profiler's chunk read 1.2-1.5x slower in every eager stage,
+            # the smoother's included.
+            topk_path(frames, poses, params_topk, dev, stages)
         profile_chunk(states, last_chunk, prm, model)
-        del states, last_chunk
+        if model == "similarity":
+            check_fir(states, last_chunk, prm, dev)
+        else:
+            check_fir_4k(states, last_chunk, prm, dev)
+        del frames, states, last_chunk
         torch.cuda.empty_cache()
     wide_jitter(params, dev)
     small_reference(dev)
 
-    # The streaming path: its own clip, its own launch counts (S1), read
-    # into the two one-frame / one-item entries of kernels A and B (S3).
+    # The streaming path: its own clip, its own launch counts (S1, and S5 in
+    # kernel B's fixed mode), read into the one-frame / one-item entries of
+    # kernels A and B (S3) and the fixed-mode entry.
     t0 = time.perf_counter()
     frames, poses = synth_streams(
-        dev, STREAM_FRAMES + STREAM_PROFILED + STREAM_CAPTURED, MAIN_CONTENT,
-        seeds=[SEED])
+        dev, STREAM_FRAMES + STREAM_PROFILED, MAIN_CONTENT, seeds=[SEED])
     frames, poses = frames[0], poses[0]
     log(f"== streaming path's clip {frames.shape} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1513,11 +2115,17 @@ def main() -> int:
     one = (None, None)
     if s1 is not None:
         streaming_vs_chunked(frames, params, dev, s1)
-        one = check_one_item(s1, crop) or one
         for name, counted in STREAM_KERNELS:
             if s1["launches"].get(counted, 0) > 0:
                 path_launches[name] = s1["launches"][counted]
+        s5 = streaming_fixed(frames, poses, params_fixed, dev, s1["figures"])
+        if s5 is not None and s5.get("gn_solve", 0) > 0:
+            path_launches[FIXED_NAME] = s5["gn_solve"]
     del frames, s1
+    s3 = capture_stream(params, dev)
+    if s3 is not None:
+        one = check_one_item(s3, crop) or one
+    del s3
     torch.cuda.empty_cache()
     for (name, _), entry in zip(STREAM_KERNELS, one):
         kernels[name] = entry
@@ -1525,7 +2133,7 @@ def main() -> int:
 
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 6:
+    if failures or missing or len(kernels) != 7:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))

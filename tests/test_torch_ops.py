@@ -30,7 +30,8 @@ from video_stabilizer_tpu_torch import transforms as TT
 from video_stabilizer_tpu_torch.models import batch, chunked
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray
 from video_stabilizer_tpu_torch.ops import argmax, grad, lanczos, linalg
-from video_stabilizer_tpu_torch.ops import patches, pyr_down, select
+from video_stabilizer_tpu_torch.ops import patches, select
+from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 
 # Torch's CPU threads would contend with the JAX runtime's in this process;
 # at these sizes one thread is several times faster.
@@ -58,7 +59,7 @@ def _rel_err(got, want):
 def test_pyramid_bit_exact(shape):
     img = np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)
     want = _j_pyramid(jnp.asarray(img), 3)
-    got = pyr_down.build_pyramid(_t(img), 3)
+    got = build_pyramid(_t(img), 3)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -233,21 +234,37 @@ def test_config_mirrors_jax():
         jcfg.resolve_residual_bound(jp, 1920, 1080)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(selection="topk"), dict(dtype="bfloat16"), dict(fixed_iters=4),
-    dict(merge_coarse=2), dict(pair_vmap=True)])
+@pytest.mark.parametrize("kwargs", [dict(dtype="bfloat16")])
 def test_unported_settings_raise(kwargs):
+    """The one aligner setting the port does not take: kernels B and C run
+    float32 operands."""
     with pytest.raises(NotImplementedError):
         tcfg.AlignerParams(**kwargs)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(selection="topk"), dict(fixed_iters=4), dict(merge_coarse=2),
+    dict(pair_vmap=True)])
+def test_aligner_settings_construct_and_convert(kwargs):
+    """Settings that once raised are ported: each constructs, and converts
+    from the JAX package's params."""
+    tp = tcfg.AlignerParams(**kwargs)
+    conv = tcfg.params_from_jax_dict(
+        dataclasses.asdict(jcfg.AlignerParams(**kwargs)))
+    for name, value in kwargs.items():
+        assert getattr(tp, name) == getattr(conv, name) == value
+
+
 def test_unported_output_interp_raises():
     """An interpolation neither package has is refused; the global-base FIR
-    output warp is not ported and raises."""
+    output warp is ported: it constructs and converts from the JAX
+    package's params."""
     with pytest.raises(ValueError):
         tcfg.StabilizerParams(output_interp="bicubic")
-    with pytest.raises(NotImplementedError):
-        tcfg.StabilizerParams(output_warp="fir")
+    assert tcfg.StabilizerParams(output_warp="fir").output_warp == "fir"
+    tp = tcfg.params_from_jax_dict(dataclasses.asdict(
+        jcfg.StabilizerParams(output_warp="fir")))
+    assert tp.output_warp == "fir"
 
 
 def test_ported_settings_accepted():

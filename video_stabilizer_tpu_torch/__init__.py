@@ -6,7 +6,9 @@ Layer map, mirroring the JAX package:
   config.py          AlignerParams / StabilizerParams (same fields)
   transforms.py      similarity-transform algebra on (..., 4) tensors
   homography.py      8-DOF homography algebra on (..., 8) tensors
-  ops/               plain PyTorch ops (phase correlation included) and the
+  ops/               plain PyTorch ops (phase correlation, top-k and
+                     histogram selection, the FIR output warp fast_warp.py,
+                     the gather oracles warp.py and sparse.py) and the
                      hand-written CUDA kernels: warp_kernel.py (kernel A,
                      output warp, csrc/warp.cu), gn_solve.py (kernel B,
                      per-level 4-DOF GN loop, csrc/gn_solve.cu) and
@@ -44,4 +46,20 @@ Resuming a stream that the JAX package checkpointed with its
 ``save_stabilizer``: ``utils.checkpoint.load_stabilizer(path, params)``.
 """
 
+from video_stabilizer_tpu_torch import transforms
+from video_stabilizer_tpu_torch.config import (
+    AlignerParams,
+    StabilizerParams,
+    pyramid_shapes,
+    tile_size_for,
+)
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "transforms",
+    "AlignerParams",
+    "StabilizerParams",
+    "pyramid_shapes",
+    "tile_size_for",
+]

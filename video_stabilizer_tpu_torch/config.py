@@ -2,8 +2,10 @@
 
 Field for field the same names and defaults as ``video_stabilizer_tpu.config``
 so that a params object of the JAX package converts 1:1
-(``params_from_jax_dict``). Settings this port does not implement raise
-``NotImplementedError`` at construction instead of being silently ignored.
+(``params_from_jax_dict``), with the JAX package's construction-time
+refusals (config.py:151-176). The one setting this port does not implement,
+``dtype != "float32"``, raises ``NotImplementedError`` at construction
+instead of being silently ignored.
 """
 
 from __future__ import annotations
@@ -26,7 +28,16 @@ class AlignerParams:
     smallest_fraction: float = 0.8
     # Max GN iterations per pyramid level.
     max_iters: int = 64
+    # Fixed-iteration GN mode: every level of the 4-DOF aligner runs exactly
+    # this many iterations (kernel B's fixed mode: no early stop, no
+    # max_iters cap; converged means the last step moved no corner by the
+    # threshold). None keeps the converge-or-max_iters loop. The 8-DOF
+    # homography aligner ignores it, as the JAX package's does.
     fixed_iters: int | None = None
+    # Accepted for 1:1 conversion: the JAX package merges the GN loops of
+    # this many coarsest levels into one program (a program-shape option
+    # whose result tests/test_merged_levels.py holds to the unmerged one).
+    # The port runs the unmerged level loop whatever the value.
     merge_coarse: int = 0
     pyramid_min_width: int = 20
     pyramid_min_height: int = 20
@@ -43,6 +54,9 @@ class AlignerParams:
     window_margin_fine: int = 6
     # A TPU scheduling floor in the JAX package; kept for conversion only.
     gn_min_bytes: int | None = None
+    # Accepted for 1:1 conversion: the JAX package runs a pair step's two
+    # aligns as one 2-lane program (batch.py:109-122). The port already
+    # aligns all of a chunk's pairs as one batch per level.
     pair_vmap: bool = False
 
     def __post_init__(self):
@@ -52,18 +66,27 @@ class AlignerParams:
         if self.gn_kernel not in ("auto", "pallas", "xla"):
             raise ValueError(f"gn_kernel must be 'auto', 'pallas' or 'xla',"
                              f" got {self.gn_kernel!r}")
-        unsupported = {
-            "selection='topk'": self.selection == "topk",
-            "fixed_iters": self.fixed_iters is not None,
-            "merge_coarse>=2": self.merge_coarse >= 2,
-            "pair_vmap=True": self.pair_vmap,
-            f"dtype={self.dtype!r}": self.dtype != "float32",
-        }
-        for name, hit in unsupported.items():
-            if hit:
-                raise NotImplementedError(
-                    f"AlignerParams {name} is not implemented by the "
-                    "PyTorch port")
+        if self.merge_coarse >= 2:
+            # The JAX package's refusals (config.py:151-176), word for word.
+            if self.selection != "mask":
+                raise ValueError(
+                    "merge_coarse >= 2 requires selection='mask' (the "
+                    "merged loop's in-loop selection is histogram "
+                    f"masking); got selection={self.selection!r}")
+            if self.fixed_iters is not None:
+                raise ValueError(
+                    "merge_coarse >= 2 is incompatible with fixed_iters "
+                    "(the fixed-iteration mode has no while_loops to "
+                    "merge)")
+            if self.gn_kernel == "pallas":
+                raise ValueError(
+                    "merge_coarse >= 2 is incompatible with "
+                    "gn_kernel='pallas' (the Pallas in-VMEM kernel has no "
+                    "merged multi-level form); use 'auto' or 'xla'")
+        if self.dtype != "float32":
+            raise NotImplementedError(
+                f"AlignerParams dtype={self.dtype!r} is not implemented by "
+                "the PyTorch port (kernels B and C take float32 operands)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +109,13 @@ class StabilizerParams:
     max_decay: float = 0.7
     output_interp: str = "bilinear"
     # "auto" and "pallas" both mean the tile-local-base output warp
-    # (ops/warp_kernel.py), which is what "auto" selects on an accelerator
-    # in the JAX package. The global-base "fir" warp is not ported.
+    # (ops/warp_kernel.py: kernel A on the card, its plain version on the
+    # CPU); "fir" the global-base separable FIR (ops/fast_warp.py), cropped
+    # after the warp. The one deliberate difference from the JAX package:
+    # there "auto" picks the accelerator's kernel only on a TPU and FIR
+    # elsewhere (models/batch.py:45-49), so on a CPU JAX's "auto" is FIR and
+    # the port's is not. Tests that compare the two on a CPU pass
+    # output_warp explicitly.
     output_warp: str = "auto"
     output_residual_bound: int | None = None
 
@@ -98,9 +126,6 @@ class StabilizerParams:
         if self.output_warp not in ("auto", "pallas", "fir"):
             raise ValueError(f"output_warp must be 'auto', 'pallas' or "
                              f"'fir', got {self.output_warp!r}")
-        if self.output_warp == "fir":
-            raise NotImplementedError(
-                "output_warp='fir' is not implemented by the PyTorch port")
 
 
 def params_from_jax_dict(d: dict):

@@ -15,6 +15,14 @@
 //   5. stop when no GN corner moved by the threshold, or at max_iters.
 // Outputs (t, converged, disp01, iters) as the Pallas kernel's row.
 //
+// Fixed-iteration mode (fixed_iters >= 0; models/aligner.py:387-407 of the
+// JAX package, which runs it as an unrolled XLA loop, not in Pallas): every
+// item runs exactly fixed_iters iterations, with no early stop and no
+// max_iters cap; converged means the last step moved no corner by the
+// threshold (with no step, a step of 0); disp01 is taken from the final
+// corners and iters is fixed_iters. Every CTA of a cluster counts the same
+// iterations, so the stop decision stays the same in all of them.
+//
 // Eager PyTorch has no device loop whose trip count depends on data, so the
 // loop lives here: each cluster carries its own item's trip count, with no
 // lockstep across items, and the host never syncs inside a level.
@@ -81,6 +89,7 @@ constexpr int CACHE_FLOATS = 16;
 struct Level {
   float cx, cy, w_m1, h_m1, jac_scale, rel_hi, threshold;
   int max_iters;
+  int fixed_iters;  // -1: converge or stop at max_iters
 };
 
 struct Plan {
@@ -149,9 +158,10 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
   float c0x, c0y;
   warp_corner(t, row, lv, c0x, c0y);
   float px = c0x, py = c0y;
+  const bool fixed = lv.fixed_iters >= 0;
   int it = 0;
-  bool conv = false;
-  bool done = lv.max_iters <= 0;
+  bool conv = fixed && 0.0f < lv.threshold;
+  bool done = fixed ? lv.fixed_iters <= 0 : lv.max_iters <= 0;
 
   while (!done) {
     const float a = t[0], b = t[1], tx = t[2], ty = t[3];
@@ -224,7 +234,7 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
     py = ny;
     ++it;
     conv = disp12 < lv.threshold;
-    done = conv || it >= lv.max_iters;
+    done = fixed ? it >= lv.fixed_iters : conv || it >= lv.max_iters;
   }
   // No CTA leaves while another may still read its partials.
   if (cs > 1) cluster.sync();
@@ -253,13 +263,14 @@ extern "C" int vs_gn_solve(const void* windows, const void* key_index,
                            void* iters, int batch, int P, int N, float cx,
                            float cy, float w_m1, float h_m1, float jac_scale,
                            float rel_hi, float threshold, int max_iters,
-                           int threads, int cluster, int slice, int cached,
-                           void* stream) {
+                           int fixed_iters, int threads, int cluster,
+                           int slice, int cached, void* stream) {
   if (batch < 1 || P < 5 || N < 1 || threads != THREADS || cluster < 1 ||
       cluster > 8 || slice < 1 || (long long)slice * cluster < N ||
       cached < 0 || cached > slice)
     return (int)cudaErrorInvalidValue;
-  const Level lv{cx, cy, w_m1, h_m1, jac_scale, rel_hi, threshold, max_iters};
+  const Level lv{cx, cy, w_m1, h_m1, jac_scale, rel_hi, threshold, max_iters,
+                 fixed_iters};
   const Plan pl{cluster, slice, cached};
   static gn::LaunchState state;
   cudaLaunchAttribute attr;

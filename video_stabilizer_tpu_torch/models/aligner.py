@@ -37,7 +37,7 @@ from video_stabilizer_tpu_torch.ops.patches import (
     window_origins_flat, window_size)
 from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
-from video_stabilizer_tpu_torch.ops.select import histogram_mask
+from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
 from video_stabilizer_tpu_torch.utils.spans import span
 
 # Alternating keyframe buffers (alignment.hpp:61-66).
@@ -130,6 +130,15 @@ def template_intensities(spec: LevelSpec, key: LevelKeyData, key_index,
     return tmpl.to(torch.float32)
 
 
+def selection_mask(wd, params: AlignerParams):
+    """The smallest-``smallest_fraction`` keypoints of each (item, set) row
+    of ``wd`` as a 0/1 mask, by ``params.selection`` (aligner.py:203-213):
+    the histogram threshold ("mask") or the exact count ("topk")."""
+    if params.selection == "topk":
+        return topk_mask(wd, params.smallest_fraction)
+    return histogram_mask(wd, params.smallest_fraction)
+
+
 def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
                    template_index, transform, params: AlignerParams):
     """Everything of one level before the GN loop, at the incoming transform:
@@ -151,7 +160,7 @@ def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
         key.coords[key_index, 0], key.coords[key_index, 1], t_ul0, ox, oy, p)
     wd = torch.abs(sample_windows_flat(key.windows, rel_x0, rel_y0,
                                        key_index=key_index) - tmpl)
-    mask = histogram_mask(wd, params.smallest_fraction)      # (B, 2, N)
+    mask = selection_mask(wd, params)                         # (B, 2, N)
 
     jm = jac * mask[:, None]
     hess = (jm[:, :, None] * jac[:, None, :]).sum(dim=(3, 4))   # (B, 4, 4)
@@ -163,7 +172,8 @@ def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
 def _align_level(spec: LevelSpec, key: LevelKeyData, key_index, templates,
                  template_index, transform, params: AlignerParams):
     """One pyramid level for B items: the prelude at the incoming transform,
-    then the GN loop in kernel B.
+    then the GN loop in kernel B (in its fixed-iteration mode when
+    ``params.fixed_iters`` is set).
 
     Args:
       key: keyframe data of K keyframes; ``key_index`` (B,) picks each
@@ -173,6 +183,9 @@ def _align_level(spec: LevelSpec, key: LevelKeyData, key_index, templates,
     Returns (t_raw, t_up, level_failed, iters), as aligner.py:443-452.
     """
     w, h = spec.width, spec.height
+    # Kernel B's fixed mode takes -1 for off; a negative count runs no
+    # iteration, as the JAX package's unrolled loop does.
+    fixed = -1 if params.fixed_iters is None else max(params.fixed_iters, 0)
     with span(f"select {w}x{h}"):
         tmpl, jac_masked, hinv, ox, oy = _level_prelude(
             spec, key, key_index, templates, template_index, transform,
@@ -182,7 +195,8 @@ def _align_level(spec: LevelSpec, key: LevelKeyData, key_index, templates,
             key.windows, key_index, tmpl, jac_masked, hinv,
             key.coords[:, 0].contiguous(), key.coords[:, 1].contiguous(),
             ox, oy, transform.contiguous(), threshold=params.threshold,
-            width=w, height=h, max_iters=params.max_iters)
+            width=w, height=h, max_iters=params.max_iters,
+            fixed_iters=fixed)
 
     # Failure 1: max_iters without convergence (alignment.cpp:661-667).
     # Failure 2: level displacement > max_displacement (670-677).
@@ -195,6 +209,11 @@ def _align_level(spec: LevelSpec, key: LevelKeyData, key_index, templates,
 def align_all_levels(templates, template_index, key, key_index, specs,
                      params: AlignerParams, t_init):
     """The coarse-to-fine level loop (alignment.cpp:390-688) for B items.
+
+    With ``params.merge_coarse >= 2`` the JAX package runs the coarsest
+    levels as one merged while_loop (aligner.py:487), a program-shape
+    option held to the unmerged result (tests/test_merged_levels.py); here
+    every level runs on its own whatever the value.
 
     Args:
       templates: per level (M, h, w) u8 template images.

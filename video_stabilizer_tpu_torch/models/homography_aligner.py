@@ -1,12 +1,16 @@
 """8-DOF homography alignment and stabilization, batched.
 
 Port of ``video_stabilizer_tpu.models.homography_aligner``: the same
-pyramid, per-tile argmax keypoints, u8 sampling windows and histogram
-selection as the similarity aligner (``models/aligner.py``); 8 parameters
+pyramid, per-tile argmax keypoints, u8 sampling windows and keypoint
+selection (``selection``: histogram or exact top-k) as the similarity
+aligner (``models/aligner.py``); 8 parameters
 over centered width-normalized coordinates (``homography.py``), an 8x8
 Hessian with the round-robin Jacobi pseudo-inverse, textbook GN steps (no
 0.5 set average, no 1/width scaling of dt) and no TX/TY doubling between
 levels. Each level's GN loop runs in kernel C (``ops/gn8_solve.py``).
+``AlignerParams.fixed_iters`` is ignored here, as in the JAX package, whose
+``_align_level_h`` always runs its converging while_loop
+(homography_aligner.py:126-215): kernel C has no fixed-iteration mode.
 
 An item is one alignment of a template pyramid against a keyframe, named by
 index, as in ``models/aligner.py``. The clip, stream and chunked pipelines
@@ -21,7 +25,7 @@ import torch
 from video_stabilizer_tpu_torch import homography as Hm
 from video_stabilizer_tpu_torch.config import AlignerParams, StabilizerParams
 from video_stabilizer_tpu_torch.models.aligner import (
-    LevelKeyData, LevelSpec, template_intensities)
+    LevelKeyData, LevelSpec, selection_mask, template_intensities)
 from video_stabilizer_tpu_torch.ops.argmax import (
     grad_argmax, take_at_tile_argmax)
 from video_stabilizer_tpu_torch.ops.gn8_solve import (
@@ -30,7 +34,6 @@ from video_stabilizer_tpu_torch.ops.grad import grad_xy
 from video_stabilizer_tpu_torch.ops.linalg import regularized_pinv_sym4
 from video_stabilizer_tpu_torch.ops.patches import (
     extract_tile_windows_flat, sample_windows_flat, window_origins_flat)
-from video_stabilizer_tpu_torch.ops.select import histogram_mask
 from video_stabilizer_tpu_torch.utils.spans import span
 
 # The homography keyframe carries the similarity one's fields; only ``jac``
@@ -96,7 +99,7 @@ def _level_prelude_h(spec: LevelSpec, key: LevelKeyData, key_index,
         spec.height, ox, oy, p_size)
     wd = torch.abs(sample_windows_flat(key.windows, rel_x0, rel_y0,
                                        key_index=key_index) - tmpl)
-    mask = histogram_mask(wd, params.smallest_fraction)      # (B, 2, N)
+    mask = selection_mask(wd, params)                         # (B, 2, N)
     jac_masked = jac * mask[:, None]
     hess = (jac_masked[:, :, None] * jac[:, None, :]).sum(dim=(3, 4))
     hinv = regularized_pinv_sym4(hess)
@@ -112,6 +115,8 @@ def _align_level_h(spec: LevelSpec, key: LevelKeyData, key_index, templates,
     with span(f"select {w}x{h}"):
         tmpl, jac_masked, hinv, u, v, ox, oy = _level_prelude_h(
             spec, key, key_index, templates, template_index, p, params)
+    # No fixed_iters here: the JAX package's 8-DOF level always runs its
+    # converging loop (homography_aligner.py:126-215).
     with span(f"gn8 {w}x{h}"):
         p_fin, converged, disp01, iters = gn8_solve(
             key.windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,

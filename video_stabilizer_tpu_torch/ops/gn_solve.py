@@ -100,9 +100,13 @@ def gn_corners(width: int, height: int, device=None):
 
 def gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox,
                    oy, t_init, *, threshold: float, width: int, height: int,
-                   max_iters: int):
+                   max_iters: int, fixed_iters: int = -1):
     """Plain PyTorch version of kernel B: the masked loop of
-    ``models/aligner.py::_align_level`` (aligner.py:409-452), batched."""
+    ``models/aligner.py::_align_level`` (aligner.py:409-452), batched; with
+    ``fixed_iters >= 0`` its fixed-iteration form (aligner.py:387-407):
+    exactly that many steps for every item, converged = the last step moved
+    no corner by the threshold (true with no step), iters = fixed_iters."""
+    fixed = fixed_iters >= 0
     p = windows.shape[1]
     kidx = key_index.to(torch.int64)
     fxi, fyi = fx[kidx], fy[kidx]                       # (B, 2, N)
@@ -111,10 +115,11 @@ def gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox,
     corners = gn_corners(width, height, windows.device)
     c0 = T.warp_points_center(t_init[:, None, :], corners, cx, cy)
     t, prev = t_init, c0
-    conv = torch.zeros(t.shape[0], dtype=torch.bool, device=t.device)
+    conv = torch.full((t.shape[0],), fixed and 0.0 < threshold,
+                      dtype=torch.bool, device=t.device)
     iters = torch.zeros(t.shape[0], dtype=torch.int32, device=t.device)
-    for _ in range(max_iters):
-        active = ~conv
+    for _ in range(fixed_iters if fixed else max_iters):
+        active = torch.ones_like(conv) if fixed else ~conv
         if not bool(active.any()):
             break
         t_ul = T.center_to_ul(t, width, height)[:, None, None, :]
@@ -132,7 +137,8 @@ def gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox,
         t = torch.where(active[:, None], t_new, t)
         prev = torch.where(active[:, None, None], new_c, prev)
         iters = iters + active.to(torch.int32)
-        conv = conv | (active & (disp12 < threshold))
+        conv = (disp12 < threshold) if fixed \
+            else conv | (active & (disp12 < threshold))
     disp01 = torch.linalg.vector_norm(prev - c0, dim=-1).amax(dim=-1)
     return t, conv, disp01, iters
 
@@ -165,8 +171,10 @@ def _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
 
 def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
              t_init, *, threshold: float, width: int, height: int,
-             max_iters: int):
-    """Run one level's whole GN loop for every item.
+             max_iters: int, fixed_iters: int = -1):
+    """Run one level's whole GN loop for every item: to convergence or
+    ``max_iters``, or with ``fixed_iters >= 0`` exactly that many
+    iterations (see ``gn_solve_plain``).
 
     Args:
       windows: (K, P, P, N) u8 keyframe sampling windows.
@@ -181,7 +189,7 @@ def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
       (t (B, 4) f32, converged (B,) bool, disp01 (B,) f32, iters (B,) i32).
     """
     kwargs = dict(threshold=threshold, width=width, height=height,
-                  max_iters=max_iters)
+                  max_iters=max_iters, fixed_iters=fixed_iters)
     if windows.device.type == "cpu":
         _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
                t_init)
@@ -195,7 +203,7 @@ def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
 def gn_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
                        jac_masked, hinv, fx, fy, ox, oy, t_init, *,
                        threshold: float, width: int, height: int,
-                       max_iters: int):
+                       max_iters: int, fixed_iters: int = -1):
     """Launch kernel B with a given plan (``gn_solve`` takes
     ``launch_plan``'s); CUDA tensors only. Raises if the launch is
     refused."""
@@ -220,7 +228,8 @@ def gn_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
     ptrs = [x.data_ptr() for x in args + [t_out, conv, disp01, iters]]
     err = _kernel()(*ptrs, bsz, p, n, width * 0.5, height * 0.5,
                     width - 1.0, height - 1.0, 1.0 / width, p - 3.0 - 1e-3,
-                    threshold, max_iters, plan.threads, plan.cluster,
+                    threshold, max_iters, fixed_iters, plan.threads,
+                    plan.cluster,
                     plan.slice, plan.cached, stream)
     if err != 0:
         raise RuntimeError(f"gn_solve kernel launch failed ({plan}): CUDA "
@@ -235,7 +244,7 @@ def _kernel():
     fn = cuda_build.load("gn_solve").vs_gn_solve
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     return fn
 

@@ -122,20 +122,31 @@ def eigh_sym_round_robin(a, sweeps: int = 6):
     return torch.diagonal(a, dim1=-2, dim2=-1), v
 
 
+def eigh_sym(a, sweeps: int = 6):
+    """(w (..., n) unsorted eigenvalues, V (..., n, n)) of small symmetric
+    ``a`` by fixed-sweep Jacobi, in the JAX package's rotation order
+    (linalg.py:37-106): cyclic for n == 4, round-robin for an even n >= 6.
+    The order stays: the golden trace pins the 4x4 one."""
+    n = a.shape[-1]
+    if n == 4:
+        return eigh_sym4_cyclic(a, sweeps)
+    if n >= 6 and n % 2 == 0:
+        return eigh_sym_round_robin(a, sweeps)
+    raise ValueError(f"eigh_sym takes n == 4 or an even n >= 6, got {n}")
+
+
+def eigh_sym4(a, sweeps: int = 6):
+    """4x4 specialization of ``eigh_sym`` (linalg.py:172-174)."""
+    return eigh_sym(a, sweeps=sweeps)
+
+
 def regularized_pinv_sym4(h, cond_threshold: float = 1e6,
                           tikhonov_scale: float = 1e-6):
     """cond = w_max / (w_min + 1e-10); above 1e6 add 1e-6 * w_max to the
     diagonal; invert with near-null eigenvalues zeroed (DECOMP_SVD). Takes
     the 4x4 similarity Hessian (cyclic Jacobi) or the 8x8 homography one
     (round-robin Jacobi), as the JAX function does."""
-    n = h.shape[-1]
-    if n == 4:
-        w, v = eigh_sym4_cyclic(h)
-    elif n >= 6 and n % 2 == 0:
-        w, v = eigh_sym_round_robin(h)
-    else:
-        raise ValueError(f"regularized_pinv_sym4 takes n == 4 or an even "
-                         f"n >= 6, got {n}")
+    w, v = eigh_sym(h)
     w_max = torch.amax(w, dim=-1, keepdim=True)
     w_min = torch.amin(w, dim=-1, keepdim=True)
     cond = w_max / (w_min + 1e-10)

@@ -5,7 +5,10 @@ Keypoints live one per tile, so once per keyframe a (P, P) window around
 every tile is cut out (P = tile + 2*margin, repeat-edge padded) and each
 warped sample becomes a weighted sum inside its own window. Layout
 (P, P, N), with the tile grid N = Ht*Wt on the minor axis as in the JAX
-package (``video_stabilizer_tpu.ops.patches``).
+package (``video_stabilizer_tpu.ops.patches``). The tile-grid layout
+(..., Ht, Wt, P, P) of ``extract_tile_windows`` and its dense-weight
+sampler ``sample_windows`` are the gather-free oracles of ``ops/sparse.py``'s
+``*_windows`` forms, as in the JAX package (patches.py:41-238).
 """
 
 from __future__ import annotations
@@ -25,34 +28,75 @@ def window_size(tile: int, margin: int) -> int:
     return tile + 2 * margin
 
 
-def extract_tile_windows_flat(img, tile: int, margin: int):
-    """(..., H, W) u8 -> (..., P, P, Ht*Wt) u8 windows.
-
-    Window (i, j) covers padded rows [i*tile, i*tile + P) and columns
-    [j*tile, j*tile + P) of the image edge-padded by (margin, margin + tile):
-    the same pixels, bit for bit, as the JAX package's one-hot matmul
-    construction.
-    """
+def _tile_windows(img, tile: int, margin: int):
+    """(..., H, W) -> (..., Ht, Wt, P, P) view: window (i, j) covers padded
+    rows [i*tile, i*tile + P) and columns [j*tile, j*tile + P) of the image
+    edge-padded by (margin, margin + tile)."""
     h, w = img.shape[-2], img.shape[-1]
     t = tile
-    ht, wt = h // t, w // t
     p = window_size(t, margin)
     padded = pad_edge(img, margin, margin + t, margin, margin + t)
     wins = padded.unfold(-2, p, t).unfold(-2, p, t)   # (..., nI, nJ, P, P)
-    wins = wins[..., :ht, :wt, :, :]
+    return wins[..., :h // t, :w // t, :, :]
+
+
+def extract_tile_windows_flat(img, tile: int, margin: int):
+    """(..., H, W) u8 -> (..., P, P, Ht*Wt) u8 windows: the same pixels, bit
+    for bit, as the JAX package's one-hot matmul construction."""
+    wins = _tile_windows(img, tile, margin)
     lead = wins.shape[:-4]
     nd = wins.dim()
+    p = wins.shape[-1]
     wins = wins.permute(*range(len(lead)), nd - 2, nd - 1, nd - 4, nd - 3)
-    return wins.reshape(lead + (p, p, ht * wt)).contiguous()
+    return wins.reshape(lead + (p, p, -1)).contiguous()
+
+
+def extract_tile_windows(img, tile: int, margin: int,
+                         out_dtype=torch.bfloat16):
+    """(..., H, W) u8 -> (..., Ht, Wt, P, P) windows, P = tile + 2*margin:
+    window (i, j) covers rows [i*tile - margin, i*tile - margin + P) and
+    the same columns of the edge-padded image (patches.py:41-53). u8 values
+    are exact in bfloat16, the default storage."""
+    return _tile_windows(img, tile, margin).to(out_dtype).contiguous()
+
+
+def window_origins(ht: int, wt: int, tile: int, margin: int, device=None):
+    """Image (x, y) of each window's [0, 0] corner as (Ht, Wt) grids
+    (patches.py:180-186)."""
+    oy = torch.arange(ht, dtype=torch.float32, device=device) * tile - margin
+    ox = torch.arange(wt, dtype=torch.float32, device=device) * tile - margin
+    return ox[None, :].expand(ht, wt), oy[:, None].expand(ht, wt)
+
+
+def sample_windows(windows, rel_x, rel_y):
+    """Weight-normalized Lanczos2 sample of (..., Ht, Wt, P, P) windows at
+    window positions (..., Ht, Wt), pre-clamped to [2, P - 3): dense
+    float32 weights over all P taps of each axis, zero beyond radius 2
+    (patches.py:189-211)."""
+    p = windows.shape[-1]
+    taps = torch.arange(p, dtype=torch.float32, device=windows.device)
+    wy = lanczos2(taps - rel_y[..., None].to(torch.float32))
+    wx = lanczos2(taps - rel_x[..., None].to(torch.float32))
+    num = (windows.to(torch.float32) * wy[..., :, None]
+           * wx[..., None, :]).sum(dim=(-2, -1))
+    den = wy.sum(dim=-1) * wx.sum(dim=-1)
+    return num / den
+
+
+def warp_rel_positions(coords, t_ul, ox, oy, p: int):
+    """Warped window positions (rel_x, rel_y) (..., Ht, Wt) of integer
+    keypoint ``coords`` (..., Ht, Wt, 2) under the origin-based ``t_ul``
+    (4,), clamped to the window interior (patches.py:220-238)."""
+    fx = coords[..., 0].to(torch.float32)
+    fy = coords[..., 1].to(torch.float32)
+    return warp_rel_positions_flat(fx, fy, t_ul, ox, oy, p)
 
 
 def window_origins_flat(ht: int, wt: int, tile: int, margin: int,
                         device=None):
     """Flat (Ht*Wt,) image (x, y) of each window's [0, 0] corner."""
-    oy = torch.arange(ht, dtype=torch.float32, device=device) * tile - margin
-    ox = torch.arange(wt, dtype=torch.float32, device=device) * tile - margin
-    return (ox[None, :].expand(ht, wt).reshape(-1),
-            oy[:, None].expand(ht, wt).reshape(-1))
+    ox, oy = window_origins(ht, wt, tile, margin, device)
+    return ox.reshape(-1), oy.reshape(-1)
 
 
 def clamp_rel(rel, p: int):

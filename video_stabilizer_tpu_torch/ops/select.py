@@ -1,9 +1,12 @@
-"""Keypoint outlier rejection: integer-binned histogram threshold
-(``video_stabilizer_tpu.ops.select.histogram_mask``, select.py:24-61).
+"""Keypoint outlier rejection, the two selections of
+``video_stabilizer_tpu.ops.select``:
 
-Finds the smallest integer threshold t in [0, bins) with
-count(floor(wd) <= t) >= floor(N * fraction) and keeps every entry at or
-below it (ties in the threshold bin are all kept).
+- ``histogram_mask`` (select.py:24-61): the smallest integer threshold t in
+  [0, bins) with count(floor(wd) <= t) >= floor(N * fraction); every entry
+  at or below it is kept (ties in the threshold bin are all kept).
+- ``topk_mask`` (select.py:64-72): exactly max(int(N * fraction), 1)
+  entries, the smallest, ties broken by the lower index as
+  ``jax.lax.top_k`` breaks them.
 """
 
 from __future__ import annotations
@@ -39,3 +42,19 @@ def histogram_mask(wd, fraction: float, bins: int = DEFAULT_BINS):
                          torch.full_like(counts[:, 0], bins))
     thresh = thresh.reshape(wd.shape[:-1] + (1,)).to(v.dtype)
     return (v <= thresh).to(wd.dtype)
+
+
+def topk_mask(wd, fraction: float):
+    """0/1 float mask of exactly ``max(int(N * fraction), 1)`` smallest
+    values of ``wd`` along its last axis; leading axes are independent rows.
+
+    ``jax.lax.top_k(-wd, k)`` puts equal values in index order, lowest index
+    first, and warp diffs tie on flat content; ``torch.topk`` promises no
+    order for ties. A stable ascending sort does keep index order among
+    equal values, so its first k indices are JAX's set.
+    """
+    n = wd.shape[-1]
+    k = max(int(n * float(fraction)), 1)
+    order = torch.sort(wd, dim=-1, stable=True).indices[..., :k]
+    mask = torch.zeros_like(wd)
+    return mask.scatter_(-1, order, 1.0)

@@ -19,6 +19,22 @@ def identity(batch_shape=(), dtype=torch.float32, device=None):
     return torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
 
 
+def make(a=0.0, b=0.0, tx=0.0, ty=0.0, dtype=torch.float32, device=None):
+    """A transform tensor from scalars (or equal-shaped tensors), stacked on
+    the last axis (transforms.py:38-41)."""
+    return torch.stack([torch.as_tensor(v, dtype=dtype, device=device)
+                        for v in (a, b, tx, ty)], dim=-1)
+
+
+def warp_points(t, xy):
+    """Warp (..., 2) points by ``t`` about the origin (imgproc.cpp:389-394)."""
+    a, b = t[..., A], t[..., B]
+    x, y = xy[..., 0], xy[..., 1]
+    wx = (1.0 + a) * x - b * y + t[..., TX]
+    wy = b * x + (1.0 + a) * y + t[..., TY]
+    return torch.stack([wx, wy], dim=-1)
+
+
 def warp_points_center(t, xy, cx, cy):
     """Warp (..., 2) points by ``t`` pivoting rotation/scale about
     (cx, cy) (imgproc.cpp:401-411)."""
@@ -55,6 +71,19 @@ def compose(t1, t2):
     return torch.stack([a3, b3, tx3, ty3], dim=-1)
 
 
+def corner_points(width, height, dtype=torch.float32, device=None):
+    """The four corners of the displacement metric (imgproc.cpp:424-427):
+    (0, 0), (w, 0), (0, h), (w, h) as (..., 4, 2), broadcast over the
+    shapes of ``width`` and ``height``."""
+    w = torch.as_tensor(width, dtype=dtype, device=device)
+    h = torch.as_tensor(height, dtype=dtype, device=device)
+    w, h = torch.broadcast_tensors(w, h)
+    z = torch.zeros_like(w)
+    return torch.stack([torch.stack([z, z], -1), torch.stack([w, z], -1),
+                        torch.stack([z, h], -1), torch.stack([w, h], -1)],
+                       dim=-2)
+
+
 def max_corner_displacement(t, width, height):
     """Max distance an image corner (0,0), (w,0), (0,h), (w,h) moves under
     ``t`` pivoted about (W*0.5, H*0.5) (imgproc.cpp:419-437). The corners
@@ -86,3 +115,15 @@ def center_to_ul(t, width, height, minus_one=False):
     tx_ul = t[..., TX] - a * cx + b * cy
     ty_ul = t[..., TY] - b * cx - a * cy
     return torch.stack([a, b, tx_ul, ty_ul], dim=-1)
+
+
+def to_affine_matrix(t, width=None, height=None, minus_one=True):
+    """(..., 2, 3) forward affine matrix [[1+A, -B, tx], [B, 1+A, ty]];
+    with ``width`` and ``height`` TX/TY are first made origin-based
+    (imgproc.cpp:446-467, transforms.py:161-172)."""
+    if width is not None:
+        t = center_to_ul(t, width, height, minus_one=minus_one)
+    a, b = t[..., A], t[..., B]
+    row0 = torch.stack([1.0 + a, -b, t[..., TX]], dim=-1)
+    row1 = torch.stack([b, 1.0 + a, t[..., TY]], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
