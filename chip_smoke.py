@@ -97,6 +97,41 @@ Run from the root of the repository. Phases:
      two runs is named (stream, frame, level), and on each run's inputs of
      that level both engines' own loops and their per-iteration max corner
      moves (fixed mode, K = 1 .. max_iters) are printed side by side.
+ G2. Kernel C with one threshold per item, drawn from 0.01 / 0.02 /
+     0.04 px, against its plain version on phase 8's captured and
+     perspective items at all 7 levels: phase 8's bars (the p6/p7 check on
+     the items whose engines ran the same iterations), two launches
+     bit-identical, times and bound of the captured items.
+ G1. The aligner sweep at 1080p: apps/grid_search_align's 27 combos
+     (threshold 0.01 / 0.02 / 0.04 x fraction 0.7 / 0.8 / 0.9 x
+     max_displacement 5 / 10 / 20, window margin widened to 22) on 32
+     frames of bench.py's content (seed 100) through ``align_clip_impl``
+     with (27,) DynAlignParams, launch counts set to 0 before and read
+     after (kernel B once per level for all 27 x 32 items). (a) Kernel B
+     with per-item thresholds against its plain version at every level:
+     converged equal; phase 5's bars on the items whose engines ran the
+     same iterations (not the A/B >= 10x check: translation-only content);
+     the items that stopped one iteration apart (at most 1 % of a level)
+     straddle their threshold, the plain engine's move at the deciding
+     step within 10 % of it; fewer iterations at 0.04 px than at 0.01 px.
+     (b) Each combo run alone with those values in its AlignerParams: ok
+     equal on every frame, measurements within phase 5's bars, the
+     bit-equal combos counted.
+     (c) The sweep's align time beside the 27 runs alone. (d) The FIR warp
+     and ``median_jitter_px_device`` over all combos' outputs, timed; the
+     best combo's out/in jitter ratio below 0.6.
+ G2 path. 8 frames of config 4's content through ``align_clip_impl`` with
+     model="homography" and the three thresholds as (3,) DynAlignParams,
+     launch counts set to 0 before and read after: kernel C once per level,
+     kernel B never; the 0.02 px combo against the run without ``dyn``: ok
+     equal, >= 6 of 7 frames aligned.
+ G3. The apps' pipeline at 1080p without cv2: 32 frames of bench.py's
+     content written as a .y4m, read back bit-equal through
+     ``utils.io.read_video`` (the native Y4M reader, built by ``make -C
+     native``), stabilized by apps/video_test's ``stabilize_streaming``,
+     ``stabilize_chunked`` and ``stabilize_batch`` (crop 0), each scored
+     with ``median_jitter_px_device``: 22 outputs, output jitter < 0.6x
+     the input's, align failures printed. Nothing is written as mp4.
  12. The port on the card against the port on the CPU (the plain versions)
      on a small clip: ok equal, >= 99 % of output pixels within 1 LSB.
  S1. The streaming path, timed: ``VideoStabilizer`` (crop 32, defaults
@@ -131,8 +166,10 @@ Run from the root of the repository. Phases:
 
 Every phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(seven entries: kernel A's two chunked forms and its one-frame form, B per
-chunk, at one item and in its fixed mode at K = 4 (S5's launches), C), the
+(nine entries: kernel A's two chunked forms and its one-frame form, B per
+chunk, at one item, in its fixed mode at K = 4 (S5's launches) and with
+per-item thresholds (G1's launches), C per chunk and with per-item
+thresholds (the G2 path's launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -524,9 +561,10 @@ def gn_bytes(args, t_out, iters):
     """Bytes kernel B or C must move for this run's data: the 4x4 window
     taps of both keypoint sets of every item at each of its iterations (at
     most a keyframe's whole windows), each other input of the items and of
-    the keyframes in use read once, each output written once. Both kernels
-    take (windows, key_index, tmpl, jac_masked, hinv, two (K, 2, N)
-    keypoint coordinates, ox, oy, initial transform)."""
+    the keyframes in use read once (the item's float32 threshold
+    included), each output written once. Both kernels take (windows,
+    key_index, tmpl, jac_masked, hinv, two (K, 2, N) keypoint coordinates,
+    ox, oy, initial transform) and a threshold per item."""
     windows, key_index, *per_item = args[:5]
     fx, fy, ox, oy, t_init = args[5:10]
     k, p, _, n = windows.shape
@@ -536,7 +574,8 @@ def gn_bytes(args, t_out, iters):
     taps = float(torch.clamp(iters_per_key * 2 * n * 16, max=p * p * n).sum())
     keys = int(torch.unique(key_index).numel())
     item_bytes = sum(a.numel() * a.element_size()
-                     for a in (key_index, *per_item, t_init))
+                     for a in (key_index, *per_item, t_init)) \
+        + t_init.shape[0] * 4
     key_bytes = keys * (fx[0].numel() + fy[0].numel()) * 4
     out_bytes = t_out.shape[0] * (t_out.shape[1] + 3) * 4
     return taps + item_bytes + key_bytes + (ox.numel() + oy.numel()) * 4 \
@@ -676,9 +715,10 @@ def check_gn(cap):
             totals[k] += v
     level_table(rows)
     log(f"  per chunk (sum of {len(calls)} levels): kernel "
-        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
-        f"plain {totals['plain_ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.4f} ms")
+        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms; "
+        f"0.549-0.577 ms on an NVIDIA H100 80GB HBM3 at 700 W with the "
+        f"threshold a launch argument, PERF.md section 6), plain "
+        f"{totals['plain_ms']:.3f} ms, bound {totals['bound_ms']:.4f} ms")
     return dict(name="gn_solve", route="cuda",
                 source="video_stabilizer_tpu_torch/csrc/gn_solve.cu",
                 replaces=GN_REPLACES, max_abs_err=worst, ms=totals["ms"],
@@ -1465,6 +1505,15 @@ def one_item(args, item):
     return one
 
 
+def item_kw(kw, item):
+    """A GN launch's keyword arguments cut to one of its items: its own
+    threshold, where the launch has one per item."""
+    thr = kw["threshold"]
+    if isinstance(thr, torch.Tensor) and thr.dim() == 1:
+        return dict(kw, threshold=thr[item:item + 1])
+    return kw
+
+
 def permuted_keypoints(one):
     """The same item with its keypoints in another (seeded random) order:
     the same sums, added in another order."""
@@ -1512,6 +1561,7 @@ def diagnose_item(item, name, args, kw):
     from video_stabilizer_tpu_torch.ops.gn_solve import (
         gn_solve, gn_solve_plain)
     one = one_item(args, item)
+    kw = item_kw(kw, item)
     own = {}
     for ename, solve in (("kernel", gn_solve), ("plain", gn_solve_plain)):
         _, conv, d01, iters = solve(*one, **kw)
@@ -1637,6 +1687,432 @@ def small_reference(dev):
           f"ok equal {bool((k_g == k_c).all())}, |dA,dB| {d_ab:.2e}, "
           f"|dTX,dTY| {d_t:.2e}, {within * 100:.3f} % of pixels within "
           "1 LSB")
+
+
+# --------------------------------------------------------------------------
+# Parameter sweeps (kernels B and C with one threshold per item) and the
+# apps' pipeline
+# --------------------------------------------------------------------------
+
+SWEEP_FRAMES = 32         # G1's and G3's clip: bench.py's content, seed 100
+ITEM_NAME_B = "gn_solve[per-item threshold]"
+ITEM_NAME_C = "gn8_solve[per-item threshold]"
+# The threshold axis of the reference's grid (grid_search_align.cpp:135-146):
+# G2 draws one per item, and its 4K path sweeps all three.
+ITEM_THRESHOLDS = (0.01, 0.02, 0.04)
+
+
+def timed(fn):
+    """(fn(), host milliseconds from a synchronized start to the device's
+    end of its work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def gn_item_entry(name, source, replaces, totals, bound_share, worst):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=worst, ms=totals["ms"],
+                device_ms=totals["device_ms"], plain_ms=totals["plain_ms"],
+                bound_ms=totals["bound_ms"],
+                bound_by=max(bound_share, key=bound_share.get),
+                library_ms=None)
+
+
+def similarity_corner_gap(t_a, t_b, width, height):
+    """(B,) max distance between the level's GN corners ((w-1, h-1)
+    extent) under two (B, 4) centre-pivot similarities, in px."""
+    from video_stabilizer_tpu_torch import transforms as T
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_corners
+    corners = gn_corners(width, height, t_a.device).double()
+
+    def at(t):
+        return T.warp_points_center(t.double()[:, None, :], corners,
+                                    width * 0.5, height * 0.5)
+    return torch.linalg.vector_norm(at(t_a) - at(t_b), dim=-1).amax(dim=-1)
+
+
+# An item whose two engines stop one iteration apart is held to this: the
+# plain engine's move at the step where the first engine stopped lies
+# within this share of the item's threshold, so the two engines' stop tests
+# straddle the threshold by their sum-order rounding (phase 11's finding).
+KNIFE_EDGE = 0.1
+
+
+def step_apart_items(plain, args, kw, i_g, i_w, gap_fn):
+    """The items whose engines stopped at different iterations: per item
+    (index, kernel and plain iterations, threshold, the plain engine's
+    corner move in px at the first engine's last step, knife-edge or not).
+    The move comes from the plain engine run alone on the item with
+    max_iters k - 1 and k, k the fewer iterations."""
+    out = []
+    for item in torch.nonzero(i_g != i_w).flatten().tolist():
+        one, okw = one_item(args, item), item_kw(kw, item)
+        thr = float(torch.as_tensor(okw["threshold"]).reshape(-1)[0])
+        k = int(min(i_g[item], i_w[item]))
+        before = plain(*one, **dict(okw, max_iters=k - 1))[0]
+        after = plain(*one, **dict(okw, max_iters=k))[0]
+        move = float(gap_fn(before, after, kw["width"], kw["height"])[0])
+        edge = (abs(int(i_g[item]) - int(i_w[item])) == 1
+                and abs(move - thr) <= KNIFE_EDGE * thr)
+        out.append((item, int(i_g[item]), int(i_w[item]), thr, move, edge))
+        log(f"    item {item}: kernel {int(i_g[item])} vs plain "
+            f"{int(i_w[item])} iterations at threshold {thr:.4g} px; the "
+            f"plain engine's step {k} moved {move:.6f} px "
+            f"({(move / thr - 1) * 100:+.2f} % of the threshold)")
+    return out
+
+
+def per_item_b(calls):
+    """G1 (a): kernel B against its plain version on the sweep's items, one
+    threshold per item, at every level: converged equal; on the items whose
+    engines ran the same iterations, phase 5's bars (A/B 1e-5, TX/TY 1e-3
+    px; the clip is translation only, so not the A/B >= 10x check); the
+    items that stopped one iteration apart straddle their threshold
+    (KNIFE_EDGE) and are at most 1 % of the level (or 1); two launches
+    bit-identical; iterations summed by threshold; wrapper, device and
+    plain times and the bound, summed over the levels."""
+    from video_stabilizer_tpu_torch.ops.gn_solve import (
+        OPS_PER_SAMPLE, gn_solve, gn_solve_plain)
+
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_share = dict(bytes=0.0, operations=0.0)
+    worst = 0.0
+    iters_by_thr = {v: 0 for v in ITEM_THRESHOLDS}
+    for args, kw in calls:
+        p, n = args[0].shape[1], args[0].shape[3]
+        items = args[9].shape[0]
+        level = f"{kw['width']}x{kw['height']} (P={p}, N={n}, {items} items)"
+        (t_g, c_g, _, i_g) = gn_solve(*args, **kw)
+        (t_w, c_w, _, i_w) = gn_solve_plain(*args, **kw)
+        same = i_g == i_w
+        d_ab = float((t_g[:, :2] - t_w[:, :2])[same].abs().max())
+        d_t = float((t_g[:, 2:] - t_w[:, 2:])[same].abs().max())
+        worst = max(worst, d_ab, d_t)
+        apart = step_apart_items(gn_solve_plain, args, kw, i_g, i_w,
+                                 similarity_corner_gap)
+        conv_equal = bool((c_g == c_w).all())
+        check(conv_equal and d_ab <= GN_AB_BAR and d_t <= GN_T_BAR
+              and all(a[-1] for a in apart)
+              and len(apart) <= max(1, items // 100),
+              f"{level}: converged equal {conv_equal}; on the "
+              f"{int(same.sum())} items with equal iterations |dA,dB| "
+              f"{d_ab:.2e} (bar {GN_AB_BAR:.0e}), |dTX,dTY| {d_t:.2e} px "
+              f"(bar {GN_T_BAR:.0e}); {len(apart)} items one step apart, "
+              f"each within {KNIFE_EDGE:.0%} of its threshold "
+              f"{all(a[-1] for a in apart)}; mean iters "
+              f"{float(i_g.float().mean()):.2f}")
+        check(deterministic(lambda: gn_solve(*args, **kw)),
+              f"{level}: two launches give bit-identical outputs")
+        for v in ITEM_THRESHOLDS:
+            iters_by_thr[v] += int(i_g[kw["threshold"] == v].sum())
+        ms = cuda_ms(lambda: gn_solve(*args, **kw), 10)
+        device_ms = graph_ms(lambda: gn_solve(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: gn_solve_plain(*args, **kw), 1)
+        bytes_moved = gn_bytes(args, t_g, i_g)
+        ops = int(i_g.sum()) * 2 * n * OPS_PER_SAMPLE
+        bound_ms, bound_by = roofline(bytes_moved, ops)
+        bound_share[bound_by] += bound_ms
+        log(f"    kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        for k, v in (("ms", ms), ("device_ms", device_ms),
+                     ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            totals[k] += v
+    log(f"  per sweep (sum of {len(calls)} levels): kernel "
+        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
+        f"plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.4f} ms")
+    lo, hi = ITEM_THRESHOLDS[0], ITEM_THRESHOLDS[-1]
+    check(iters_by_thr[lo] > iters_by_thr[hi],
+          "each item stops at its own threshold: iterations summed over the "
+          "levels, by threshold, " + ", ".join(
+              f"{v} px {n}" for v, n in iters_by_thr.items()))
+    return gn_item_entry(ITEM_NAME_B,
+                         "video_stabilizer_tpu_torch/csrc/gn_solve.cu",
+                         GN_REPLACES, totals, bound_share, worst)
+
+
+@phase("G1 aligner sweep at 1080p: grid_search_align's 27 combos in one "
+       "level loop")
+def aligner_sweep(dev):
+    """The combos of apps/grid_search_align (threshold x fraction x
+    max_displacement, window margin widened to 22) on 32 frames of bench.py's
+    content through ``align_clip_impl`` with (27,) DynAlignParams, the
+    launch counts set to 0 just before and read just after. (a) kernel B
+    with per-item thresholds against its plain version on the sweep's
+    items; (b) each combo run alone with those values in its AlignerParams
+    (ok equal, phase 5's bars); (c) the sweep's align time beside the 27
+    runs alone; (d) the FIR warp and the device jitter metric over all
+    combos' outputs, timed, the best combo's out/in ratio below 0.6.
+    Returns (the kernels line's entry, kernel B's launches)."""
+    from video_stabilizer_tpu_torch.apps import grid_search_align as gsa
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import aligner
+    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+    from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.utils.flow import (
+        gray_f32, median_jitter_px_device_impl)
+
+    frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
+    clip = torch.from_numpy(frames).to(dev)
+    gray = torch.from_numpy(gsa.host_gray(frames)).to(dev)
+    combos = gsa.combo_grid()
+    base, line = gsa.widened_aligner()
+    log(f"  {len(combos)} combos x {SWEEP_FRAMES} frames; {line}")
+    params = StabilizerParams(aligner=base, enable_smoother=False,
+                              crop_pixels=gsa.CROP)
+    dyn = gsa.dyn_params(combos, dev)
+    levels = len(aligner.level_specs(WIDTH, HEIGHT, base))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as spy:
+        (meas, ok), sweep_ms = timed(
+            lambda: align_clip_impl(gray, base, WIDTH, HEIGHT, dyn=dyn))
+    launches = launch_counts()
+    calls = [(c.args, c.kwargs) for c in spy.call_args_list]
+    check(launches["gn_solve"] == levels == len(calls)
+          and calls[0][1]["threshold"].shape == (len(combos) * SWEEP_FRAMES,),
+          f"kernel B launched once per level ({launches['gn_solve']} of "
+          f"{levels}) for all {len(combos)} x {SWEEP_FRAMES} items, one "
+          "threshold per item")
+
+    log("  (a) kernel B with per-item thresholds vs its plain version:")
+    entry = per_item_b(calls)
+
+    ok_equal, bit_equal, d_ab, d_t, alone_ms = True, 0, 0.0, 0.0, 0.0
+    for c, (thr, frac, md) in enumerate(combos):
+        one = dataclasses.replace(base, threshold=thr, smallest_fraction=frac,
+                                  max_displacement=md)
+        (m1, ok1), ms = timed(
+            lambda: align_clip_impl(gray, one, WIDTH, HEIGHT))
+        alone_ms += ms
+        same = bool((ok1 == ok[c]).all())
+        ok_equal &= same
+        both = ok1 & ok[c]
+        if bool(both.any()):
+            d = (m1 - meas[c]).abs()[both]
+            d_ab = max(d_ab, float(d[:, :2].max()))
+            d_t = max(d_t, float(d[:, 2:].max()))
+        bit_equal += int(torch.equal(m1, meas[c]) and same)
+        if not same:
+            log(f"    combo {c} ({thr}, {frac}, {md}): ok differs on frames "
+                f"{torch.nonzero(ok1 != ok[c]).flatten().tolist()}")
+    check(ok_equal and d_ab <= GN_AB_BAR and d_t <= GN_T_BAR,
+          f"(b) the sweep vs each combo alone: ok equal on every frame "
+          f"{ok_equal}; |dA,dB| {d_ab:.2e} (bar {GN_AB_BAR:.0e}), |dTX,dTY| "
+          f"{d_t:.2e} px (bar {GN_T_BAR:.0e}); {bit_equal} of {len(combos)} "
+          "combos bit-equal")
+    log(f"  (c) align: the sweep {sweep_ms:.1f} ms for {len(combos)} combos; "
+        f"the combos one by one {alone_ms:.1f} ms in all "
+        f"({alone_ms / sweep_ms:.2f}x the sweep)")
+    rates = ok[:, 1:].float().mean(dim=1)
+    log(f"  align success per combo (frames 1-{SWEEP_FRAMES - 1}): "
+        + ", ".join(f"{float(r):.2f}" for r in rates))
+
+    outs, warp_ms = timed(lambda: gsa.warp_combos(clip, meas, ok, params))
+    in_j, in_ms = timed(lambda: float(median_jitter_px_device_impl(
+        gray_f32(clip))))
+    out_j, metric_ms = timed(lambda: median_jitter_px_device_impl(
+        gray_f32(outs)).cpu())
+    ratios = out_j / max(in_j, 1e-9)
+    best = int(torch.argmin(ratios))
+    log(f"  (d) FIR warp of {outs.shape[0]} x {outs.shape[1]} frames "
+        f"{warp_ms:.1f} ms; device jitter metric over all combos' outputs "
+        f"{metric_ms:.1f} ms ({outs.shape[0] * (outs.shape[1] - 1)} pairs), "
+        f"over the input {in_ms:.1f} ms")
+    check(bool(torch.isfinite(ratios).all()) and float(ratios[best]) < 0.6,
+          f"input jitter {in_j:.3f} px; best combo {combos[best]} out/in "
+          f"{float(ratios[best]):.4f}, worst {float(ratios.max()):.4f}")
+    return entry, launches["gn_solve"]
+
+
+@phase("G2 kernel C with per-item thresholds vs its plain version (phase "
+       "8's 4K items)")
+def check_gn8_per_item(cap):
+    """Phase 8's captured and perspective items, each with a threshold drawn
+    from ITEM_THRESHOLDS, at all 7 levels, with phase 8's bars: converged
+    equal and corners within GN8_CORNER_BAR on every item; the perspective
+    items' p6/p7 >= 10x the p6/p7 gap of the items whose engines ran the
+    same iterations (an item whose engines stopped apart compares two
+    iterates, not the kernel's p6/p7 update); two launches bit-identical.
+    Items whose engines stopped apart are printed with the plain engine's
+    move at the deciding step, but not held to KNIFE_EDGE: along the 8x8
+    Hessian's ill-conditioned p6/p7 direction the engines' steps part by up
+    to 20 % of a 0.01 px threshold at 60x33 (an NVIDIA H100 80GB HBM3, 700
+    W), which the corner bar covers. Times and bound of the captured items;
+    the p6/p7 gap printed by threshold."""
+    from video_stabilizer_tpu_torch.ops.gn8_solve import (
+        OPS_PER_SAMPLE, gn8_solve, gn8_solve_plain)
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    choices = torch.tensor(ITEM_THRESHOLDS)
+    totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_share = dict(bytes=0.0, operations=0.0)
+    worst = 0.0
+    for (args, kw), (pargs, pkw) in zip(cap["gn8_calls"], cap["persp_calls"]):
+        w, h = kw["width"], kw["height"]
+        level = f"{w}x{h} (P={args[0].shape[1]}, N={args[0].shape[3]})"
+        gaps, conv_equal, p67_gap, median, apart = [], True, 0.0, 0.0, []
+        n_items = 0
+        for name, (a, k) in (("captured", (args, kw)),
+                             ("perspective", (pargs, pkw))):
+            items = a[9].shape[0]
+            n_items += items
+            thr = choices[torch.randint(0, len(choices), (items,),
+                                        generator=g)].to(a[0].device)
+            k = dict(k, threshold=thr)
+            p_g, c_g, _, i_g = gn8_solve(*a, **k)
+            p_w, c_w, _, i_w = gn8_solve_plain(*a, **k)
+            check(deterministic(lambda: gn8_solve(*a, **k)),
+                  f"{level} {name}: two launches give bit-identical outputs")
+            conv_equal &= bool((c_g == c_w).all())
+            gaps.append(float(corner_gap(p_g, p_w, w, h).max()))
+            apart += step_apart_items(gn8_solve_plain, a, k, i_g, i_w,
+                                      corner_gap)
+            d67 = (p_g[:, 6:] - p_w[:, 6:]).abs().amax(dim=1)
+            same = i_g == i_w
+            if bool(same.any()):
+                p67_gap = max(p67_gap, float(d67[same].max()))
+            log(f"    {level} {name}, {items} items: |d iters| "
+                f"{int((i_g - i_w).abs().max())}; p6/p7 gap by threshold: "
+                + ", ".join(f"{v} px {float(d67[thr == v].max()):.2e}"
+                            for v in ITEM_THRESHOLDS
+                            if bool((thr == v).any())))
+            if name == "perspective":
+                median = float(p_w[:, 6:].abs().amax(dim=1).median())
+            else:
+                kwc, p_cap, iters = k, p_g, i_g
+        worst = max(worst, *gaps)
+        check(conv_equal and max(gaps) <= GN8_CORNER_BAR
+              and median >= 10 * p67_gap,
+              f"{level}: converged equal {conv_equal}; corner gap "
+              f"{max(gaps):.2e} px (bar {GN8_CORNER_BAR:.0e}) over all "
+              f"{n_items} items, {len(apart)} of them stopped apart; "
+              f"perspective items' max(|p6|,|p7|) median {median:.2e} vs "
+              f"the p6/p7 gap {p67_gap:.2e} at equal iterations")
+        ms = cuda_ms(lambda: gn8_solve(*args, **kwc), 10)
+        device_ms = graph_ms(lambda: gn8_solve(*args, **kwc), 10)
+        plain_ms = cuda_ms(lambda: gn8_solve_plain(*args, **kwc), 1)
+        bytes_moved = gn_bytes(args, p_cap, iters)
+        ops = int(iters.sum()) * 2 * args[0].shape[3] * OPS_PER_SAMPLE
+        bound_ms, bound_by = roofline(bytes_moved, ops)
+        bound_share[bound_by] += bound_ms
+        log(f"    kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        for key, val in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            totals[key] += val
+    log(f"  per chunk (sum of {len(cap['gn8_calls'])} levels): kernel "
+        f"{totals['ms']:.4f} ms (device {totals['device_ms']:.4f} ms), "
+        f"plain {totals['plain_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.4f} ms")
+    return gn_item_entry(ITEM_NAME_C,
+                         "video_stabilizer_tpu_torch/csrc/gn8_solve.cu",
+                         GN8_REPLACES, totals, bound_share, worst)
+
+
+@phase("G2 path: the 4K homography aligner over three thresholds in one "
+       "level loop")
+def homography_sweep(params_4k, dev):
+    """8 frames of config 4's content (seed 5) through ``align_clip_impl``
+    with model="homography" and (3,) DynAlignParams (ITEM_THRESHOLDS, the
+    params' fraction and bound), the launch counts set to 0 just before and
+    read just after: kernel C once per level, kernel B never. The 0.02 px
+    combo against the run without ``dyn``: ok equal (the corner gap at full
+    size printed). Returns kernel C's launches."""
+    from video_stabilizer_tpu_torch.models.aligner import (
+        DynAlignParams, level_specs)
+    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+
+    al = params_4k.aligner
+    frames = synth_streams(dev, 8, MAIN_CONTENT, H4K, W4K,
+                           seeds=[SEEDS_4K[0]])[0][0]
+    clip = torch.from_numpy(frames).to(dev)
+    c_n = len(ITEM_THRESHOLDS)
+    dyn = DynAlignParams(
+        torch.tensor(ITEM_THRESHOLDS, device=dev),
+        torch.full((c_n,), al.smallest_fraction, device=dev),
+        torch.full((c_n,), al.max_displacement, device=dev))
+    levels = len(level_specs(W4K, H4K, al))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    (p, ok), ms = timed(lambda: align_clip_impl(clip, al, W4K, H4K, dyn=dyn,
+                                                model=HOMOGRAPHY))
+    launches = launch_counts()
+    check(launches["gn8_solve"] == levels and launches["gn_solve"] == 0,
+          f"kernel C launched once per level ({launches['gn8_solve']} of "
+          f"{levels}) for {c_n} x 8 items, kernel B not")
+    log(f"  sweep {ms:.1f} ms; align success per threshold "
+        + ", ".join(f"{t} px {int(ok[c, 1:].sum())}/7"
+                    for c, t in enumerate(ITEM_THRESHOLDS)))
+    (p1, ok1), ms1 = timed(lambda: align_clip_impl(clip, al, W4K, H4K,
+                                                   model=HOMOGRAPHY))
+    c = ITEM_THRESHOLDS.index(al.threshold)
+    both = ok1 & ok[c]
+    gap = float(corner_gap(p[c][both], p1[both], W4K, H4K).max()) \
+        if bool(both.any()) else 0.0
+    check(bool(torch.isfinite(p).all()) and bool((ok1 == ok[c]).all())
+          and int(ok1[1:].sum()) >= 6,
+          f"the {al.threshold} px combo vs the run without dyn ({ms1:.1f} "
+          f"ms): ok equal {bool((ok1 == ok[c]).all())}, "
+          f"{int(ok1[1:].sum())}/7 aligned; corner gap {gap:.2e} px at "
+          f"{W4K}x{H4K}")
+    return launches["gn8_solve"]
+
+
+def write_y4m(path, gray_frames):
+    """A 420jpeg YUV4MPEG2 file of (T, H, W) u8 gray frames with neutral
+    chroma, laid out as tests/test_native.py:63-71 writes one."""
+    t, h, w = gray_frames.shape
+    chroma = np.full((h // 2, w // 2), 128, np.uint8).tobytes()
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{w} H{h} F30:1 Ip A1:1 C420jpeg\n".encode())
+        for y in gray_frames:
+            f.write(b"FRAME\n" + y.tobytes() + chroma + chroma)
+
+
+@phase("G3 the apps' pipeline at 1080p without cv2: .y4m through the "
+       "native reader, video_test's three modes, the device jitter metric")
+def apps_pipeline(dev):
+    """32 frames of bench.py's content written as a .y4m, read back through
+    ``utils.io.read_video`` (the native Y4M reader), stabilized by
+    apps/video_test's ``stabilize_streaming``, ``stabilize_chunked`` and
+    ``stabilize_batch`` (crop 0, video_test.cpp:54), each scored with
+    ``median_jitter_px_device``: 22 outputs of 1080x1920x3, output jitter
+    below 0.6x the input's (tests/test_flow.py:72-86). Nothing is written
+    as mp4."""
+    import tempfile
+
+    from video_stabilizer_tpu_torch.apps import video_test
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.utils import io, native
+    from video_stabilizer_tpu_torch.utils.flow import median_jitter_px_device
+
+    frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
+    check(native.available(), "native/libframepipe.so built and loaded")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.y4m")
+        write_y4m(path, frames[..., 0])
+        (read, ms) = timed(lambda: list(io.read_video(path)))
+    check(len(read) == SWEEP_FRAMES
+          and np.array_equal(np.stack(read), frames),
+          f"the .y4m reads back as the clip's {len(read)} frames, bit-equal "
+          f"({ms:.1f} ms)")
+    params = StabilizerParams(crop_pixels=0)
+    in_j = median_jitter_px_device(frames, device=dev)
+    for mode, run in (("streaming", video_test.stabilize_streaming),
+                      ("chunked", video_test.stabilize_chunked),
+                      ("batch", video_test.stabilize_batch)):
+        (outs, failures), ms = timed(lambda: run(read, params, device=dev))
+        out_j = median_jitter_px_device(outs, device=dev)
+        check(len(outs) == SWEEP_FRAMES - params.lag
+              and outs[0].shape == (HEIGHT, WIDTH, 3)
+              and out_j < 0.6 * in_j,
+              f"{mode}: {len(outs)} outputs in {ms:.1f} ms, align failures "
+              f"{failures}; jitter {in_j:.3f} -> {out_j:.3f} px (ratio "
+              f"{out_j / in_j:.3f}, bar 0.6)")
 
 
 # --------------------------------------------------------------------------
@@ -2060,6 +2536,7 @@ def main() -> int:
         kernels["warp_frames[homography,lanczos2]"] = check_warp_4k(
             cap, crop, dev)
         kernels["gn8_solve"] = check_gn8(cap)
+        kernels[ITEM_NAME_C] = check_gn8_per_item(cap)
         del cap
     torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
@@ -2099,6 +2576,17 @@ def main() -> int:
             check_fir_4k(states, last_chunk, prm, dev)
         del frames, states, last_chunk
         torch.cuda.empty_cache()
+    # The sweeps: G1 (kernel B, one threshold per item) and G2's 4K path
+    # (kernel C), each with its own launch counts; then G3.
+    sweep = aligner_sweep(dev)
+    if sweep is not None:
+        kernels[ITEM_NAME_B], path_launches[ITEM_NAME_B] = sweep
+    torch.cuda.empty_cache()
+    n_c = homography_sweep(params_4k, dev)
+    if n_c:
+        path_launches[ITEM_NAME_C] = n_c
+    apps_pipeline(dev)
+    torch.cuda.empty_cache()
     wide_jitter(params, dev)
     small_reference(dev)
 
@@ -2133,7 +2621,7 @@ def main() -> int:
 
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 7:
+    if failures or missing or len(kernels) != 9:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))

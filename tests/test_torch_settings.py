@@ -247,3 +247,20 @@ def test_merge_coarse_valid_combos_construct():
     for kw in (dict(), dict(gn_kernel="auto"), dict(gn_kernel="xla")):
         tcfg.AlignerParams(merge_coarse=2, **kw)
     tcfg.AlignerParams(merge_coarse=1, selection="topk")
+
+
+def test_bfloat16_refused_because_jax_cannot_run_it():
+    """``dtype="bfloat16"`` is the one AlignerParams value the port refuses
+    (NotImplementedError at construction). The JAX package constructs it
+    but cannot run it: its ``stabilize_clip`` fails while tracing the GN
+    ``while_loop``, whose carried transform comes back float32, so there is
+    no bf16 run for the port to be held to. The smallest clip that reaches
+    the loop: 4 frames of 48x64, lag 2."""
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tcfg.AlignerParams(dtype="bfloat16")
+    jp = jcfg.StabilizerParams(aligner=jcfg.AlignerParams(dtype="bfloat16"),
+                               lag=2, smoother_memory=1, crop_pixels=2)
+    clip = synth_shaky_clip(4, 48, 64, seed=1)
+    with pytest.raises(TypeError, match=r"while_loop body function carry "
+                       r"input and carry output must have equal types"):
+        jbatch.stabilize_clip(clip, jp)

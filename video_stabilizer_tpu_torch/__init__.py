@@ -15,8 +15,9 @@ Layer map, mirroring the JAX package:
                      gn8_solve.py (kernel C, per-level 8-DOF GN loop,
                      csrc/gn8_solve.cu), built at first use by cuda_build.py
   models/aligner.py  coarse-to-fine inverse-compositional LK aligner: the
-                     batched level loop, and its streaming form
-                     (init_state, align_next_frame, VideoAligner)
+                     batched level loop (per-item DynAlignParams), and its
+                     streaming form (init_state, align_next_frame,
+                     VideoAligner)
   models/homography_aligner.py  its 8-DOF homography counterpart
   models/smoother.py TV-L1 smoother, and the streaming L1SmootherCenter
   models/stabilizer.py  VideoStabilizer: one frame in, one stabilized
@@ -28,7 +29,15 @@ Layer map, mirroring the JAX package:
   utils/checkpoint.py  save / load of a VideoStabilizer mid-stream, in the
                      JAX package's .npz layout
   utils/spans.py     named CUDA-event spans of the pipeline stages
-  utils/io.py        synthetic footage (numpy)
+  utils/metrics.py   PerformanceMetrics / time_function timers (CUDA events
+                     when given a CUDA device), device_trace (torch.profiler)
+  utils/flow.py      dense LK flow and median_jitter_px_device, on the device
+  utils/jitter.py    the cv2 Farneback median_jitter_px (cv2 optional)
+  utils/io.py        video I/O (cv2 optional, .y4m natively) and synthetic
+                     footage
+  utils/native.py    ctypes binding of native/libframepipe.so
+  apps/              the JAX package's apps, ``python -m
+                     video_stabilizer_tpu_torch.apps.<name> --device ...``
 
 Entry points take ``device=None``, which means the CUDA card, and raise when
 there is none; ``device="cpu"`` runs the plain PyTorch versions. The package

@@ -17,10 +17,16 @@
 //   4. dt = Hinv b, no 1/width scaling and no 0.5 set average;
 //   5. M = H(p) H(dt), every entry times 1/M22, -1 on the diagonal;
 //   6. warp the four GN corners ((w-1, h-1) extent, normalized) by the new
-//      p, and stop when none moved by the threshold, or at max_iters.
+//      p, and stop when none moved by the item's threshold, or at
+//      max_iters.
 // The keypoints come in normalized (u = (x - W/2) / W, v = (y - H/2) / W),
 // which the XLA loop forms from the same pixel coordinates with the same
 // expressions in every iteration. Outputs (p, converged, disp01, iters).
+//
+// The threshold is per item, as the Pallas kernel's traced SMEM operand
+// becomes under vmap over the aligner's traced parameters: every CTA of an
+// item's cluster reads the same value once at its start, so all of them
+// still take the same stop decision.
 //
 // Eager PyTorch has no device loop whose trip count depends on data, so the
 // loop lives here: each cluster carries its own item's trip count, and the
@@ -87,7 +93,7 @@ struct Level {
   float width, cx, cy;
   float cu0, cu1, cu2, cu3;  // normalized GN corners
   float cv0, cv1, cv2, cv3;
-  float rel_hi, threshold;
+  float rel_hi;
   int max_iters;
 };
 
@@ -125,6 +131,7 @@ __global__ void __launch_bounds__(THREADS) gn8_solve_kernel(
     const float* __restrict__ ox,           // (N,)
     const float* __restrict__ oy,           // (N,)
     const float* __restrict__ p_init,       // (B, 8)
+    const float* __restrict__ threshold,    // (B,)
     float* __restrict__ p_out,              // (B, 8)
     uint8_t* __restrict__ converged,        // (B,) bool
     float* __restrict__ disp01,             // (B,)
@@ -166,6 +173,7 @@ __global__ void __launch_bounds__(THREADS) gn8_solve_kernel(
   float c0x, c0y;
   warp_corner_h(p, corner, lv, c0x, c0y);
   float px = c0x, py = c0y;
+  const float thr = threshold[item];
   int it = 0;
   bool conv = false;
   bool done = lv.max_iters <= 0;
@@ -250,7 +258,7 @@ __global__ void __launch_bounds__(THREADS) gn8_solve_kernel(
     px = nx;
     py = ny;
     ++it;
-    conv = disp12 < lv.threshold;
+    conv = disp12 < thr;
     done = conv || it >= lv.max_iters;
   }
   // No CTA leaves while another may still read its partials.
@@ -284,20 +292,20 @@ extern "C" int vs_gn8_solve(const void* windows, const void* key_index,
                             const void* tmpl, const void* jacm,
                             const void* hinv, const void* u, const void* v,
                             const void* ox, const void* oy,
-                            const void* p_init, void* p_out, void* converged,
-                            void* disp01, void* iters, int batch, int P,
-                            int N, float width, float cx, float cy,
-                            float cu0, float cu1, float cu2, float cu3,
-                            float cv0, float cv1, float cv2, float cv3,
-                            float rel_hi, float threshold, int max_iters,
-                            int threads, int cluster, int slice, int cached,
-                            void* stream) {
+                            const void* p_init, const void* threshold,
+                            void* p_out, void* converged, void* disp01,
+                            void* iters, int batch, int P, int N,
+                            float width, float cx, float cy, float cu0,
+                            float cu1, float cu2, float cu3, float cv0,
+                            float cv1, float cv2, float cv3, float rel_hi,
+                            int max_iters, int threads, int cluster,
+                            int slice, int cached, void* stream) {
   if (batch < 1 || P < 5 || N < 1 || cluster < 1 || cluster > 8 ||
       slice < 1 || (long long)slice * cluster < N || cached < 0 ||
       cached > slice)
     return (int)cudaErrorInvalidValue;
-  const Level lv{width, cx,  cy,  cu0,    cu1,       cu2,      cu3,
-                 cv0,   cv1, cv2, cv3,    rel_hi,    threshold, max_iters};
+  const Level lv{width, cx,  cy,  cu0, cu1,    cu2,      cu3,
+                 cv0,   cv1, cv2, cv3, rel_hi, max_iters};
   const Plan pl{cluster, slice, cached};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = gn::cluster_config(
@@ -307,8 +315,8 @@ extern "C" int vs_gn8_solve(const void* windows, const void* key_index,
   cfg, cluster, (const uint8_t*)windows, (const int64_t*)key_index,         \
       (const float*)tmpl, (const float*)jacm, (const float*)hinv,           \
       (const float*)u, (const float*)v, (const float*)ox, (const float*)oy, \
-      (const float*)p_init, (float*)p_out, (uint8_t*)converged,             \
-      (float*)disp01, (int32_t*)iters, P, N, lv, pl
+      (const float*)p_init, (const float*)threshold, (float*)p_out,         \
+      (uint8_t*)converged, (float*)disp01, (int32_t*)iters, P, N, lv, pl
   switch (threads) {
     case 256:
       return launch<256>(VS_GN8_ARGS);

@@ -12,16 +12,24 @@
 //      summed in f32;
 //   3. b = sum over both sets of jac_masked * (template - sample);
 //   4. dt = Hinv b, A and B of dt scaled by 1/width, composed delta first;
-//   5. stop when no GN corner moved by the threshold, or at max_iters.
+//   5. stop when no GN corner moved by the item's threshold, or at
+//      max_iters.
 // Outputs (t, converged, disp01, iters) as the Pallas kernel's row.
+//
+// The threshold is per item: the Pallas kernel takes it as a traced SMEM
+// operand, which vmap over the aligner's traced parameters
+// (models/aligner.py::DynAlignParams) turns into one value per item, so a
+// parameter sweep runs all its combos in one launch. Every CTA of an
+// item's cluster reads the same value once at its start, so all of them
+// still take the same stop decision.
 //
 // Fixed-iteration mode (fixed_iters >= 0; models/aligner.py:387-407 of the
 // JAX package, which runs it as an unrolled XLA loop, not in Pallas): every
 // item runs exactly fixed_iters iterations, with no early stop and no
 // max_iters cap; converged means the last step moved no corner by the
-// threshold (with no step, a step of 0); disp01 is taken from the final
-// corners and iters is fixed_iters. Every CTA of a cluster counts the same
-// iterations, so the stop decision stays the same in all of them.
+// item's threshold (with no step, a step of 0); disp01 is taken from the
+// final corners and iters is fixed_iters. Every CTA of a cluster counts the
+// same iterations, so the stop decision stays the same in all of them.
 //
 // Eager PyTorch has no device loop whose trip count depends on data, so the
 // loop lives here: each cluster carries its own item's trip count, with no
@@ -87,7 +95,7 @@ constexpr int NP = 4;
 constexpr int CACHE_FLOATS = 16;
 
 struct Level {
-  float cx, cy, w_m1, h_m1, jac_scale, rel_hi, threshold;
+  float cx, cy, w_m1, h_m1, jac_scale, rel_hi;
   int max_iters;
   int fixed_iters;  // -1: converge or stop at max_iters
 };
@@ -120,6 +128,7 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
     const float* __restrict__ ox,         // (N,)
     const float* __restrict__ oy,         // (N,)
     const float* __restrict__ t_init,     // (B, 4)
+    const float* __restrict__ threshold,  // (B,)
     float* __restrict__ t_out,            // (B, 4)
     uint8_t* __restrict__ converged,      // (B,) bool
     float* __restrict__ disp01,           // (B,)
@@ -158,9 +167,10 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
   float c0x, c0y;
   warp_corner(t, row, lv, c0x, c0y);
   float px = c0x, py = c0y;
+  const float thr = threshold[item];
   const bool fixed = lv.fixed_iters >= 0;
   int it = 0;
-  bool conv = fixed && 0.0f < lv.threshold;
+  bool conv = fixed && 0.0f < thr;
   bool done = fixed ? lv.fixed_iters <= 0 : lv.max_iters <= 0;
 
   while (!done) {
@@ -233,7 +243,7 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
     px = nx;
     py = ny;
     ++it;
-    conv = disp12 < lv.threshold;
+    conv = disp12 < thr;
     done = fixed ? it >= lv.fixed_iters : conv || it >= lv.max_iters;
   }
   // No CTA leaves while another may still read its partials.
@@ -259,17 +269,18 @@ extern "C" int vs_gn_solve(const void* windows, const void* key_index,
                            const void* tmpl, const void* jacm,
                            const void* hinv, const void* fx, const void* fy,
                            const void* ox, const void* oy, const void* t_init,
-                           void* t_out, void* converged, void* disp01,
-                           void* iters, int batch, int P, int N, float cx,
-                           float cy, float w_m1, float h_m1, float jac_scale,
-                           float rel_hi, float threshold, int max_iters,
-                           int fixed_iters, int threads, int cluster,
-                           int slice, int cached, void* stream) {
+                           const void* threshold, void* t_out,
+                           void* converged, void* disp01, void* iters,
+                           int batch, int P, int N, float cx, float cy,
+                           float w_m1, float h_m1, float jac_scale,
+                           float rel_hi, int max_iters, int fixed_iters,
+                           int threads, int cluster, int slice, int cached,
+                           void* stream) {
   if (batch < 1 || P < 5 || N < 1 || threads != THREADS || cluster < 1 ||
       cluster > 8 || slice < 1 || (long long)slice * cluster < N ||
       cached < 0 || cached > slice)
     return (int)cudaErrorInvalidValue;
-  const Level lv{cx, cy, w_m1, h_m1, jac_scale, rel_hi, threshold, max_iters,
+  const Level lv{cx, cy, w_m1, h_m1, jac_scale, rel_hi, max_iters,
                  fixed_iters};
   const Plan pl{cluster, slice, cached};
   static gn::LaunchState state;
@@ -282,6 +293,6 @@ extern "C" int vs_gn_solve(const void* windows, const void* key_index,
       (const int64_t*)key_index, (const float*)tmpl, (const float*)jacm,
       (const float*)hinv, (const float*)fx, (const float*)fy,
       (const float*)ox, (const float*)oy, (const float*)t_init,
-      (float*)t_out, (uint8_t*)converged, (float*)disp01, (int32_t*)iters,
-      P, N, lv, pl);
+      (const float*)threshold, (float*)t_out, (uint8_t*)converged,
+      (float*)disp01, (int32_t*)iters, P, N, lv, pl);
 }

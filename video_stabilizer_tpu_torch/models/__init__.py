@@ -3,6 +3,7 @@ stabilizer, and the clip / chunked multi-stream pipelines."""
 
 from video_stabilizer_tpu_torch.models.aligner import (
     AlignerState,
+    DynAlignParams,
     LevelSpec,
     VideoAligner,
     align_next_frame,
@@ -29,7 +30,7 @@ from video_stabilizer_tpu_torch.models.smoother import (
 from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
 
 __all__ = [
-    "AlignerState", "LevelSpec", "VideoAligner",
+    "AlignerState", "DynAlignParams", "LevelSpec", "VideoAligner",
     "align_next_frame", "init_state", "level_specs",
     "align_clip", "stabilize_clip", "stabilize_streams",
     "ChunkedStabilizer", "StreamState", "init_stream_state",

@@ -25,7 +25,8 @@ import torch
 from video_stabilizer_tpu_torch import homography as Hm
 from video_stabilizer_tpu_torch.config import AlignerParams, StabilizerParams
 from video_stabilizer_tpu_torch.models.aligner import (
-    LevelKeyData, LevelSpec, selection_mask, template_intensities)
+    LevelKeyData, LevelSpec, per_item_params, selection_mask,
+    template_intensities)
 from video_stabilizer_tpu_torch.ops.argmax import (
     grad_argmax, take_at_tile_argmax)
 from video_stabilizer_tpu_torch.ops.gn8_solve import (
@@ -82,9 +83,11 @@ def normalized_keypoints(key: LevelKeyData, spec: LevelSpec):
 
 
 def _level_prelude_h(spec: LevelSpec, key: LevelKeyData, key_index,
-                     templates, template_index, p, params: AlignerParams):
-    """Template intensities, warp-diff selection at the incoming ``p``, the
-    8x8 Hessian and its regularized inverse (homography_aligner.py:126-149).
+                     templates, template_index, p, params: AlignerParams,
+                     fraction=None):
+    """Template intensities, warp-diff selection at the incoming ``p`` (keep
+    ``fraction`` as ``aligner.selection_mask`` takes it), the 8x8 Hessian
+    and its regularized inverse (homography_aligner.py:126-149).
     Returns (tmpl (B, 2, N), jac_masked (B, 8, 2, N), hinv (B, 8, 8),
     u, v (K, 2, N), ox, oy)."""
     p_size = key.windows.shape[1]
@@ -99,7 +102,7 @@ def _level_prelude_h(spec: LevelSpec, key: LevelKeyData, key_index,
         spec.height, ox, oy, p_size)
     wd = torch.abs(sample_windows_flat(key.windows, rel_x0, rel_y0,
                                        key_index=key_index) - tmpl)
-    mask = selection_mask(wd, params)                         # (B, 2, N)
+    mask = selection_mask(wd, params, fraction)               # (B, 2, N)
     jac_masked = jac * mask[:, None]
     hess = (jac_masked[:, :, None] * jac[:, None, :]).sum(dim=(3, 4))
     hinv = regularized_pinv_sym4(hess)
@@ -107,37 +110,47 @@ def _level_prelude_h(spec: LevelSpec, key: LevelKeyData, key_index,
 
 
 def _align_level_h(spec: LevelSpec, key: LevelKeyData, key_index, templates,
-                   template_index, p, params: AlignerParams):
+                   template_index, p, params: AlignerParams,
+                   item_params=None):
     """One pyramid level for B items: the prelude at the incoming ``p``
-    (B, 8), then the GN loop in kernel C. Returns (p_final, level_failed,
-    iters)."""
+    (B, 8), then the GN loop in kernel C, with ``item_params`` (threshold,
+    keep fraction, failure bound) as ``aligner.per_item_params`` gives them
+    (``params``' values if None). Returns (p_final, level_failed, iters)."""
+    if item_params is None:
+        item_params = per_item_params(None, params, p.shape[0], p.device)
+    threshold, fraction, max_disp = item_params
     w, h = spec.width, spec.height
     with span(f"select {w}x{h}"):
         tmpl, jac_masked, hinv, u, v, ox, oy = _level_prelude_h(
-            spec, key, key_index, templates, template_index, p, params)
+            spec, key, key_index, templates, template_index, p, params,
+            fraction)
     # No fixed_iters here: the JAX package's 8-DOF level always runs its
     # converging loop (homography_aligner.py:126-215).
     with span(f"gn8 {w}x{h}"):
         p_fin, converged, disp01, iters = gn8_solve(
             key.windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
-            p.contiguous(), threshold=params.threshold, width=w, height=h,
+            p.contiguous(), threshold=threshold, width=w, height=h,
             max_iters=params.max_iters)
-    level_failed = (~converged) | (disp01 > params.max_displacement)
+    level_failed = (~converged) | (disp01 > max_disp)
     return p_fin, level_failed, iters
 
 
 def align_all_levels_h(templates, template_index, key, key_index, specs,
-                       params: AlignerParams, p_init):
-    """Coarse to fine for B items; the normalized parameters carry unchanged
-    between levels, and a failing level freezes the item's ``p``
-    (homography_aligner.py:219-231). Returns (p (B, 8), failed (B,))."""
+                       params: AlignerParams, p_init, dyn=None):
+    """Coarse to fine for B items, with the traced parameters ``dyn``
+    (``aligner.DynAlignParams``, each field 0-d or (B,); ``params``' values
+    if None); the normalized parameters carry unchanged between levels, and
+    a failing level freezes the item's ``p`` (homography_aligner.py:
+    219-231). Returns (p (B, 8), failed (B,))."""
     p = p_init
     failed = torch.zeros(p_init.shape[0], dtype=torch.bool,
                          device=p_init.device)
+    item_params = per_item_params(dyn, params, p_init.shape[0],
+                                  p_init.device)
     for lvl in range(len(specs) - 1, -1, -1):
         p_new, level_failed, _ = _align_level_h(
             specs[lvl], key[lvl], key_index, templates[lvl], template_index,
-            p, params)
+            p, params, item_params)
         p = torch.where((failed | level_failed)[:, None], p, p_new)
         failed = failed | level_failed
     return p, failed

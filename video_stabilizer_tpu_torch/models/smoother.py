@@ -16,18 +16,23 @@ import torch
 from video_stabilizer_tpu_torch.device import resolve_device
 
 
-def tvl1_smooth(data, lam: float, iterations: int = 100, valid_len=None):
+def tvl1_smooth(data, lam, iterations: int = 100, valid_len=None):
     """TV-L1 smooth along the last axis, batched over leading axes.
 
-    ``valid_len``: optional int or integer tensor broadcastable to
-    ``data.shape[:-1]``; only the first ``valid_len`` entries of a row are
-    real and pair updates beyond them are inert.
+    ``lam``: a float, or a tensor broadcastable to ``data.shape[:-1]`` (one
+    smoothing strength per row, as the JAX package's traced ``lam`` is
+    under vmap). ``valid_len``: optional int or integer tensor
+    broadcastable to ``data.shape[:-1]``; only the first ``valid_len``
+    entries of a row are real and pair updates beyond them are inert.
     """
     n = data.shape[-1]
     tiny = torch.finfo(data.dtype).tiny
     # A Python float enters each op as a float32 scalar, as the JAX
     # package's float32 ``lam`` does, without a host-to-device copy.
-    lam_t = float(lam)
+    if isinstance(lam, torch.Tensor):
+        lam_t = lam.to(device=data.device, dtype=data.dtype)
+    else:
+        lam_t = float(lam)
     if valid_len is None:
         valid_len = n
     if not isinstance(valid_len, torch.Tensor):

@@ -8,7 +8,8 @@ axis as kernel B is (``ops/gn_solve.py``): an item is one alignment at one
 level, and it names its keyframe through ``key_index``. See the source
 note in ``csrc/gn8_solve.cu`` for the bound and the design. Each item runs
 on a thread-block cluster that splits its N keypoints; ``launch_plan``
-picks the cluster and block size.
+picks the cluster and block size. The threshold is one value per item, as
+kernel B's is (``gn_solve.item_thresholds``).
 
 The plain version is the XLA loop of
 ``models/homography_aligner.py::_align_level_h`` (175-216) in PyTorch, with
@@ -28,7 +29,7 @@ import torch
 from video_stabilizer_tpu_torch import homography as Hm
 from video_stabilizer_tpu_torch.ops import cuda_build
 from video_stabilizer_tpu_torch.ops.gn_solve import (
-    CLUSTER_SIZES, LaunchPlan, gn_corners, make_plan)
+    CLUSTER_SIZES, LaunchPlan, gn_corners, item_thresholds, make_plan)
 from video_stabilizer_tpu_torch.ops.patches import (
     clamp_rel, sample_windows_flat)
 
@@ -69,10 +70,11 @@ def warp_rel_positions_h(p, u, v, width: int, height: int, ox, oy,
 
 
 def gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u, v, ox,
-                    oy, p_init, *, threshold: float, width: int, height: int,
+                    oy, p_init, *, threshold, width: int, height: int,
                     max_iters: int):
     """Plain PyTorch version of kernel C: the masked XLA loop of
-    ``_align_level_h``, batched over items."""
+    ``_align_level_h``, batched over items, each with its own threshold."""
+    thr = item_thresholds(threshold, p_init.shape[0], p_init.device)
     psize = windows.shape[1]
     kidx = key_index.to(torch.int64)
     ui, vi = u[kidx], v[kidx]                            # (B, 2, N)
@@ -83,22 +85,27 @@ def gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u, v, ox,
     conv = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
     iters = torch.zeros(p.shape[0], dtype=torch.int32, device=p.device)
     for _ in range(max_iters):
-        active = ~conv
-        if not bool(active.any()):
+        # Each iteration steps only the items still running, as in
+        # gn_solve_plain.
+        act = torch.nonzero(~conv).flatten()
+        if act.numel() == 0:
             break
-        rel_x, rel_y = warp_rel_positions_h(p[:, None, None, :], ui, vi,
-                                            width, height, ox, oy, psize)
-        warped = sample_windows_flat(windows, rel_x, rel_y, key_index=kidx)
-        residual = tmpl - warped
-        bvec = (jac_masked * residual[:, None]).sum(dim=(2, 3))   # (B, 8)
-        dt = (hinv * bvec[:, None, :]).sum(dim=-1)
-        p_new = Hm.compose(dt, p)
+        rel_x, rel_y = warp_rel_positions_h(p[act][:, None, None, :], ui[act],
+                                            vi[act], width, height, ox, oy,
+                                            psize)
+        warped = sample_windows_flat(windows, rel_x, rel_y,
+                                     key_index=kidx[act])
+        residual = tmpl[act] - warped
+        bvec = (jac_masked[act] * residual[:, None]).sum(dim=(2, 3))
+        dt = (hinv[act] * bvec[:, None, :]).sum(dim=-1)           # (b, 8)
+        p_new = Hm.compose(dt, p[act])
         new_c = Hm.warp_points(p_new[:, None, :], corners, w_l, h_l)
-        disp12 = torch.linalg.vector_norm(new_c - prev, dim=-1).amax(dim=-1)
-        p = torch.where(active[:, None], p_new, p)
-        prev = torch.where(active[:, None, None], new_c, prev)
-        iters = iters + active.to(torch.int32)
-        conv = conv | (active & (disp12 < threshold))
+        disp12 = torch.linalg.vector_norm(new_c - prev[act],
+                                          dim=-1).amax(dim=-1)
+        p = p.index_copy(0, act, p_new)
+        prev = prev.index_copy(0, act, new_c)
+        iters = iters.index_add(0, act, torch.ones_like(iters[act]))
+        conv = conv.index_copy(0, act, disp12 < thr[act])
     disp01 = torch.linalg.vector_norm(prev - c0, dim=-1).amax(dim=-1)
     return p, conv, disp01, iters
 
@@ -129,7 +136,7 @@ def _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy, p_init):
 
 
 def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
-              p_init, *, threshold: float, width: int, height: int,
+              p_init, *, threshold, width: int, height: int,
               max_iters: int):
     """Run one level's whole 8-DOF GN loop for every item.
 
@@ -142,6 +149,8 @@ def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
       u, v: (K, 2, N) f32 keypoints in centered width-normalized coords.
       ox, oy: (N,) f32 window origins in pixels.
       p_init: (B, 8) f32 initial homographies.
+      threshold: the GN corner-move threshold (px), a float or a (B,) f32
+        tensor of one per item.
     Returns:
       (p (B, 8) f32, converged (B,) bool, disp01 (B,) f32, iters (B,) i32).
     """
@@ -159,7 +168,7 @@ def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
 
 def gn8_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
                         jac_masked, hinv, u, v, ox, oy, p_init, *,
-                        threshold: float, width: int, height: int,
+                        threshold, width: int, height: int,
                         max_iters: int):
     """Launch kernel C with a given plan (``gn8_solve`` takes
     ``launch_plan``'s); CUDA tensors only. Raises if the launch is
@@ -174,7 +183,8 @@ def gn8_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
             or plan.cluster not in CLUSTER_SIZES):
         raise ValueError(f"{plan} does not fit {bsz} items of {n} keypoints")
     args = [windows, key_index.to(torch.int64).contiguous(), tmpl,
-            jac_masked, hinv, u, v, ox, oy, p_init]
+            jac_masked, hinv, u, v, ox, oy, p_init,
+            item_thresholds(threshold, bsz, dev)]
     if not all(x.is_contiguous() for x in args):
         raise ValueError("gn8_solve needs contiguous operands")
     p_out = torch.empty((bsz, 8), dtype=torch.float32, device=dev)
@@ -191,9 +201,9 @@ def gn8_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in args + [p_out, conv, disp01, iters]]
     err = _kernel()(*ptrs, bsz, p, n, w_l, cx, cy, *(c[0] for c in corners),
-                    *(c[1] for c in corners), p - 3.0 - 1e-3, threshold,
-                    max_iters, plan.threads, plan.cluster, plan.slice,
-                    plan.cached, stream)
+                    *(c[1] for c in corners), p - 3.0 - 1e-3, max_iters,
+                    plan.threads, plan.cluster, plan.slice, plan.cached,
+                    stream)
     if err != 0:
         raise RuntimeError(f"gn8_solve kernel launch failed ({plan}): CUDA "
                            f"error {err}")
@@ -206,8 +216,8 @@ def _kernel():
     """``vs_gn8_solve`` of the built ``csrc/gn8_solve.cu``, typed."""
     fn = cuda_build.load("gn8_solve").vs_gn8_solve
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 13 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 12 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     return fn
 

@@ -18,14 +18,22 @@ import torch
 DEFAULT_BINS = 257
 
 
-def histogram_mask(wd, fraction: float, bins: int = DEFAULT_BINS):
+def histogram_mask(wd, fraction, bins: int = DEFAULT_BINS):
     """0/1 float mask of the smallest-``fraction`` values of ``wd`` along
-    its last axis; leading axes are independent rows."""
+    its last axis; leading axes are independent rows. ``fraction`` is a
+    float, or a tensor that broadcasts to the rows (``wd.shape[:-1]``): one
+    keep fraction per row, as the JAX package's traced fraction is under
+    vmap."""
     n = wd.shape[-1]
     v = torch.clamp(torch.floor(wd), 0, bins - 1)
     # floor(N * fraction) in float32, as the JAX package forms it from its
-    # float32 ``smallest_fraction``.
-    k = float(np.floor(np.float32(n) * np.float32(fraction)))
+    # float32 ``smallest_fraction`` (select.py:50).
+    if isinstance(fraction, torch.Tensor):
+        k = torch.floor(fraction.to(device=wd.device, dtype=torch.float32)
+                        * float(np.float32(n)))
+        k = k.expand(wd.shape[:-1]).reshape(-1, 1)
+    else:
+        k = float(np.floor(np.float32(n) * np.float32(fraction)))
     rows = v.reshape(-1, n).to(torch.int64)
     offs = torch.arange(rows.shape[0], device=wd.device)[:, None] * bins
     # A fixed-size scatter, not bincount: bincount sizes its output from the

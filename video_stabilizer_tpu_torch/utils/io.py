@@ -1,17 +1,136 @@
-"""Synthetic test footage.
+"""Video and image I/O (host side) and synthetic test footage.
 
-A copy of ``natural_texture`` and ``synth_shaky_clip`` from
-``video_stabilizer_tpu.utils.io`` (io.py:124-209), kept here so that the port
-and ``chip_smoke.py`` need nothing of the JAX package. Same seeds, same
-frames: the texture is made with numpy as there, and the crops run in
-float64 torch ops in the same order as the numpy version's, on the CPU or on
-a card (IEEE float64 elementwise ops round alike on both).
+Port of ``video_stabilizer_tpu.utils.io`` (io.py:1-221). The reference uses
+OpenCV VideoCapture / VideoWriter (video_test.cpp:27-75); cv2 is the
+primary backend here too, with an imageio fallback, and both are optional
+imports: ``.y4m`` files read through the native reader (``utils/native.py``)
+without either. ``natural_texture`` and ``synth_shaky_clip`` give the JAX
+package's frames for the same seeds: the texture is made with numpy as
+there, and the crops run in float64 torch ops in the same order as the
+numpy version's, on the CPU or on a card (IEEE float64 elementwise ops
+round alike on both).
 """
 
 from __future__ import annotations
 
+import os
+from typing import Iterator, Optional
+
 import numpy as np
 import torch
+
+try:
+    import cv2  # type: ignore
+
+    HAS_CV2 = True
+except Exception:  # pragma: no cover
+    cv2 = None
+    HAS_CV2 = False
+
+
+def read_video(path: str,
+               max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
+    """Yield (H, W, 3) BGR u8 frames. ``.y4m`` files use the native
+    zero-dependency reader (utils/native.py); everything else cv2, or
+    imageio without cv2."""
+    if path.endswith(".y4m"):
+        from video_stabilizer_tpu_torch.utils import native
+
+        if native.available():
+            r = native.Y4MReader(path)
+            try:
+                for n, frame in enumerate(r.frames_bgr()):
+                    if max_frames is not None and n >= max_frames:
+                        break
+                    yield frame
+            finally:
+                r.close()
+            return
+    if HAS_CV2:
+        cap = cv2.VideoCapture(path)
+        try:
+            n = 0
+            while max_frames is None or n < max_frames:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                yield frame
+                n += 1
+        finally:
+            cap.release()
+    else:  # pragma: no cover
+        import imageio.v2 as imageio
+
+        reader = imageio.get_reader(path)
+        try:
+            for n, rgb in enumerate(reader):
+                if max_frames is not None and n >= max_frames:
+                    break
+                yield rgb[..., ::-1].copy()  # RGB -> BGR
+        finally:
+            reader.close()
+
+
+class VideoWriter:
+    """Minimal BGR u8 mp4 writer (video_test.cpp:61-75 analog)."""
+
+    def __init__(self, path: str, fps: float = 30.0):
+        self.path = path
+        self.fps = fps
+        self._writer = None
+
+    def write(self, frame_bgr: np.ndarray):
+        frame_bgr = np.asarray(frame_bgr, np.uint8)
+        if self._writer is None:
+            h, w = frame_bgr.shape[:2]
+            if HAS_CV2:
+                fourcc = cv2.VideoWriter_fourcc(*"mp4v")
+                self._writer = cv2.VideoWriter(self.path, fourcc, self.fps,
+                                               (w, h))
+            else:  # pragma: no cover
+                import imageio.v2 as imageio
+
+                self._writer = imageio.get_writer(self.path, fps=self.fps)
+        if HAS_CV2:
+            self._writer.write(frame_bgr)
+        else:  # pragma: no cover
+            self._writer.append_data(frame_bgr[..., ::-1])
+
+    def close(self):
+        if self._writer is not None:
+            if HAS_CV2:
+                self._writer.release()
+            else:  # pragma: no cover
+                self._writer.close()
+            self._writer = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def gray_to_bgr(gray: np.ndarray) -> np.ndarray:
+    return np.repeat(np.asarray(gray, np.uint8)[..., None], 3, axis=-1)
+
+
+def make_textured_image(height: int, width: int, seed: int = 12345,
+                        smooth: int = 2) -> np.ndarray:
+    """Blurred-noise texture (u8 grayscale). Its gradient autocorrelation
+    oscillates (goes negative beyond ~2px), which defeats the LK scheme's
+    fixed-keyframe-gradient linearization for multi-pixel motion: use
+    ``natural_texture`` for alignment-facing fixtures."""
+    r = np.random.default_rng(seed)
+    img = r.uniform(0, 255, size=(height, width)).astype(np.float64)
+    for _ in range(smooth):
+        acc = np.zeros_like(img)
+        for s in (-2, -1, 0, 1, 2):
+            acc += np.roll(img, s, axis=0) + np.roll(img, s, axis=1)
+        img = acc / 10.0
+    img -= img.min()
+    img = img / max(img.max(), 1e-9) * 255.0
+    return img.astype(np.uint8)
 
 
 def natural_texture(height: int, width: int, seed: int = 42) -> np.ndarray:
@@ -104,3 +223,15 @@ def synth_shaky_clip(num_frames: int, height: int, width: int,
         frames = frames[..., None].expand(-1, -1, -1, 3)
     clip = frames.contiguous().cpu().numpy()
     return (clip, pose) if poses else clip
+
+
+def ensure_test_clip(path: str, num_frames: int = 60, height: int = 360,
+                     width: int = 640) -> str:
+    """Write (once) and return the path of the bundled synthetic test clip."""
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        clip = synth_shaky_clip(num_frames, height, width)
+        with VideoWriter(path) as w:
+            for f in clip:
+                w.write(f)
+    return path
