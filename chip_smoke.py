@@ -163,6 +163,27 @@ Run from the root of the repository. Phases:
      frame as the yardstick.
  S4. The streaming path on the card against the CPU on a small clip
      (96x128, 20 frames): ok equal, >= 99 % of pixels within 1 LSB.
+ P1. ``python -m video_stabilizer_tpu_torch.bench`` at its defaults (8
+     streams x 16 1080p frames, 4 reps x 4 chunks), in this process: its
+     JSON line parses with its metric string and the card's name, the
+     align success >= 0.9, and the launch counts show kernels A and B
+     launched, C not.
+ P2. ``apps/bench_configs.py``'s ``bench_4k`` at 2 streams, 3 reps:
+     kernels A and C launched, B not; success >= 0.9 on the frames after
+     each stream's first.
+ P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps),
+     ``bench_latency_chunk2`` (chain 8, 3 reps) and
+     ``bench_latency_request`` (20 samples): each line parses, each value
+     positive and finite.
+ P4. ``apps/profile_chunk.py`` on one 1080p chunk: its per-kernel table
+     names kernel A's and B's symbols, ``--parse-only`` reprints the same
+     totals from the saved trace, and ``--by-source`` puts over 90 % of
+     the device time on frames under ``video_stabilizer_tpu_torch/``.
+ P5. The scale-out modules on the card: ``graft_entry.entry()``,
+     ``dryrun_multichip(1)``, a sharded chunk on the one-card mesh
+     byte-equal to the unsharded call on the same 2 1080p streams (outputs
+     and carried state), and ``apps/multihost_smoke`` (CPU, gloo) as a
+     subprocess.
 
 Every phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
@@ -176,11 +197,15 @@ card's name and power limit, and as its last line ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from unittest import mock
@@ -2495,6 +2520,198 @@ def streaming_small_reference(dev):
           f"{within * 100:.3f} % of pixels within 1 LSB")
 
 
+# --------------------------------------------------------------------------
+# P1-P5: the measuring tools and the scale-out layer, each run through the
+# entry point its user calls, with the launch counts set to 0 before and
+# read after
+# --------------------------------------------------------------------------
+
+def run_tool(fn, *args, **kw):
+    """(return value, stdout lines, launch counts) of one tool run; what it
+    prints on stdout and stderr is logged."""
+    out, err = io.StringIO(), io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        ret = fn(*args, **kw)
+    launches = launch_counts()
+    lines = out.getvalue().splitlines()
+    for line in err.getvalue().splitlines() + lines:
+        log("  | " + line)
+    return ret, lines, launches
+
+
+def json_line(lines, metric: str) -> dict:
+    """The tool's last stdout line as JSON, checked for its metric and a
+    positive finite value."""
+    got = json.loads(lines[-1])
+    value = got.get("value")
+    check(got.get("metric") == metric and isinstance(value, (int, float))
+          and math.isfinite(value) and value > 0,
+          f"JSON line {got.get('metric')} = {value} {got.get('unit')} "
+          f"(want {metric}, a positive finite value)")
+    return got
+
+
+def kernels_launched(launches, a_form: str, b: bool, c: bool, what: str):
+    check(launches.get(f"warp_frames[{a_form}]", 0) > 0
+          and (launches["gn_solve"] > 0) == b
+          and (launches["gn8_solve"] > 0) == c,
+          f"{what}: launches {launches}")
+
+
+@phase("P1. python -m video_stabilizer_tpu_torch.bench at its defaults "
+       "(8 streams x 16 1080p frames, 4 reps x 4 chunks)")
+def tool_bench(smi):
+    from video_stabilizer_tpu_torch import bench
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    with mock.patch.dict(os.environ, env, clear=True):
+        (line, ok_rate), lines, launches = run_tool(bench.main)
+    got = json_line(lines, "stabilized_1080p_bgr_fps_8streams_chunked")
+    check(got == line and set(got) == {"metric", "value", "unit", "device"}
+          and got["device"] == smi,
+          f"one JSON line of metric, value, unit and device "
+          f"{got.get('device')!r}")
+    check(ok_rate >= 0.9, f"align success {ok_rate:.4f} (the last chunk)")
+    kernels_launched(launches, "similarity,bilinear", True, False,
+                     "kernel A (similarity, bilinear) and B launched, C not")
+
+
+@phase("P2. apps/bench_configs.py --mode 4k: config 4, 2 streams x 16 "
+       "frames, 3 reps")
+def tool_bench_4k():
+    from video_stabilizer_tpu_torch.apps import bench_configs
+
+    _, lines, launches = run_tool(bench_configs.main, [
+        "--mode", "4k", "--streams", "2", "--frames", "16", "--reps", "3"])
+    got = json_line(lines, "stabilized_4k_bgr_homography_lanczos2_fps_"
+                           "2streams_chunked")
+    check(got["align_success"] >= 0.9,
+          f"align success {got['align_success']:.4f} on the frames after "
+          "each stream's first")
+    kernels_launched(launches, "homography,lanczos2", False, True,
+                     "kernel A (homography, Lanczos2) and C launched, B not")
+
+
+LATENCY_MODES = (
+    (["--mode", "latency", "--chain", "16", "--reps", "3"],
+     "p50_chained_align_latency_1080p"),
+    (["--mode", "latency-chunk2", "--chain", "8", "--reps", "3"],
+     "p50_e2e_latency_1080p_chunk2_single_stream"),
+    (["--mode", "latency-request", "--samples", "20"],
+     "single_request_latency_1080p_chunk2"),
+)
+
+
+@phase("P3. apps/bench_configs.py's latency modes, shortened (chain 16 / "
+       "chain 8 / 20 samples)")
+def tool_latency():
+    from video_stabilizer_tpu_torch.apps import bench_configs
+
+    for argv, metric in LATENCY_MODES:
+        _, lines, launches = run_tool(bench_configs.main, argv)
+        json_line(lines, metric)
+        log(f"  launches: {launches}")
+
+
+@phase("P4. apps/profile_chunk.py on one 1080p chunk (8 x 16 frames): per "
+       "kernel, --parse-only, --by-source")
+def tool_profile():
+    from video_stabilizer_tpu_torch.apps import profile_chunk
+
+    with tempfile.TemporaryDirectory() as logdir:
+        args = ["--logdir", logdir, "--top", "15"]
+        t0 = time.perf_counter()
+        totals, _, _ = run_tool(profile_chunk.main, args)
+        size = os.path.getsize(os.path.join(logdir, "trace.json"))
+        log(f"  run, trace and summary {time.perf_counter() - t0:.1f} s; "
+            f"trace {size / 1e6:.1f} MB")
+        names = list(totals)
+        for symbol in ("warp_kernel", "gn_solve_kernel"):
+            hits = [n for n in names if symbol in n]
+            check(bool(hits), f"the per-kernel table names {symbol}: "
+                  f"{hits[:1]}")
+        t0 = time.perf_counter()
+        parsed, _, _ = run_tool(profile_chunk.main, args + ["--parse-only"])
+        check(parsed == totals,
+              f"--parse-only reprints the same {len(totals)} totals "
+              f"({time.perf_counter() - t0:.1f} s)")
+        by_src, _, _ = run_tool(profile_chunk.main,
+                                args + ["--parse-only", "--by-source"])
+    total = sum(us for us, _ in totals.values())
+    mine = sum(us for name, (us, _) in by_src.items()
+               if name.startswith(profile_chunk.PACKAGE))
+    check(total > 0 and mine / total > 0.9,
+          f"--by-source: {mine / 1e3:.1f} of {total / 1e3:.1f} ms of device "
+          f"time ({100 * mine / max(total, 1e-9):.1f} %) on frames under "
+          f"{profile_chunk.PACKAGE}")
+
+
+@phase("P5. the scale-out modules on the card: graft_entry, the one-card "
+       "mesh, multihost_smoke")
+def scale_out(params, dev):
+    # The two-process CPU smoke runs beside the card's part of the phase.
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    smoke = subprocess.Popen(
+        [sys.executable, "-m", "video_stabilizer_tpu_torch.apps."
+         "multihost_smoke"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        on_card(params, dev)
+        text, _ = smoke.communicate(timeout=180)
+    finally:
+        if smoke.poll() is None:
+            smoke.kill()
+            smoke.wait()
+    for line in text.splitlines()[-6:]:
+        log("  | " + line)
+    check(smoke.returncode == 0 and "multihost smoke OK" in text,
+          f"multihost_smoke (2 processes, CPU, gloo): exit "
+          f"{smoke.returncode} after {time.perf_counter() - t0:.1f} s")
+
+
+def on_card(params, dev):
+    """P5's card part: the graft entry points, and a sharded chunk on the
+    one-card mesh against the unsharded call."""
+    from video_stabilizer_tpu_torch import graft_entry, parallel
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
+
+    fn, (clip,) = graft_entry.entry()
+    out = fn(clip)
+    check(tuple(out.shape) == (4, 164, 304, 3) and out.dtype == torch.uint8
+          and out.device.type == "cuda" and bool(out.any()),
+          f"graft_entry.entry(): {tuple(out.shape)} {out.dtype} on "
+          f"{out.device}")
+    run_tool(graft_entry.dryrun_multichip, 1)
+
+    # Two 1080p streams over two 16-frame chunks, through the one-card mesh
+    # and through the unsharded call.
+    frames, _ = synth_streams(dev, 2 * CHUNK, MAIN_CONTENT,
+                              seeds=[SEED, SEED + 1])
+    mesh = parallel.make_mesh()
+    check(mesh.devices == (torch.device("cuda", 0),),
+          f"make_mesh(): {mesh.devices}")
+    sharded = parallel.init_sharded_stream_states(2, WIDTH, HEIGHT, params,
+                                                  mesh)
+    state = chunked.init_stream_state(WIDTH, HEIGHT, params, 3, 2, dev)
+    same = True
+    for c in range(2):
+        chunk = frames[:, c * CHUNK:(c + 1) * CHUNK]
+        sharded, *got = parallel.stabilize_chunk_streams_sharded(
+            sharded, chunk, mesh, params)
+        state, *want = chunked.stabilize_chunk_streams(
+            state, torch.from_numpy(chunk), params)
+        same &= all(torch.equal(g.shards[0], w) for g, w in zip(got, want))
+    same_state = all(torch.equal(g, w) for g, w in zip(
+        tensor_leaves(sharded.shards[0]), tensor_leaves(state)))
+    check(same and same_state,
+          f"sharded chunk on the one-card mesh byte-equal to the unsharded "
+          f"call: outputs, measurements, flags {same}, carried state "
+          f"{same_state}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2618,6 +2835,14 @@ def main() -> int:
     for (name, _), entry in zip(STREAM_KERNELS, one):
         kernels[name] = entry
     streaming_small_reference(dev)
+    torch.cuda.empty_cache()
+
+    # The tools and the scale-out layer: each its own launch counts.
+    tool_bench(smi)
+    tool_bench_4k()
+    tool_latency()
+    tool_profile()
+    scale_out(params, dev)
 
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
