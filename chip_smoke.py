@@ -70,10 +70,13 @@ Run from the root of the repository. Phases:
      its 7 levels to phase 5's bars.
   9. The 1080p similarity path, timed, on bench.py's content (translation
      only, 1 px jitter): 4 chunks with carried state from a fresh start,
-     with every launch count set to 0 before and read after. Checks the
-     output shape, the align success rate (>= 0.9) and the measured motion
-     against the clip's known motion. One more chunk runs under
-     torch.profiler.
+     first un-captured (``utils.graphs.eager()``) under the span recorder
+     for the stage table, then through ``stabilize_chunk_streams``, which
+     replays the captured chunk (its first call captures), with every
+     launch count set to 0 before and read after. Checks the output
+     shape, the replays, the align success rate (>= 0.9) and the measured
+     motion against the clip's known motion. One more chunk, replayed,
+     runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
      selection): the same checks, its stage table beside phase 9's.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
@@ -82,6 +85,17 @@ Run from the root of the repository. Phases:
      (bit-exact), subpixel translations (<= 1 LSB) and rotation / zoom
      within the envelope (<= 2 LSB on > 99.9 %); timed beside kernel A and
      grid_sample on the 128 frames.
+ J1. The 1080p chunk of phase 9's clip through the captured entry point
+     against the un-captured composition, on the same pinned inputs from
+     the same fresh state: the un-captured path runs twice (any output in
+     which it differs from itself is held to phase 9's bars instead);
+     outputs, meas, succ, valid and the carried state byte-equal; the
+     first chunk's returned values unchanged after the later chunks ran.
+     Prints the capture and instantiate time, the graph pool's bytes, the
+     peak memory, the replayed chunk's host-clock time over 20 chunks
+     (median, min, max, spread) beside the un-captured chunks' of the
+     phase, the device-busy share and the copies of 3 replays under
+     torch.profiler, and the launches per replay.
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
@@ -91,8 +105,11 @@ Run from the root of the repository. Phases:
      on phase 10's 32 delayed frames and corrections and on 4 frames with
      random homographies within the envelope (<= 2 LSB on > 99.9 %); timed
      beside kernel A.
+ J2. J1 for the 4K config 4 chunk (cuFFT, kernel C, kernel A's
+     homography + Lanczos2 form), the replay timed over 8 chunks.
  11. Reported, no bar: one chunk of 4 px jitter content through kernel B
-     and through its plain version, with convergence and known-motion
+     and through its plain version (un-captured, so the patched engine
+     runs), with convergence and known-motion
      error for each. Each item whose converged flag differs between the
      two runs is named (stream, frame, level), and on each run's inputs of
      that level both engines' own loops and their per-iteration max corner
@@ -137,15 +154,24 @@ Run from the root of the repository. Phases:
  S1. The streaming path, timed: ``VideoStabilizer`` (crop 32, defaults
      otherwise: lag 10, smoother memory 5, bilinear) over 48 frames of one
      1080p stream of bench.py's content (seed 100) from a fresh state,
-     with every launch count set to 0 before and read after. Checks 38
+     twice: un-captured under the span recorder (the stage table), then
+     through its replayed graphs (``_to_gray``, ``_align_next_frame_impl``,
+     ``_smooth_window``, ``_warp_fn``; the first call of each key
+     captures), each with every launch count set to 0 before and read
+     after. Checks 38
      outputs of (1016, 1856, 3) u8, align success >= 0.9 of the 47
      alignable frames, TX/TY against the known motion (phase 9's bars),
      and the launches: kernel A once per output, kernel B once per level
      of every frame (the first frame runs the level loop, as in the JAX
      package), kernel C never. Prints the per-frame latency (host clock up
      to each frame's sync; median and p90 of frames 12-47) and the
-     per-frame stage table from the spans; then 8 more frames run under
-     torch.profiler (device busy share).
+     per-frame stage table from the spans; then 8 more frames, replayed,
+     run under torch.profiler (device busy share).
+ J3. A third fresh ``VideoStabilizer`` over S1's frames with every key
+     already captured: no new capture; the outputs, measurements and
+     flags of both replayed runs byte-equal to S1's un-captured run; the
+     per-frame median and p90 over frames 12-47 beside the un-captured
+     run's.
  S2. Streaming vs chunked on the card: S1's first 32 frames against
      ``stabilize_stream_chunked`` (16-frame chunks): ok equal,
      measurements within 1e-5, >= 99.5 % of output pixels within 1 LSB
@@ -155,7 +181,8 @@ Run from the root of the repository. Phases:
      per-frame median and p90, AlignNextFrame, success and known-motion
      error printed beside S1's.
  S3. Kernel A's and B's inputs captured from 4 frames of a 1080p stream
-     with rotation and zoom (after ``lag`` frames from a fresh state):
+     with rotation and zoom (after ``lag`` frames from a fresh state,
+     un-captured so that the spies see the wrappers' calls):
      kernel B at one item per launch at the six levels (phase 5's bars,
      the items' A/B >= 10x the A/B bar too; two launches bit-identical;
      wrapper and device time per level) and kernel A at one frame per
@@ -171,11 +198,18 @@ Run from the root of the repository. Phases:
  P2. ``apps/bench_configs.py``'s ``bench_4k`` at 2 streams, 3 reps:
      kernels A and C launched, B not; success >= 0.9 on the frames after
      each stream's first.
- P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps),
+ P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps;
+     the chain replayed as one captured graph),
      ``bench_latency_chunk2`` (chain 8, 3 reps) and
      ``bench_latency_request`` (20 samples): each line parses, each value
      positive and finite.
- P4. ``apps/profile_chunk.py`` on one 1080p chunk: its per-kernel table
+ J4. ``apps/bench_configs.py --mode latency`` at chain 32, 5 reps: the
+     JAX tool's ``run_chain``, 32 align steps captured as one graph
+     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's
+     launches counted through them); prints its p50 beside the same steps
+     issued one call each.
+ P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
+     graph has no Python frames): its per-kernel table
      names kernel A's and B's symbols, ``--parse-only`` reprints the same
      totals from the saved trace, and ``--by-source`` puts over 90 % of
      the device time on frames under ``video_stabilizer_tpu_torch/``.
@@ -185,7 +219,9 @@ Run from the root of the repository. Phases:
      and carried state), and ``apps/multihost_smoke`` (CPU, gloo) as a
      subprocess.
 
-Every phase runs; the script exits 1 if any failed, 2 without a card. On
+After each phase the chunk programs' graphs are dropped (each holds a
+memory pool of up to some 9 GB); the streaming programs' stay. Every
+phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
 (nine entries: kernel A's two chunked forms and its one-frame form, B per
 chunk, at one item, in its fixed mode at K = 4 (S5's launches) and with
@@ -252,9 +288,22 @@ def phase(name: str):
                 failures.append(f"{name}: raised")
                 return None
             finally:
+                release_chunk_graphs()
                 log(f"   ({time.perf_counter() - t0:.1f} s)")
         return run
     return deco
+
+
+def release_chunk_graphs():
+    """Drop the chunk programs' captured graphs after a phase: each holds
+    its own memory pool, some 9 GB for an 8-stream 1080p or a 2-stream 4K
+    chunk, and the phases run a dozen configurations. The streaming
+    programs' pools are small (under 0.1 GB each) and stay, so that the
+    streaming phases replay graphs the earlier ones captured."""
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.utils import graphs
+    graphs.reset([chunked._stabilize_chunk_streams_jit,
+                  chunked._stabilize_chunk_jit])
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1174,11 +1223,15 @@ def check_4k_content(params_4k, dev):
 
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
-    from a fresh state, with every launch count set to 0 just before and
-    read just after. Checks each chunk's output; prints the chunk times,
-    frames/s, peak memory and the per-stage device times. Returns (launch
-    counts, meas (S, T, P), ok (S, T), states, last chunk)."""
+    from a fresh state, twice: un-captured (``graphs.eager()``) under a
+    span Recorder, for the per-stage device times; then through the entry
+    point, which on the card replays the captured chunk (its first call
+    captures), with every launch count set to 0 just before and read just
+    after. Checks each replayed chunk's output; prints both runs' chunk
+    times, frames/s, peak memory and the stage table. Returns (launch
+    counts, meas (S, T, P), ok (S, T), states, last chunk, stages)."""
     from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.utils import graphs
     from video_stabilizer_tpu_torch.utils.spans import Recorder
 
     streams, total, height, width = frames.shape[:4]
@@ -1187,25 +1240,39 @@ def drive_path(frames, params, dev, model="similarity"):
     chunks = [torch.from_numpy(np.ascontiguousarray(
         frames[:, c:c + CHUNK])).pin_memory()
         for c in range(0, total, CHUNK)]
+
+    # The stages, from the un-captured chunk: a replay runs no span.
+    states = chunked.init_stream_state(width, height, params, 3, streams,
+                                       dev, model=model)
+    eager_walls, stage_runs = [], []
+    with graphs.eager():
+        for chunk in chunks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with Recorder() as rec:
+                states = chunked.stabilize_chunk_streams(states, chunk,
+                                                         params, model)[0]
+            torch.cuda.synchronize()
+            eager_walls.append((time.perf_counter() - t0) * 1e3)
+            stage_runs.append(rec.totals())
+
     states = chunked.init_stream_state(width, height, params, 3, streams,
                                        dev, model=model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    walls, device_ms, stage_runs, metas, succs = [], [], [], [], []
+    walls, device_ms, metas, succs = [], [], [], []
     for c, chunk in enumerate(chunks):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        with Recorder() as rec:
-            states, out, meas, succ, valid = chunked.stabilize_chunk_streams(
-                states, chunk, params, model)
+        states, out, meas, succ, valid = chunked.stabilize_chunk_streams(
+            states, chunk, params, model)
         end.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         device_ms.append(start.elapsed_time(end))
-        stage_runs.append(rec.totals())
         crop = 2 * params.crop_pixels
         check(tuple(out.shape) == (streams, CHUNK, height - crop,
                                    width - crop, 3)
@@ -1220,21 +1287,29 @@ def drive_path(frames, params, dev, model="similarity"):
         succs.append(succ.cpu().numpy())
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prog = chunked._stabilize_chunk_streams_jit
+    check(prog.replays == len(chunks) - 1,
+          f"the entry point replayed the captured chunk {prog.replays} "
+          f"times (want {len(chunks) - 1}: the first call captures)")
 
-    log(f"  chunk wall (host clock, synchronized): "
+    log("  chunk wall through the entry point (host clock, synchronized; "
+        "chunk 0 runs eagerly and captures): "
         + ", ".join(f"{w:.1f}" for w in walls) + " ms")
-    log(f"  chunk on the device timeline (CUDA events): "
+    log(f"  the same chunks on the device timeline (CUDA events): "
         + ", ".join(f"{w:.1f}" for w in device_ms) + " ms")
+    log("  un-captured chunks (graphs.eager(), under the span recorder): "
+        + ", ".join(f"{w:.1f}" for w in eager_walls) + " ms")
     steady = walls[1:]
     fps = streams * CHUNK / (np.mean(steady) / 1e3)
     log(f"  steady chunk {np.mean(steady):.1f} ms = {fps:.1f} frames/s "
-        f"(mean of chunks 1-{len(chunks) - 1}); peak device memory "
-        f"{peak_gb:.2f} GB")
+        f"(replays, mean of chunks 1-{len(chunks) - 1}; un-captured "
+        f"{np.mean(eager_walls[1:]):.1f} ms); peak device memory "
+        f"{peak_gb:.2f} GB (the graph's pool included)")
     names = list(stage_runs[0])
     mean = {k: float(np.mean([r.get(k, 0.0) for r in stage_runs[1:]]))
             for k in names}
-    log(f"  stage device times, mean of chunks 1-{len(chunks) - 1} (CUDA "
-        "events):")
+    log(f"  stage device times of the un-captured chunk, mean of chunks "
+        f"1-{len(chunks) - 1} (CUDA events):")
     for k in names:
         log(f"    {k:<22} {mean[k]:9.3f} ms")
     log(f"    {'sum of stages':<22} {sum(mean.values()):9.3f} ms")
@@ -1245,6 +1320,7 @@ def drive_path(frames, params, dev, model="similarity"):
           f"({int(ok.sum())} of {ok.size}; each stream's first frame has "
           "nothing to align to)")
     mean["steady chunk (host clock)"] = float(np.mean(steady))
+    mean["un-captured chunk (host clock)"] = float(np.mean(eager_walls[1:]))
     return (launches, np.concatenate(metas, axis=1), ok, states, chunks[-1],
             mean)
 
@@ -1303,34 +1379,227 @@ def main_path_4k(frames, poses, params, dev):
     return launches, states, last, stages
 
 
-@phase("device busy share of one more chunk (torch.profiler)")
+@phase("device busy share of one more chunk, replayed (torch.profiler)")
 def profile_chunk(states, chunk, params, model="similarity"):
-    from torch.profiler import ProfilerActivity, profile
-
     from video_stabilizer_tpu_torch.models import chunked
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        chunked.stabilize_chunk_streams(states, chunk, params, model)
-        end.record()
-        torch.cuda.synchronize()
-    span_ms = start.elapsed_time(end)
-    rows = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.count,
-             e.key) for e in prof.key_averages()]
-    busy = sum(r[0] for r in rows)
+    # The first call captures; the profiled one replays (the entry point
+    # leaves its input state as it was).
+    chunked.stabilize_chunk_streams(states, chunk, params, model)
+    span_ms, by_name = device_events(
+        lambda: chunked.stabilize_chunk_streams(states, chunk, params,
+                                                model), 1)
+    busy = sum(ms for ms, _ in by_name.values())
     if busy <= 0:
         log("  the profiler recorded no device time: busy share not "
             "measured")
         return
-    log(f"  chunk {span_ms:.1f} ms on the device timeline, kernels and "
-        f"copies {busy:.1f} ms: busy {busy / span_ms * 100:.1f} %, idle "
+    log(f"  chunk {span_ms:.1f} ms on the device timeline (under the "
+        f"profiler), kernels and copies {busy:.1f} ms: busy "
+        f"{busy / span_ms * 100:.1f} %, idle "
         f"{(1 - busy / span_ms) * 100:.1f} %")
     log("  top device time by kernel:")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"    {ms:9.3f} ms  {count:6d}x  {key[:70]}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (ms, count) in top:
+        log(f"    {ms:9.3f} ms  {count:6d}x  {name[:70]}")
+
+
+def device_events(run, reps):
+    """(span ms, {name: [ms, count]}) of ``reps`` calls of ``run()`` under
+    torch.profiler (CUDA activity), from its raw device events: kernels,
+    copies and memsets, each counted once. (The profiler's
+    ``key_averages`` also gives each launching operator its kernels' time,
+    so a sum over its rows counts a kernel twice.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    return start.elapsed_time(end), by_name
+
+
+J_STEADY = {"similarity": 20, HOMOGRAPHY: 8}   # J1's and J2's replays
+J_PROFILED = 3                                 # replays under the profiler
+J_OUTPUTS = ("outputs", "meas", "succ", "valid")
+
+
+def leaves_equal(a, b) -> bool:
+    from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
+    la, lb = tensor_leaves(a), tensor_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def within_bars(name, got, want) -> bool:
+    """The bars of phases 9 and 10 for an output on which the un-captured
+    path is not deterministic itself: outputs within 1 LSB on >= 99.9 %,
+    measurements within 1e-3, flags equal."""
+    if name == "outputs":
+        d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+        return int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.999
+    if name == "meas":
+        return float((got - want).abs().max()) <= 1e-3
+    return bool(torch.equal(got, want))
+
+
+def captured_vs_eager(frames, params, dev, model="similarity"):
+    """J1 / J2: the chunks of ``frames`` through the captured entry point
+    against the un-captured composition (``graphs.eager()``), from the same
+    fresh state on the same pinned inputs; then the replay's steady time,
+    capture cost, memory, device-busy share and launches per replay."""
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
+    from video_stabilizer_tpu_torch.utils import graphs
+
+    prog = chunked._stabilize_chunk_streams_jit
+    streams, total, height, width = frames.shape[:4]
+    chunks = [torch.from_numpy(np.ascontiguousarray(
+        frames[:, c:c + CHUNK])).pin_memory()
+        for c in range(0, total, CHUNK)]
+
+    def fresh():
+        return chunked.init_stream_state(width, height, params, 3, streams,
+                                         dev, model=model)
+
+    eager, eager_walls = [], []
+    for _ in range(2):
+        states, outs = fresh(), []
+        with graphs.eager():
+            for c, chunk in enumerate(chunks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states, *res = chunked.stabilize_chunk_streams(
+                    states, chunk, params, model)
+                torch.cuda.synchronize()
+                if c:
+                    eager_walls.append((time.perf_counter() - t0) * 1e3)
+                outs.append(res)
+        eager.append((states, outs))
+    unstable = [name for i, name in enumerate(J_OUTPUTS)
+                if not all(torch.equal(a[i], b[i])
+                           for a, b in zip(eager[0][1], eager[1][1]))]
+    if not leaves_equal(eager[0][0], eager[1][0]):
+        unstable.append("state")
+    log(f"  the un-captured path run twice: "
+        + (f"not deterministic in {unstable}" if unstable
+           else "byte-equal in outputs, meas, succ, valid and state"))
+    want_state, want = eager[0]
+    del eager
+
+    graphs.reset([prog])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()
+    states, got = fresh(), []
+    for c, chunk in enumerate(chunks):
+        states, *res = chunked.stabilize_chunk_streams(states, chunk, params,
+                                                       model)
+        got.append(res)
+        if c == 0:
+            first = [x.clone() for x in res]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(prog.captures == 1 and prog.replays == len(chunks) - 1,
+          f"{prog.captures} capture, {prog.replays} replays over "
+          f"{len(chunks)} chunks (the first call captures)")
+    for i, name in enumerate(J_OUTPUTS):
+        pairs = [(g[i], w[i]) for g, w in zip(got, want)]
+        if name in unstable:
+            check(all(within_bars(name, g, w) for g, w in pairs),
+                  f"{name}: within phase 9's / 10's bars of the un-captured "
+                  "path (which is not deterministic there itself)")
+        else:
+            check(all(torch.equal(g, w) for g, w in pairs),
+                  f"{name} of {len(chunks)} chunks byte-equal to the "
+                  "un-captured path")
+    if "state" not in unstable:
+        check(leaves_equal(states, want_state),
+              f"carried state ({len(tensor_leaves(states))} tensors) "
+              "byte-equal to the un-captured path")
+    check(all(torch.equal(a, b) for a, b in zip(first, got[0])),
+          "chunk 0's returned values unchanged after chunks 1-"
+          f"{len(chunks) - 1} ran")
+    del got, want, want_state, first
+    stats = prog.stats()[0]
+    log(f"  capture: first call {stats['first_call_s']:.2f} s (eager "
+        f"{stats['eager_s']:.2f} s, capture {stats['capture_s']:.2f} s, "
+        f"instantiate {stats['instantiate_s']:.2f} s); graph pool "
+        f"{stats['pool_bytes'] / 1e9:.2f} GB; peak device memory "
+        f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before the run)")
+    per_replay = {(f"{k[0]}[{','.join(k[1])}]" if k[1] else k[0]): n
+                  for k, n in stats["launches_per_replay"].items()}
+    log(f"  launches per replay {per_replay}; this run's counts {launches}")
+
+    n = J_STEADY[model]
+    walls = []
+    for k in range(n):
+        t0 = time.perf_counter()
+        states = chunked.stabilize_chunk_streams(
+            states, chunks[k % len(chunks)], params, model)[0]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls = np.asarray(walls)
+    med, med_e = float(np.median(walls)), float(np.median(eager_walls))
+    spread = (walls.max() - walls.min()) / med * 100
+    log(f"  replayed chunk, host clock, each synchronized, {n} chunks: "
+        f"median {med:.2f} ms, min {walls.min():.2f}, max {walls.max():.2f}, "
+        f"spread (max - min) / median {spread:.1f} % = "
+        f"{streams * CHUNK / med * 1e3:.1f} frames/s; "
+        f"un-captured, same phase, {len(eager_walls)} chunks: median "
+        f"{med_e:.1f} ms, min {min(eager_walls):.1f}, max "
+        f"{max(eager_walls):.1f} ({med_e / med:.2f}x)")
+
+    def replay():
+        nonlocal states
+        states = chunked.stabilize_chunk_streams(states, chunks[0], params,
+                                                 model)[0]
+    span, by_name = device_events(replay, J_PROFILED)
+    busy = sum(ms for ms, _ in by_name.values())
+    events = sum(n for _, n in by_name.values())
+    copies = {}
+    for name, (ms, _) in by_name.items():
+        if name.startswith("Memcpy"):
+            kind = name.split(" (")[0]
+            copies[kind] = copies.get(kind, 0.0) + ms
+    if busy > 0:
+        log(f"  {J_PROFILED} replays under torch.profiler: {span:.1f} ms on "
+            f"the device timeline, {events} device events, busy "
+            f"{busy:.1f} ms = {busy / span * 100:.1f} % (the profiler slows "
+            f"the replay; its device events, {busy / J_PROFILED:.1f} ms a "
+            f"replay, are {busy / J_PROFILED / med * 100:.1f} % of the "
+            f"unprofiled median); copies per replay "
+            + ", ".join(f"{k} {v / J_PROFILED:.2f} ms"
+                        for k, v in sorted(copies.items())))
+    else:
+        log("  the profiler recorded no device time: busy share not "
+            "measured")
+    return dict(median=med, eager=med_e, walls=walls)
+
+
+@phase("J1. the captured 1080p chunk (8 streams x 16 frames) against the "
+       "un-captured one, and its replay")
+def captured_1080p(frames, params, dev):
+    return captured_vs_eager(frames, params, dev)
+
+
+@phase("J2. the captured 4K config 4 chunk (2 streams x 16 frames) against "
+       "the un-captured one, and its replay")
+def captured_4k(frames, params, dev):
+    return captured_vs_eager(frames, params, dev, HOMOGRAPHY)
 
 
 @phase("1080p similarity with selection='topk': 8 streams x 16-frame "
@@ -1638,6 +1907,7 @@ def wide_jitter(params, dev):
     from video_stabilizer_tpu_torch.models import aligner, chunked
     from video_stabilizer_tpu_torch.ops.gn_solve import (
         gn_solve, gn_solve_plain)
+    from video_stabilizer_tpu_torch.utils import graphs
 
     frames, poses = synth_streams(dev, CHUNK, WIDE_CONTENT)
     runs = {}
@@ -1650,7 +1920,9 @@ def wide_jitter(params, dev):
             return out
         states = chunked.init_stream_state(WIDTH, HEIGHT, params, 3, STREAMS,
                                            dev)
-        with mock.patch.object(aligner, "gn_solve", recorded):
+        # Un-captured, so that the patched engine runs at every level.
+        with mock.patch.object(aligner, "gn_solve", recorded), \
+                graphs.eager():
             _, _, meas, ok, _ = chunked.stabilize_chunk_streams(
                 states, frames, params)
         meas, ok = meas.cpu().numpy(), ok.cpu().numpy()
@@ -2179,39 +2451,46 @@ def read_record(record):
     return meas, ok
 
 
-def timed_stream(host, poses, params, dev):
+def timed_stream(host, poses, params, dev, eager=False):
     """``STREAM_FRAMES`` pinned host frames through a fresh
     ``VideoStabilizer`` with every launch count set to 0 before and read
-    after, each frame timed on the host clock up to its sync. Checks the
-    outputs, the align success and TX/TY against the known motion (phase
-    9's bars) and the launches: kernel A once per output, kernel B once per
-    level of every frame (the first included, as in the JAX package),
-    kernel C never. Prints the per-frame latency and stage table; returns
-    its figures, the stabilizer (to run on) and the recorded measurements."""
+    after, each frame timed on the host clock up to its sync: through its
+    replayed graphs, or with ``eager`` un-captured (``graphs.eager()``)
+    under a span Recorder, for the stage table. Checks the outputs, the
+    align success and TX/TY against the known motion (phase 9's bars) and
+    the launches: kernel A once per output, kernel B once per level of
+    every frame (the first included, as in the JAX package), kernel C
+    never. Prints the per-frame latency (and the stage table); returns its
+    figures, the stabilizer (to run on) and the recorded measurements."""
     from video_stabilizer_tpu_torch.models import aligner
     from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
+    from video_stabilizer_tpu_torch.utils import graphs
     from video_stabilizer_tpu_torch.utils.spans import Recorder
 
     lag, crop = params.lag, params.crop_pixels
     stab = VideoStabilizer(params, dev)
     record = recording(stab)
+    mode = graphs.eager if eager else contextlib.nullcontext
+    spans = Recorder if eager else contextlib.nullcontext
     torch.cuda.synchronize()
     reset_launch_counts()
     walls, device_ms, stage_runs, outs = [], [], [], []
-    for i in range(STREAM_FRAMES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        with Recorder() as rec:
-            out = stab.process_frame(host[i])
-        end.record()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        device_ms.append(start.elapsed_time(end))
-        stage_runs.append(rec.totals())
-        if out is not None:
-            outs.append(out)
+    with mode():
+        for i in range(STREAM_FRAMES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with spans() as rec:
+                out = stab.process_frame(host[i])
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            device_ms.append(start.elapsed_time(end))
+            if eager:
+                stage_runs.append(rec.totals())
+            if out is not None:
+                outs.append(out)
     launches = launch_counts()
 
     want_shape = (HEIGHT - 2 * crop, WIDTH - 2 * crop, 3)
@@ -2241,7 +2520,8 @@ def timed_stream(host, poses, params, dev):
           "first included), kernel C 0")
 
     steady = np.asarray(walls[STREAM_STEADY:])
-    log(f"  per-frame latency, host clock up to the frame's sync, frames "
+    log(f"  {'un-captured (graphs.eager())' if eager else 'replayed'}: "
+        f"per-frame latency, host clock up to the frame's sync, frames "
         f"{STREAM_STEADY}-{STREAM_FRAMES - 1}: median "
         f"{np.median(steady):.1f} ms, p90 {np.percentile(steady, 90):.1f} "
         f"ms, min {steady.min():.1f}, max {steady.max():.1f}; on the "
@@ -2249,6 +2529,12 @@ def timed_stream(host, poses, params, dev):
         f"{np.median(device_ms[STREAM_STEADY:]):.1f} ms")
     log(f"  frames 0-{STREAM_STEADY - 1} (host clock): "
         + ", ".join(f"{w:.0f}" for w in walls[:STREAM_STEADY]) + " ms")
+    figures = dict(median=float(np.median(steady)),
+                   p90=float(np.percentile(steady, 90)), align=None,
+                   success=rate, rms=rms, max_err=max_err)
+    if not eager:
+        return dict(launches=launches, levels=levels, stab=stab, meas=meas,
+                    ok=ok, outs=outs, figures=figures, walls=walls)
     runs = stage_runs[STREAM_STEADY:]
     names = sorted({k for r in runs for k in r},
                    key=lambda k: (k not in STREAM_TOP,
@@ -2264,12 +2550,9 @@ def timed_stream(host, poses, params, dev):
         log(f"    {pad}{k:<26} {stages[k]:9.3f} ms")
     log(f"    sum of the top stages      "
         f"{sum(stages.get(k, 0.0) for k in STREAM_TOP):9.3f} ms")
-    figures = dict(median=float(np.median(steady)),
-                   p90=float(np.percentile(steady, 90)),
-                   align=stages.get("AlignNextFrame", 0.0),
-                   success=rate, rms=rms, max_err=max_err)
+    figures["align"] = stages.get("AlignNextFrame", 0.0)
     return dict(launches=launches, levels=levels, stab=stab, meas=meas,
-                ok=ok, outs=outs, figures=figures)
+                ok=ok, outs=outs, figures=figures, walls=walls)
 
 
 @phase("S1. streaming path: 1080p, one stream, VideoStabilizer, timed")
@@ -2277,37 +2560,31 @@ def streaming_path(frames, poses, params, dev):
     """``timed_stream`` on S1's clip, then ``STREAM_PROFILED`` more frames
     under torch.profiler. Returns the first ``STREAM_VS_CHUNKED`` frames'
     results for S2, the launches and S1's figures."""
-    from torch.profiler import ProfilerActivity, profile
-
     # Each frame arrives in its own pinned host buffer, as a camera's
     # decoder would leave it; filling the buffers is set-up, not timed.
     host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
             for f in frames]
+    eager = timed_stream(host, poses, params, dev, eager=True)
     run = timed_stream(host, poses, params, dev)
     stab = run["stab"]
 
-    # Device busy share over more frames. A frame issues some 40k device
-    # operations, too many to build the profiler's event tree
-    # (key_averages) in time: the device events' durations are summed
-    # straight from its raw results.
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for f in host[STREAM_FRAMES:STREAM_FRAMES + STREAM_PROFILED]:
-            stab.process_frame(f)
-        end.record()
-        torch.cuda.synchronize()
-    span_ms = start.elapsed_time(end)
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.duration_ns() for e in events) / 1e6
+    # Device busy share over more frames, from the profiler's raw device
+    # events: a frame runs some 40k device operations, too many to build
+    # the profiler's event tree (key_averages) in time.
+    more = iter(host[STREAM_FRAMES:STREAM_FRAMES + STREAM_PROFILED])
+    span_ms, by_name = device_events(
+        lambda: stab.process_frame(next(more)), STREAM_PROFILED)
+    busy = sum(ms for ms, _ in by_name.values())
     if busy > 0:
-        log(f"  {STREAM_PROFILED} frames under torch.profiler: "
-            f"{span_ms:.1f} ms on the device timeline, {len(events)} "
-            f"kernels and copies {busy:.1f} ms: busy "
-            f"{busy / span_ms * 100:.1f} %, idle "
-            f"{(1 - busy / span_ms) * 100:.1f} %")
+        per_frame = busy / STREAM_PROFILED
+        log(f"  {STREAM_PROFILED} replayed frames under torch.profiler: "
+            f"{span_ms:.1f} ms on the device timeline, "
+            f"{sum(n for _, n in by_name.values())} kernels and copies "
+            f"{busy:.1f} ms: busy {busy / span_ms * 100:.1f} %, idle "
+            f"{(1 - busy / span_ms) * 100:.1f} %; {per_frame:.1f} ms of "
+            f"device events a frame, "
+            f"{per_frame / run['figures']['median'] * 100:.1f} % of the "
+            "unprofiled median frame")
     else:
         log("  the profiler recorded no device time: busy share not "
             "measured")
@@ -2316,7 +2593,45 @@ def streaming_path(frames, poses, params, dev):
                 meas=run["meas"][:STREAM_VS_CHUNKED],
                 ok=run["ok"][:STREAM_VS_CHUNKED],
                 outs=torch.stack(run["outs"][:n_vs]).cpu().numpy(),
-                figures=run["figures"])
+                figures=run["figures"], eager=eager, replayed=run,
+                host=host)
+
+
+@phase("J3. the streaming path replayed against the un-captured one (S1's "
+       "clip, every graph captured)")
+def streaming_replayed(host, poses, params, dev, s1):
+    """A third fresh ``VideoStabilizer`` over S1's frames, every key of
+    its programs captured by S1's replayed run: outputs and measurements of
+    both replayed runs byte-equal to S1's un-captured run; the per-frame
+    median and p90 over frames 12-47 (36 frames) beside the un-captured
+    run's."""
+    from video_stabilizer_tpu_torch.models import aligner, smoother
+    from video_stabilizer_tpu_torch.models import stabilizer as stab_mod
+
+    progs = (stab_mod._to_gray, aligner._align_next_frame_impl,
+             smoother._smooth_window, stab_mod._warp_fn)
+    before = {p.name: p.captures for p in progs}
+    run = timed_stream(host, poses, params, dev)
+    new = {p.name: p.captures - before[p.name] for p in progs}
+    check(not any(new.values()),
+          f"no new capture in this run ({new}); replays so far "
+          f"{ {p.name: p.replays for p in progs} }")
+    eager = s1["eager"]
+    for name, got in (("S1's replayed run", s1["replayed"]),
+                      ("this run", run)):
+        same_out = len(got["outs"]) == len(eager["outs"]) and all(
+            torch.equal(a, b) for a, b in zip(got["outs"], eager["outs"]))
+        same_meas = (np.array_equal(got["meas"], eager["meas"])
+                     and np.array_equal(got["ok"], eager["ok"]))
+        check(same_out and same_meas,
+              f"{name}: {len(got['outs'])} outputs byte-equal "
+              f"{same_out}, measurements and flags byte-equal {same_meas}")
+    fig, eag = run["figures"], eager["figures"]
+    log(f"  replayed | un-captured, frames {STREAM_STEADY}-"
+        f"{STREAM_FRAMES - 1} ({STREAM_FRAMES - STREAM_STEADY} frames): "
+        f"median {fig['median']:.2f} | {eag['median']:.1f} ms, p90 "
+        f"{fig['p90']:.2f} | {eag['p90']:.1f} ms")
+    return fig
 
 
 @phase("S3 capture: kernels A's and B's inputs from a stream with rotation "
@@ -2330,16 +2645,21 @@ def capture_stream(params, dev):
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
 
+    from video_stabilizer_tpu_torch.utils import graphs
+
     frames, _ = synth_streams(dev, params.lag + STREAM_CAPTURED, GN_CONTENT,
                               seeds=[SEED])
     stab = VideoStabilizer(params, dev)
-    for f in frames[0, :params.lag]:
-        stab.process_frame(f)
-    with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as gn_spy, \
-            mock.patch.object(batch, "warp_frames",
-                              wraps=warp_frames) as warp_spy:
-        for f in frames[0, params.lag:]:
+    # Un-captured: a replay calls no wrapper for the spies to see.
+    with graphs.eager():
+        for f in frames[0, :params.lag]:
             stab.process_frame(f)
+        with mock.patch.object(aligner, "gn_solve",
+                               wraps=gn_solve) as gn_spy, \
+                mock.patch.object(batch, "warp_frames",
+                                  wraps=warp_frames) as warp_spy:
+            for f in frames[0, params.lag:]:
+                stab.process_frame(f)
     torch.cuda.synchronize()
     return dict(levels=len(aligner.level_specs(WIDTH, HEIGHT,
                                                params.aligner)),
@@ -2359,10 +2679,9 @@ def streaming_fixed(frames, poses, params, dev, s1_figures):
             for f in frames[:STREAM_FRAMES]]
     run = timed_stream(host, poses, params, dev)
     fig = run["figures"]
-    log("  S1 (converging loop) | S5 (fixed_iters=4): per-frame median "
-        f"{s1_figures['median']:.1f} | {fig['median']:.1f} ms, p90 "
-        f"{s1_figures['p90']:.1f} | {fig['p90']:.1f} ms, AlignNextFrame "
-        f"{s1_figures['align']:.2f} | {fig['align']:.2f} ms, success "
+    log("  S1 (converging loop) | S5 (fixed_iters=4), both replayed: "
+        f"per-frame median {s1_figures['median']:.1f} | {fig['median']:.1f} "
+        f"ms, p90 {s1_figures['p90']:.1f} | {fig['p90']:.1f} ms, success "
         f"{s1_figures['success']:.4f} | {fig['success']:.4f}, TX/TY RMS "
         f"{s1_figures['rms']:.4f} | {fig['rms']:.4f} px (max "
         f"{s1_figures['max_err']:.4f} | {fig['max_err']:.4f})")
@@ -2535,6 +2854,7 @@ def run_tool(fn, *args, **kw):
         ret = fn(*args, **kw)
     launches = launch_counts()
     lines = out.getvalue().splitlines()
+    run_tool.stderr = err.getvalue()
     for line in err.getvalue().splitlines() + lines:
         log("  | " + line)
     return ret, lines, launches
@@ -2595,7 +2915,7 @@ def tool_bench_4k():
 
 LATENCY_MODES = (
     (["--mode", "latency", "--chain", "16", "--reps", "3"],
-     "p50_chained_align_latency_1080p"),
+     "p50_on_device_align_latency_1080p"),
     (["--mode", "latency-chunk2", "--chain", "8", "--reps", "3"],
      "p50_e2e_latency_1080p_chunk2_single_stream"),
     (["--mode", "latency-request", "--samples", "20"],
@@ -2612,6 +2932,63 @@ def tool_latency():
         _, lines, launches = run_tool(bench_configs.main, argv)
         json_line(lines, metric)
         log(f"  launches: {launches}")
+
+
+@phase("J4. apps/bench_configs.py --mode latency: 32 streaming align "
+       "steps as one captured graph, 5 reps")
+def latency_chain(dev):
+    from video_stabilizer_tpu_torch.apps import bench_configs
+    from video_stabilizer_tpu_torch.config import AlignerParams
+    from video_stabilizer_tpu_torch.models import aligner
+
+    chain, reps = 32, 5
+    bench_configs.run_chain.reset()
+    _, lines, launches = run_tool(bench_configs.main, [
+        "--mode", "latency", "--chain", str(chain), "--reps", str(reps)])
+    got = json_line(lines, "p50_on_device_align_latency_1080p")
+    prog = bench_configs.run_chain
+    check(prog.captures == 1 and prog.replays == reps,
+          f"run_chain: {prog.captures} capture, {prog.replays} replays "
+          f"(want 1 and {reps})")
+    levels = len(aligner.level_specs(WIDTH, HEIGHT, AlignerParams()))
+    want = levels * chain * (1 + 2 * reps)
+    check(launches["gn_solve"] == want and launches["gn8_solve"] == 0,
+          f"kernel B launched {launches['gn_solve']} times (want {want}: "
+          f"{levels} levels x {chain} steps, in the first call, {reps} "
+          f"replays of the chain and {reps} chains issued step by step)")
+    stats = prog.stats()[0]
+    issued = [ln for ln in run_tool.stderr.splitlines()
+              if "issued one call each" in ln]
+    log(f"  on the device (one replay of the {chain}-step graph): p50 "
+        f"{got['value']:.3f} ms/frame; issued step by step: "
+        f"{issued[0].split(': ', 1)[1] if issued else 'not printed'}; "
+        f"capture {stats['capture_s']:.2f} s, instantiate "
+        f"{stats['instantiate_s']:.2f} s, graph pool "
+        f"{stats['pool_bytes'] / 1e6:.1f} MB")
+
+    # The same chain timed on the device timeline (CUDA events) both ways:
+    # one replay of the chain's graph, and its steps' graphs replayed one
+    # call each.
+    from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
+    params = AlignerParams()
+    clip = torch.from_numpy(synth_shaky_clip(
+        chain, HEIGHT, WIDTH, seed=6, jitter_px=1.0, color=False)).to(dev)
+    state0 = aligner.init_state(WIDTH, HEIGHT, params, dev)
+
+    def device_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(state0, clip, params, WIDTH, HEIGHT)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / chain
+    whole = [device_ms(prog) for _ in range(reps)]
+    steps = [device_ms(bench_configs._chain_steps) for _ in range(reps)]
+    log(f"  device timeline, ms a step: the chain's graph "
+        + ", ".join(f"{t:.3f}" for t in whole) + "; the steps' graphs one "
+        "call each " + ", ".join(f"{t:.3f}" for t in steps))
 
 
 @phase("P4. apps/profile_chunk.py on one 1080p chunk (8 x 16 frames): per "
@@ -2791,7 +3168,13 @@ def main() -> int:
             check_fir(states, last_chunk, prm, dev)
         else:
             check_fir_4k(states, last_chunk, prm, dev)
-        del frames, states, last_chunk
+        del states, last_chunk
+        torch.cuda.empty_cache()
+        if model == "similarity":
+            captured_1080p(frames, prm, dev)
+        else:
+            captured_4k(frames, prm, dev)
+        del frames
         torch.cuda.empty_cache()
     # The sweeps: G1 (kernel B, one threshold per item) and G2's 4K path
     # (kernel C), each with its own launch counts; then G3.
@@ -2819,11 +3202,14 @@ def main() -> int:
     s1 = streaming_path(frames, poses, params, dev)
     one = (None, None)
     if s1 is not None:
+        j3 = streaming_replayed(s1["host"][:STREAM_FRAMES], poses, params,
+                                dev, s1)
         streaming_vs_chunked(frames, params, dev, s1)
         for name, counted in STREAM_KERNELS:
             if s1["launches"].get(counted, 0) > 0:
                 path_launches[name] = s1["launches"][counted]
-        s5 = streaming_fixed(frames, poses, params_fixed, dev, s1["figures"])
+        s5 = streaming_fixed(frames, poses, params_fixed, dev,
+                             j3 or s1["figures"])
         if s5 is not None and s5.get("gn_solve", 0) > 0:
             path_launches[FIXED_NAME] = s5["gn_solve"]
     del frames, s1
@@ -2841,6 +3227,7 @@ def main() -> int:
     tool_bench(smi)
     tool_bench_4k()
     tool_latency()
+    latency_chain(dev)
     tool_profile()
     scale_out(params, dev)
 

@@ -48,7 +48,7 @@ def test_bench_prints_one_json_line(monkeypatch):
      "stabilized_96p_bgr_homography_lanczos2_fps_2streams_chunked",
      "frames/sec"),
     (["--mode", "latency", "--chain", "2", "--reps", "1", "--fixed-iters",
-      "4"], "p50_chained_align_latency_96p_fixed4", "ms/frame"),
+      "4"], "p50_on_device_align_latency_96p_fixed4", "ms/frame"),
     (["--mode", "latency-chunk2", "--chain", "2", "--reps", "1",
       "--merge-coarse", "2"],
      "p50_e2e_latency_96p_chunk2_single_stream_merge2", "ms/frame"),

@@ -28,7 +28,13 @@ Layer map, mirroring the JAX package:
   models/chunked.py  chunked serving with carried StreamState
   utils/checkpoint.py  save / load of a VideoStabilizer mid-stream, in the
                      JAX package's .npz layout
-  utils/spans.py     named CUDA-event spans of the pipeline stages
+  utils/graphs.py    the program layer (jax.jit's counterpart): on the
+                     card the chunk, the streaming align step, gray and
+                     warp, and the smoother window are captured once per
+                     static configuration as CUDA graphs and replayed;
+                     ``graphs.eager()`` runs them un-captured
+  utils/spans.py     named CUDA-event spans of the pipeline stages (read
+                     from the un-captured path)
   utils/metrics.py   PerformanceMetrics / time_function timers (CUDA events
                      when given a CUDA device), device_trace (torch.profiler)
   utils/flow.py      dense LK flow and median_jitter_px_device, on the device

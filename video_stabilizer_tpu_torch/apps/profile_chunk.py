@@ -10,7 +10,11 @@ port (``--by-source``). The port of the JAX package's
 
 Two chunks run first (the kernels' build at first use, and the lag
 window); the third is traced with the CPU and CUDA activities and Python
-stacks, and written as a Chrome trace, ``<logdir>/trace.json``.
+stacks, and written as a Chrome trace, ``<logdir>/trace.json``. Every
+chunk runs un-captured (``utils.graphs.eager()``: ``stabilize_chunk_core``
+and the warp, eager), since a replayed graph has no Python frames to
+attribute its kernels to; so the trace shows the eager chunk, not the
+graph that the entry points replay on the card.
 ``--parse-only`` summarizes that file again without touching the card.
 
 Per kernel: the device time and count of every kernel, copy and memset,
@@ -191,6 +195,7 @@ def main(argv=None):
     from video_stabilizer_tpu_torch.device import resolve_device
     from video_stabilizer_tpu_torch.models.chunked import (
         init_stream_state, stabilize_chunk_streams)
+    from video_stabilizer_tpu_torch.utils import graphs
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
     dev = resolve_device(args.device)
@@ -212,9 +217,14 @@ def main(argv=None):
     inputs = [clips + k for k in range(3)]
 
     def run(states, x):
-        states, out, meas, ok, valid = stabilize_chunk_streams(
-            states, x, params, model)
+        with graphs.eager():
+            states, out, meas, ok, valid = stabilize_chunk_streams(
+                states, x, params, model)
         return states, float(out[:, -1, ::64, ::64].sum())
+
+    print("profiling the un-captured chunk (stabilize_chunk_core and the "
+          "warp, eager, under utils.graphs.eager()): a replayed graph has "
+          "no Python frames", file=sys.stderr)
 
     t0 = time.perf_counter()
     states, _ = run(states, inputs[0])

@@ -18,7 +18,8 @@ The streaming form (``init_state``, ``align_next_frame``, ``VideoAligner``)
 aligns one frame at a time against the alternating keyframe through the same
 level loop, with one item and one keyframe. Its buffer index and frame count
 are host ints, so the branch "compute the keyframe on keyframe frames"
-(aligner.py:703-708) is taken on the host without reading the device.
+(aligner.py:703-708) is taken on the host without reading the device, and
+on the card each branch is one captured graph (``_align_next_frame_impl``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from video_stabilizer_tpu_torch.ops.patches import (
 from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
+from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
 
 # Alternating keyframe buffers (alignment.hpp:61-66).
@@ -357,16 +359,11 @@ def init_state(width: int, height: int, params: AlignerParams,
                         frames_seen=0)
 
 
-def align_next_frame(state: AlignerState, gray, params: AlignerParams):
-    """Align one (H, W) u8 gray frame, on the state's device, against the
-    alternating keyframe (aligner.py:683-754).
-
-    Returns (new_state, transform (4,) f32, success () bool), both on the
-    device: ``transform`` measures the motion from the previous frame to
-    this one; ``success`` is False for the first frame and on track loss.
-    """
-    h, w = gray.shape[-2], gray.shape[-1]
-    specs = level_specs(w, h, params)
+def _align_next_frame_body(state: AlignerState, gray,
+                           params: AlignerParams, width: int, height: int):
+    """The streaming align step (aligner.py:683-739). ``state``'s host ints
+    (buffer index, frames seen) pick the branch, and key its graph."""
+    specs = level_specs(width, height, params)
     # Buffer flip (alignment.cpp:158-159, 206-207): first frame -> buffer 0.
     curr = 0 if state.frames_seen == 0 else 1 - state.curr_idx
     with span("pyramid"):
@@ -409,6 +406,27 @@ def align_next_frame(state: AlignerState, gray, params: AlignerParams):
     new_state = AlignerState(pyramid=pyramid, key=key, curr_idx=curr,
                              frames_seen=min(state.frames_seen + 1, 2))
     return new_state, transform, success
+
+
+# The JAX package's jitted step (aligner.py:683): on the card one captured
+# graph per branch (first frame, second, then keyframe and non-keyframe
+# alternating), the state's buffers copied in at each replay.
+_align_next_frame_impl = Program(
+    _align_next_frame_body, static_argnames=("params", "width", "height"),
+    name="_align_next_frame_impl")
+
+
+def align_next_frame(state: AlignerState, gray, params: AlignerParams):
+    """Align one (H, W) u8 gray frame, on the state's device, against the
+    alternating keyframe (aligner.py:741-754); on the card a replay of
+    ``_align_next_frame_impl``. ``state`` is left as it was.
+
+    Returns (new_state, transform (4,) f32, success () bool), both on the
+    device: ``transform`` measures the motion from the previous frame to
+    this one; ``success`` is False for the first frame and on track loss.
+    """
+    h, w = gray.shape[-2], gray.shape[-1]
+    return _align_next_frame_impl(state, gray, params, w, h)
 
 
 class VideoAligner:

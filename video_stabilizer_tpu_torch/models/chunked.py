@@ -14,7 +14,11 @@ so feeding chunks reproduces the unchunked clip path, and every input frame
 eventually receives exactly one output warp. All state lives on the device
 with streams on a leading axis S; the index bookkeeping of the JAX package
 (chunked.py:23-30) is done in tensor ops, so a chunk needs no host sync
-outside the GN plain version.
+outside the GN plain version. On the card the entry points replay the
+chunk as a captured CUDA graph (``_stabilize_chunk_streams_jit``,
+``_stabilize_chunk_jit``, utils/graphs.py); ``stabilize_chunk_core`` stays
+un-captured for the stage tables and the profiler, which need its Python
+frames.
 
 ``stream_state_from_numpy`` and ``params_from_jax_dict`` carry a JAX
 stream's state and parameters into the port: this system has no learned
@@ -38,6 +42,7 @@ from video_stabilizer_tpu_torch.models.batch import (
     warp_delayed)
 from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
+from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
 
 
@@ -158,34 +163,62 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
             meas_c, succ_c, m_valid)
 
 
+def _chunk_streams(states: StreamState, frames, params: StabilizerParams,
+                   width: int, height: int, model: str = "similarity"):
+    """The chunk program's body: ``stabilize_chunk_core`` and the one warp
+    of the whole (S, tc) batch (chunked.py:245-258)."""
+    with span("upload"):
+        frames = frames.to(states.accum.device)
+    new_states, delayed, accums, meas, succ, valid = stabilize_chunk_core(
+        states, frames, params, width, height, model)
+    with span("warp"):
+        out = warp_delayed(delayed, accums, params, width, height, model)
+    return new_states, out, meas, succ, valid
+
+
+def _chunk_one_stream(state: StreamState, frames, params: StabilizerParams,
+                      width: int, height: int, model: str = "similarity"):
+    new_state, out, meas, succ, valid = _chunk_streams(
+        state, frames[None], params, width, height, model)
+    return new_state, out[0], meas[0], succ[0], valid[0]
+
+
+# The JAX package's two chunk programs (chunked.py:237-258): on the card
+# each is captured once per static configuration and replayed
+# (utils/graphs.py); a host frame tensor is copied straight into the
+# graph's input (pinned memory: asynchronously).
+_STATICS = ("params", "width", "height", "model")
+_stabilize_chunk_streams_jit = Program(_chunk_streams,
+                                       static_argnames=_STATICS,
+                                       name="_stabilize_chunk_streams_jit")
+_stabilize_chunk_jit = Program(_chunk_one_stream, static_argnames=_STATICS,
+                               name="_stabilize_chunk_jit")
+
+
 def stabilize_chunk_streams(states: StreamState, frames,
                             params: StabilizerParams,
                             model: str = "similarity"):
     """One chunk of S streams on the states' device, the whole (S, tc)
-    batch warped in one launch of kernel A (chunked.py:245-258).
+    batch warped in one launch of kernel A (chunked.py:245-258); on the
+    card a replay of ``_stabilize_chunk_streams_jit``.
 
     Returns (new_states, out (S, tc, H-2c, W-2c[, C]) u8, meas (S, tc, P),
     success (S, tc), out_valid (S, tc)): ``out_valid`` is False for the
     first ``lag`` outputs of a fresh stream.
     """
-    dev = states.accum.device
-    with span("upload"):
-        frames = torch.as_tensor(frames).to(dev)
-    h, w = frames.shape[2], frames.shape[3]
-    new_states, delayed, accums, meas, succ, valid = stabilize_chunk_core(
-        states, frames, params, w, h, model)
-    with span("warp"):
-        out = warp_delayed(delayed, accums, params, w, h, model)
-    return new_states, out, meas, succ, valid
+    frames = torch.as_tensor(frames)
+    return _stabilize_chunk_streams_jit(states, frames, params,
+                                        frames.shape[3], frames.shape[2],
+                                        model)
 
 
 def stabilize_chunk_impl(state: StreamState, frames,
                          params: StabilizerParams, model: str = "similarity"):
     """One chunk of ONE stream: ``state`` with S = 1, frames
-    (tc, H, W[, C])."""
-    new_state, out, meas, succ, valid = stabilize_chunk_streams(
-        state, torch.as_tensor(frames)[None], params, model)
-    return new_state, out[0], meas[0], succ[0], valid[0]
+    (tc, H, W[, C]); on the card a replay of ``_stabilize_chunk_jit``."""
+    frames = torch.as_tensor(frames)
+    return _stabilize_chunk_jit(state, frames, params, frames.shape[2],
+                                frames.shape[1], model)
 
 
 class ChunkedStabilizer:
@@ -203,7 +236,7 @@ class ChunkedStabilizer:
         self._shape = None
 
     def process_chunk(self, frames_bgr):
-        frames = torch.as_tensor(frames_bgr).to(self.device)
+        frames = torch.as_tensor(frames_bgr)
         h, w = frames.shape[1], frames.shape[2]
         ch = frames.shape[3] if frames.dim() == 4 else 0
         if self._state is None or self._shape != (h, w, ch):

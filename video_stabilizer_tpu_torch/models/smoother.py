@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from video_stabilizer_tpu_torch.device import resolve_device
+from video_stabilizer_tpu_torch.utils.graphs import Program
 
 
 def tvl1_smooth(data, lam, iterations: int = 100, valid_len=None):
@@ -78,12 +79,20 @@ def tvl1_smooth_np(data, lam, iterations: int = 100):
     return x
 
 
-def _smooth_window(buf, lam: float, middle: int, count: int,
-                   iterations: int):
+def _smooth_window_body(buf, lam: float, middle: int, count: int,
+                        iterations: int):
     """Smooth a (window, 4) float32 buffer whose first ``count`` rows are
     valid and return its ``middle`` row (smoother.py:101-106)."""
     sm = tvl1_smooth(buf.T, lam, iterations=iterations, valid_len=count)
     return sm[:, middle]
+
+
+# The JAX package's jitted window (smoother.py:101): on the card one
+# captured graph per (count, middle), one in steady state.
+_smooth_window = Program(
+    _smooth_window_body,
+    static_argnames=("lam", "middle", "count", "iterations"),
+    name="_smooth_window")
 
 
 class L1SmootherCenter:
@@ -94,8 +103,9 @@ class L1SmootherCenter:
     The window is a fixed ring buffer on the host. ``jit_smooth=True`` (the
     JAX package's default, whose jitted float32 smooth it mirrors) smooths
     in float32 on ``device`` (the CUDA card unless given) through
-    ``tvl1_smooth``; ``jit_smooth=False`` smooths in float64 on the host
-    (the reference's double math).
+    ``_smooth_window`` (on the card a replayed graph; the window goes up
+    from a pinned host buffer); ``jit_smooth=False`` smooths in float64 on
+    the host (the reference's double math).
     """
 
     def __init__(self, lag_behind: int, lag_ahead: int, lambda_: float = 1.0,
@@ -109,6 +119,11 @@ class L1SmootherCenter:
         self.device = resolve_device(device)
         self.window = lag_behind + lag_ahead + 1
         self._buf = np.zeros((self.window, 4), np.float64)  # ring
+        # The float32 window sent to the device. Pinned on the card, so the
+        # upload is asynchronous: the next update refills it only after
+        # this one's result has been read back.
+        self._stage = torch.zeros((self.window, 4), dtype=torch.float32,
+                                  pin_memory=self.device.type == "cuda")
         self._total = 0           # measurements received
         self._next_to_finalize = 0
 
@@ -128,9 +143,10 @@ class L1SmootherCenter:
         window_vals = self._buf[idx % self.window]    # (n, 4)
         middle = k - start
         if self.jit_smooth:
-            buf = np.zeros((self.window, 4), np.float32)
-            buf[:len(idx)] = window_vals
-            sm = _smooth_window(torch.from_numpy(buf).to(self.device),
+            stage = self._stage.numpy()
+            stage[:] = 0.0
+            stage[:len(idx)] = window_vals
+            sm = _smooth_window(self._stage.to(self.device, non_blocking=True),
                                 self.lambda_, middle, len(idx),
                                 self.iterations)
             out = sm.cpu().numpy().astype(np.float64)

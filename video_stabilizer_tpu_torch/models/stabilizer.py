@@ -12,7 +12,10 @@ On the device: the colour conversion, the aligner and the output warp
 (kernel A at one frame). On the host: the 4-vector bookkeeping and the
 decay algebra in float64, exactly as the JAX package (stabilizer.py:40-83).
 The measurement and its success flag come to the host once per frame, and
-the smoother's output once per finalized frame.
+the smoother's output once per finalized frame. On the card each device
+step is a replayed graph (utils/graphs.py): ``_to_gray``, the aligner's
+``_align_next_frame_impl``, the smoother's ``_smooth_window`` and
+``_warp_fn``, as each is a jitted program in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from video_stabilizer_tpu_torch.config import StabilizerParams
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import VideoAligner
 from video_stabilizer_tpu_torch.models.smoother import L1SmootherCenter
+from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
 
 
@@ -39,6 +43,28 @@ def bgr_to_gray(frame_bgr):
     g = frame_bgr[..., 1].to(torch.float32)
     r = frame_bgr[..., 2].to(torch.float32)
     return torch.round(0.114 * b + 0.587 * g + 0.299 * r).to(torch.uint8)
+
+
+# The JAX package's jitted colour conversion (stabilizer.py:102): a replayed
+# graph on the card.
+_to_gray = Program(bgr_to_gray, name="_to_gray")
+
+
+def _warp_body(frame, accum, params: StabilizerParams):
+    """Warp the delayed (H, W, C) frame by ``accum``^-1, its (4,) float32
+    centre-pivot correction: sample the source at accum(p), through its
+    origin-based form on the frame's own size (stabilizer.py:125-139)."""
+    # batch.py imports this module: import it at call time.
+    from video_stabilizer_tpu_torch.models.batch import output_warp
+    h, w = frame.shape[0], frame.shape[1]
+    t = accum.to(frame.device)
+    return output_warp(frame, T.center_to_ul(t, w, h, minus_one=True),
+                       params)
+
+
+# The JAX package's jitted output warp (stabilizer.py:137); the correction
+# comes in through the graph's static input.
+_warp_fn = Program(_warp_body, static_argnames=("params",), name="_warp_fn")
 
 
 def bgr_to_gray_batched(frames):
@@ -116,19 +142,19 @@ class VideoStabilizer:
         self._meas = collections.deque()
         self._frames = collections.deque()
         self._accum = np.zeros(4, np.float64)
+        # The float32 correction sent to the warp. Pinned on the card, so
+        # the upload is asynchronous: the next frame refills it only after
+        # its measurement has been read back.
+        self._accum_host = torch.zeros(4, dtype=torch.float32,
+                                       pin_memory=self.device.type == "cuda")
         self.frame_index = 0
         self.align_failures = 0
 
     def _warp(self, frame, accum):
-        """Warp the delayed frame by accum^-1: sample the source at
-        accum(p), through its origin-based form on the frame's own size
-        (stabilizer.py:125-139)."""
-        # batch.py imports this module: import it at call time.
-        from video_stabilizer_tpu_torch.models.batch import output_warp
-        h, w = frame.shape[0], frame.shape[1]
-        t = torch.tensor(accum, dtype=torch.float32, device=self.device)
-        return output_warp(frame, T.center_to_ul(t, w, h, minus_one=True),
-                           self.params)
+        """Warp the delayed frame by accum^-1 (``_warp_fn``)."""
+        self._accum_host.copy_(torch.from_numpy(accum))
+        t = self._accum_host.to(self.device, non_blocking=True)
+        return _warp_fn(frame, t, self.params)
 
     def process_frame(self, frame_bgr):
         """Process one (H, W, 3) BGR u8 frame; returns the stabilized,
@@ -141,7 +167,7 @@ class VideoStabilizer:
 
         # The reference's TIME_FUNCTION labels (alignment.cpp:150-701).
         with span("ConvertToGray"):
-            gray = bgr_to_gray(frame)
+            gray = _to_gray(frame)
         with span("AlignNextFrame"):
             t_meas, ok = self.aligner.align_next_frame(gray)
         # One read of the device per frame: the measurement and ok.

@@ -44,6 +44,11 @@ class Recorder:
         return dict(out)
 
 
+def active() -> bool:
+    """Whether a ``Recorder`` is active."""
+    return _active is not None
+
+
 @contextlib.contextmanager
 def span(name: str):
     rec = _active
