@@ -107,6 +107,32 @@ Run from the root of the repository. Phases:
      beside kernel A.
  J2. J1 for the 4K config 4 chunk (cuFFT, kernel C, kernel A's
      homography + Lanczos2 form), the replay timed over 8 chunks.
+ J5. The clip path: ``stabilize_streams`` (``_stabilize_streams_jit``) on
+     the first 32 frames of phase 9's 8 streams, the clip on the card
+     before the call (the upload timed apart). The un-captured call twice
+     (an output in which it differs from itself is held to phase 9's bars
+     instead), then the first call (eager run and capture) and 5 replays:
+     outputs, meas and success byte-equal to the un-captured call, the
+     first call's values unchanged after the replays; kernels A and B
+     launched in every replay. Prints the first call's, the capture's and
+     the instantiation's time, the graph pool, the peak memory, the
+     launches per replay and the replays' median and spread beside the
+     un-captured time.
+ J6. J5 for ``stabilize_streams_homography`` on the first 32 frames of
+     phase 10's 2 4K streams (config 4: cuFFT, kernel C, kernel A's
+     homography + Lanczos2 form).
+ J9. The clip programs' memory, and the programs J5-J8 do not run on the
+     card. (a) ``stabilize_streams`` on the first 32, 24 and 16 frames of
+     phase 9's 8 streams in a row, then the 16 once more: the program
+     keeps one key after each call (a new length drops the last one's
+     graph and pool), the card holds no more than that key's pool and
+     static input (+ 0.25 GB) after each call once its cache is emptied,
+     and the last call replays. (b) ``stabilize_streams`` with
+     ``output_warp="fir"`` (the FIR warp inside the clip program) on 2
+     streams x 32 frames, (c) the smoother sweep's ``eval_combos`` on its
+     app's default clip (60 frames of 360x640, seed 4; lag 10, memory 5,
+     its 12 combos), after the app's one align, (d) ``median_flow_px``
+     called alone on 8 1080p pairs: each as J5, with 2 or 3 replays.
  11. Reported, no bar: one chunk of 4 px jitter content through kernel B
      and through its plain version (un-captured, so the patched engine
      runs), with convergence and known-motion
@@ -134,9 +160,20 @@ Run from the root of the repository. Phases:
      (b) Each combo run alone with those values in its AlignerParams: ok
      equal on every frame, measurements within phase 5's bars, the
      bit-equal combos counted.
-     (c) The sweep's align time beside the 27 runs alone. (d) The FIR warp
-     and ``median_jitter_px_device`` over all combos' outputs, timed; the
-     best combo's out/in jitter ratio below 0.6.
+     (c) The sweep's align time beside the 27 runs alone, and
+     ``_align_clip_jit`` with the (27,) dyn as an input: its first call
+     and 5 replays byte-equal to the un-captured sweep, timed; the
+     smoother sweep's one align (no dyn, default parameters), a one-shot
+     call: its first call beside the un-captured time, byte-equal. (d)
+     The FIR warp and ``median_jitter_px_device_impl`` over all combos'
+     outputs, un-captured and timed; the best combo's out/in jitter ratio
+     below 0.6.
+ J7. ``run_combos`` (align, accumulate and FIR warp) on G1's inputs: the
+     un-captured call twice, the first call and 3 replays, outputs, meas
+     and ok byte-equal; timed beside G1's un-captured align and FIR.
+ J8. ``median_jitter_px_device_impl`` on J7's outputs (27 x 21 1080p
+     pairs): the un-captured call twice, the first call and 3 replays,
+     byte-equal f32, the out/in ratios equal G1 (d)'s; timed.
  G2 path. 8 frames of config 4's content through ``align_clip_impl`` with
      model="homography" and the three thresholds as (3,) DynAlignParams,
      launch counts set to 0 before and read after: kernel C once per level,
@@ -148,7 +185,10 @@ Run from the root of the repository. Phases:
      native``), stabilized by apps/video_test's ``stabilize_streaming``,
      ``stabilize_chunked`` and ``stabilize_batch`` (crop 0), each scored
      with ``median_jitter_px_device``: 22 outputs, output jitter < 0.6x
-     the input's, align failures printed. Nothing is written as mp4.
+     the input's, align failures printed; the batch mode, a one-shot call
+     of ``_stabilize_clip_jit`` (``_stabilize_streams_jit`` on one
+     stream), once more un-captured: byte-equal, its time beside the first
+     call's. Nothing is written as mp4.
  12. The port on the card against the port on the CPU (the plain versions)
      on a small clip: ok equal, >= 99 % of output pixels within 1 LSB.
  S1. The streaming path, timed: ``VideoStabilizer`` (crop 32, defaults
@@ -216,11 +256,14 @@ Run from the root of the repository. Phases:
  P5. The scale-out modules on the card: ``graft_entry.entry()``,
      ``dryrun_multichip(1)``, a sharded chunk on the one-card mesh
      byte-equal to the unsharded call on the same 2 1080p streams (outputs
-     and carried state), and ``apps/multihost_smoke`` (CPU, gloo) as a
-     subprocess.
+     and carried state), ``stabilize_streams_sharded`` on those 2 x 32
+     frames twice (a capture of the card's ``_stabilize_streams_jit``, then
+     a replay) byte-equal to the un-captured clip, and
+     ``apps/multihost_smoke`` (CPU, gloo) as a subprocess.
 
-After each phase the chunk programs' graphs are dropped (each holds a
-memory pool of up to some 9 GB); the streaming programs' stay. Every
+After each phase every program's graphs but the streaming programs' are
+dropped (a chunk graph holds a memory pool of 8.76 GB); the streaming
+programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
 (nine entries: kernel A's two chunked forms and its one-frame form, B per
@@ -236,6 +279,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -288,22 +332,24 @@ def phase(name: str):
                 failures.append(f"{name}: raised")
                 return None
             finally:
-                release_chunk_graphs()
+                release_graphs()
                 log(f"   ({time.perf_counter() - t0:.1f} s)")
         return run
     return deco
 
 
-def release_chunk_graphs():
-    """Drop the chunk programs' captured graphs after a phase: each holds
-    its own memory pool, some 9 GB for an 8-stream 1080p or a 2-stream 4K
-    chunk, and the phases run a dozen configurations. The streaming
-    programs' pools are small (under 0.1 GB each) and stay, so that the
-    streaming phases replay graphs the earlier ones captured."""
-    from video_stabilizer_tpu_torch.models import chunked
+def release_graphs():
+    """Drop every program's captured graphs after a phase but the streaming
+    programs': a chunk, clip, sweep or metric graph holds its own memory
+    pool (8.76 GB for an 8-stream 1080p or a 2-stream 4K chunk), and the
+    phases run dozens of configurations. The streaming programs' pools are
+    small (under 0.1 GB each) and stay, so that the streaming phases replay
+    graphs the earlier ones captured."""
+    from video_stabilizer_tpu_torch.models import aligner, smoother, stabilizer
     from video_stabilizer_tpu_torch.utils import graphs
-    graphs.reset([chunked._stabilize_chunk_streams_jit,
-                  chunked._stabilize_chunk_jit])
+    streaming = (aligner._align_next_frame_impl, smoother._smooth_window,
+                 stabilizer._to_gray, stabilizer._warp_fn)
+    graphs.reset([p for p in graphs.PROGRAMS if p not in streaming])
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1602,6 +1648,244 @@ def captured_4k(frames, params, dev):
     return captured_vs_eager(frames, params, dev, HOMOGRAPHY)
 
 
+J_CLIP_FRAMES = 32        # J5's and J6's clips: phase 9's / 10's first 32
+J_CLIP_REPLAYS = 5
+J_CLIP_OUTPUTS = ("outputs", "meas", "succ")
+
+
+def replay_figures(walls, eager_ms, frames=None) -> str:
+    """Median, min, max and spread of replayed host-clock times beside the
+    un-captured ones."""
+    walls = np.asarray(walls)
+    med, med_e = float(np.median(walls)), float(np.median(eager_ms))
+    rate = f" = {frames / med * 1e3:.1f} frames/s" if frames else ""
+    return (f"replayed, each synchronized, {len(walls)} calls: median "
+            f"{med:.2f} ms, min {walls.min():.2f}, max {walls.max():.2f}, "
+            f"spread (max - min) / median "
+            f"{(walls.max() - walls.min()) / med * 100:.1f} %{rate}; "
+            f"un-captured, same phase: "
+            + ", ".join(f"{ms:.1f}" for ms in eager_ms)
+            + f" ms ({med_e / med:.2f}x)")
+
+
+def program_vs_eager(prog, run, names, replays):
+    """A program's entry point ``run()`` against the same call inside
+    ``graphs.eager()``: the un-captured call twice (an output in which it
+    differs from itself is held to ``within_bars`` instead of byte
+    equality), then
+    the first call (eager run and capture) and ``replays`` replays, each
+    against the un-captured results, from a reset program with the launch
+    counts set to 0. Prints the capture's figures, the pool, the peak
+    memory and the launches per replay; returns (the last replay's
+    outputs, the replays' host ms, the un-captured ms)."""
+    from video_stabilizer_tpu_torch.utils import graphs
+
+    eager, eager_ms = [], []
+    with graphs.eager():
+        for _ in range(2):
+            out, ms = timed(run)
+            eager.append(out)
+            eager_ms.append(ms)
+    unstable = [n for n, a, b in zip(names, *eager) if not torch.equal(a, b)]
+    log("  the un-captured call run twice: "
+        + (f"not deterministic in {unstable}" if unstable
+           else f"byte-equal in {', '.join(names)}"))
+    want = eager[0]
+    del eager
+
+    def same(got):
+        return all((within_bars(n, g, w) if n in unstable
+                    else torch.equal(g, w))
+                   for n, g, w in zip(names, got, want))
+
+    graphs.reset([prog])
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    reset_launch_counts()
+    first, first_ms = timed(run)
+    first_copy = [x.clone() for x in first]
+    ok_first = same(first)
+    walls, ok_replays = [], True
+    for _ in range(replays):
+        out, ms = timed(run)
+        walls.append(ms)
+        ok_replays &= same(out)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kind = "within the bars of the un-captured path where it is not " \
+        "deterministic, byte-equal elsewhere" if unstable else "byte-equal"
+    check(prog.captures == 1 and prog.replays == replays,
+          f"{prog.name}: {prog.captures} capture, {prog.replays} replays")
+    check(ok_first and ok_replays,
+          f"{', '.join(names)} of the first call and of {replays} replays "
+          f"{kind} to the un-captured call")
+    check(all(torch.equal(a, b) for a, b in zip(first, first_copy)),
+          "the first call's returned values unchanged after the replays")
+    stats = prog.stats()[0]
+    log(f"  first call {first_ms:.1f} ms (eager {stats['eager_s']:.2f} s, "
+        f"capture {stats['capture_s']:.2f} s, instantiate "
+        f"{stats['instantiate_s']:.2f} s); graph pool "
+        f"{stats['pool_bytes'] / 1e9:.2f} GB; peak device memory "
+        f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before)")
+    per_replay = {(f"{k[0]}[{','.join(k[1])}]" if k[1] else k[0]): n
+                  for k, n in stats["launches_per_replay"].items()}
+    log(f"  launches per replay {per_replay}; this run's counts {launches}")
+    return out, walls, eager_ms, stats
+
+
+def clip_vs_eager(frames, params, dev, model="similarity"):
+    """J5 / J6: ``stabilize_streams`` (``stabilize_streams_homography``),
+    which replay ``_stabilize_streams_jit``, on the first J_CLIP_FRAMES
+    frames of every stream, captured and replayed, against the un-captured
+    call on the same card clip."""
+    from video_stabilizer_tpu_torch.models import batch, homography_aligner
+
+    host = torch.from_numpy(np.ascontiguousarray(frames[:, :J_CLIP_FRAMES]))
+    clip, up_ms = timed(lambda: host.to(dev))
+    log(f"  the entry point's upload: {host.numel() / 1e6:.1f} MB pageable "
+        f"host -> card in {up_ms:.1f} ms (before the call; the program "
+        "copies the card clip into its static input)")
+    if model == "similarity":
+        def run():
+            return batch.stabilize_streams(clip, params, dev)
+    else:
+        def run():
+            return homography_aligner.stabilize_streams_homography(
+                clip, params, dev)
+    out, walls, eager_ms, stats = program_vs_eager(
+        batch._stabilize_streams_jit, run, J_CLIP_OUTPUTS, J_CLIP_REPLAYS)
+    streams, total = host.shape[:2]
+    lag = params.lag
+    check(tuple(out[0].shape) == (streams, total - lag,
+                                  host.shape[2] - 2 * params.crop_pixels,
+                                  host.shape[3] - 2 * params.crop_pixels, 3),
+          f"output {tuple(out[0].shape)}; align success "
+          f"{float(out[2][:, 1:].float().mean()):.3f}")
+    need = "gn_solve" if model == "similarity" else "gn8_solve"
+    per = stats["launches_per_replay"]
+    check(any(k[0] == "warp_frames" and k[1] is None for k in per)
+          and per.get((need, None), 0) > 0,
+          f"kernel A and kernel {'B' if need == 'gn_solve' else 'C'} "
+          "launched in every replay")
+    log("  clip " + replay_figures(walls, eager_ms, streams * total))
+    return walls
+
+
+@phase("J5. the captured 1080p similarity clip (stabilize_streams, 8 streams "
+       "x 32 frames) against the un-captured one, and its replay")
+def clip_1080p(frames, params, dev):
+    return clip_vs_eager(frames, params, dev)
+
+
+@phase("J6. the captured 4K config 4 clip (stabilize_streams_homography, 2 "
+       "streams x 32 frames) against the un-captured one, and its replay")
+def clip_4k(frames, params, dev):
+    return clip_vs_eager(frames, params, dev, HOMOGRAPHY)
+
+
+J_LENGTHS = (32, 24, 16)  # J9 (a): three clip lengths in a row
+J_HELD_SLACK = 0.25e9     # J9 (a): bytes held beyond the kept key's
+
+
+@phase("J9. the clip programs' memory over three clip lengths in a row, and "
+       "the programs J5-J8 do not run: the FIR warp inside the clip, "
+       "eval_combos, median_flow_px alone")
+def clip_programs(frames, params, dev):
+    """See J9 in the module's docstring."""
+    from video_stabilizer_tpu_torch.apps import grid_search_smoother as gss
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import batch
+    from video_stabilizer_tpu_torch.utils import flow, graphs
+    from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
+
+    prog = batch._stabilize_streams_jit
+    graphs.reset([prog])
+    clip = torch.from_numpy(
+        np.ascontiguousarray(frames[:, :J_LENGTHS[0]])).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_reserved()
+    log(f"  (a) {clip.shape[0]} streams, lengths {J_LENGTHS} then "
+        f"{J_LENGTHS[-1]} again; the card's reserved memory after each call "
+        f"(its cache emptied) over the {base / 1e9:.2f} GB before:")
+    held_ok = True
+    for t in J_LENGTHS + J_LENGTHS[-1:]:
+        out, ms = timed(lambda: batch.stabilize_streams(clip[:, :t], params,
+                                                        dev))
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() - base
+        pool = prog.stats()[0]["pool_bytes"]
+        static_in = clip[:, :t].numel()
+        keys = len(prog.stats())
+        held_ok &= keys == 1 and held <= pool + static_in + J_HELD_SLACK
+        log(f"    T = {t}: {ms:.1f} ms; keys kept {keys}, captures "
+            f"{prog.captures}, replays {prog.replays}, evictions "
+            f"{prog.evictions}; held {held / 1e9:.2f} GB, the key's pool "
+            f"{pool / 1e9:.2f} GB + static input {static_in / 1e9:.2f} GB")
+    n = len(J_LENGTHS)
+    check(held_ok and (prog.captures, prog.replays, prog.evictions)
+          == (n, 1, n - 1),
+          f"one key kept after each call, the card holding no more than its "
+          f"pool and static input + {J_HELD_SLACK / 1e9:.2f} GB; {n} "
+          f"captures, {n - 1} evictions, the repeated length replayed")
+    del clip
+
+    log("  (b) the FIR output warp inside the clip program:")
+    fir = dataclasses.replace(params, output_warp="fir")
+    clip = torch.from_numpy(
+        np.ascontiguousarray(frames[:2, :J_LENGTHS[0]])).to(dev)
+    out, walls, eager_ms, stats = program_vs_eager(
+        prog, lambda: batch.stabilize_streams(clip, fir, dev),
+        J_CLIP_OUTPUTS, 2)
+    per = stats["launches_per_replay"]
+    check(per.get(("gn_solve", None), 0) > 0
+          and per.get(("warp_frames", None), 0) == 0,
+          "kernel B launched in every replay, kernel A not (the FIR warps)")
+    log("  FIR clip " + replay_figures(walls, eager_ms))
+    del clip, out
+
+    log("  (c) eval_combos on the smoother sweep's default clip:")
+    h, w, t = 360, 640, 60
+    small = torch.as_tensor(synth_shaky_clip(
+        t, h, w, seed=4, jitter_px=1.0, pan_px_per_frame=0.3, device=dev),
+        device=dev)
+    gray = flow.gray_f32(small).round().to(torch.uint8)
+    align = StabilizerParams().aligner
+    with graphs.eager():
+        want = batch._align_clip_jit(gray, align, w, h)
+    (meas, ok), first_ms = timed(lambda: batch._align_clip_jit(gray, align,
+                                                               w, h))
+    check(torch.equal(meas, want[0]) and torch.equal(ok, want[1]),
+          f"the app's one align, first call {first_ms:.1f} ms: byte-equal "
+          "to the un-captured one")
+    combos = list(itertools.product(gss.LAMBDAS, gss.DECAYS))
+    lams = torch.tensor([c[0] for c in combos], device=dev)
+    decays = torch.tensor([c[1] for c in combos], device=dev)
+    pair = StabilizerParams(lag=10, smoother_memory=5)
+    out, walls, eager_ms, _ = program_vs_eager(
+        gss.eval_combos,
+        lambda: (gss.eval_combos(small, meas, ok, pair, lams, decays),),
+        ("outputs",), 2)
+    check(tuple(out[0].shape) == (len(combos), t - pair.lag,
+                                  h - 2 * gss.CROP, w - 2 * gss.CROP, 3),
+          f"eval_combos output {tuple(out[0].shape)}")
+    log(f"  eval_combos ({len(combos)} combos) "
+        + replay_figures(walls, eager_ms))
+    del small, out
+
+    log("  (d) median_flow_px called alone:")
+    gray = flow.gray_f32(torch.from_numpy(
+        np.ascontiguousarray(frames[0, :9])).to(dev))
+    prev, curr = gray[:-1], gray[1:]
+    out, walls, eager_ms, _ = program_vs_eager(
+        flow.median_flow_px, lambda: (flow.median_flow_px(prev, curr),),
+        ("medians",), 3)
+    check(tuple(out[0].shape) == (8,) and bool(torch.isfinite(out[0]).all()),
+          f"8 pairs' medians, finite: {[round(float(x), 3) for x in out[0]]}")
+    log("  median_flow_px over 8 pairs " + replay_figures(walls, eager_ms))
+
+
 @phase("1080p similarity with selection='topk': 8 streams x 16-frame "
        "chunks, carried state")
 def topk_path(frames, poses, params, dev, mask_stages):
@@ -2143,12 +2427,15 @@ def aligner_sweep(dev):
     (ok equal, phase 5's bars); (c) the sweep's align time beside the 27
     runs alone; (d) the FIR warp and the device jitter metric over all
     combos' outputs, timed, the best combo's out/in ratio below 0.6.
-    Returns (the kernels line's entry, kernel B's launches)."""
+    Returns (the kernels line's entry, kernel B's launches, the inputs and
+    un-captured figures that J7 and J8 use)."""
     from video_stabilizer_tpu_torch.apps import grid_search_align as gsa
     from video_stabilizer_tpu_torch.config import StabilizerParams
     from video_stabilizer_tpu_torch.models import aligner
-    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+    from video_stabilizer_tpu_torch.models.batch import (
+        _align_clip_jit, align_clip_impl)
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.utils import graphs
     from video_stabilizer_tpu_torch.utils.flow import (
         gray_f32, median_jitter_px_device_impl)
 
@@ -2201,28 +2488,109 @@ def aligner_sweep(dev):
           f"{ok_equal}; |dA,dB| {d_ab:.2e} (bar {GN_AB_BAR:.0e}), |dTX,dTY| "
           f"{d_t:.2e} px (bar {GN_T_BAR:.0e}); {bit_equal} of {len(combos)} "
           "combos bit-equal")
-    log(f"  (c) align: the sweep {sweep_ms:.1f} ms for {len(combos)} combos; "
-        f"the combos one by one {alone_ms:.1f} ms in all "
+    log(f"  (c) align: the sweep {sweep_ms:.1f} ms for {len(combos)} combos "
+        f"un-captured; the combos one by one {alone_ms:.1f} ms in all "
         f"({alone_ms / sweep_ms:.2f}x the sweep)")
     rates = ok[:, 1:].float().mean(dim=1)
     log(f"  align success per combo (frames 1-{SWEEP_FRAMES - 1}): "
         + ", ".join(f"{float(r):.2f}" for r in rates))
+    # The sweep's align replayed (``_align_clip_jit``, the (27,) dyn an
+    # input), against the un-captured run above.
+    graphs.reset([_align_clip_jit])
+    walls, same = [], True
+    for k in range(1 + J_CLIP_REPLAYS):
+        (m_r, ok_r), ms = timed(
+            lambda: _align_clip_jit(gray, base, WIDTH, HEIGHT, dyn))
+        same &= torch.equal(m_r, meas) and torch.equal(ok_r, ok)
+        if k:
+            walls.append(ms)
+        else:
+            first_ms = ms
+    check(same and _align_clip_jit.replays == J_CLIP_REPLAYS,
+          f"    the sweep's align replayed ({_align_clip_jit.replays} "
+          "replays): meas and ok byte-equal to the un-captured sweep")
+    log(f"    first call {first_ms:.1f} ms, graph pool "
+        f"{_align_clip_jit.stats()[0]['pool_bytes'] / 1e9:.2f} GB; "
+        + replay_figures(walls, [sweep_ms]))
+    # The smoother sweep's one align (apps/grid_search_smoother.py): the
+    # clip without dyn at the default parameters, a one-shot call.
+    one_shot = StabilizerParams().aligner
+    with graphs.eager():
+        (m_e, ok_e), eager_ms = timed(
+            lambda: _align_clip_jit(gray, one_shot, WIDTH, HEIGHT))
+    (m_f, ok_f), first_ms = timed(
+        lambda: _align_clip_jit(gray, one_shot, WIDTH, HEIGHT))
+    check(torch.equal(m_f, m_e) and torch.equal(ok_f, ok_e),
+          f"    the smoother sweep's one align: its first call (eager run "
+          f"and capture) {first_ms:.1f} ms against {eager_ms:.1f} ms "
+          "un-captured, byte-equal")
 
-    outs, warp_ms = timed(lambda: gsa.warp_combos(clip, meas, ok, params))
-    in_j, in_ms = timed(lambda: float(median_jitter_px_device_impl(
-        gray_f32(clip))))
-    out_j, metric_ms = timed(lambda: median_jitter_px_device_impl(
-        gray_f32(outs)).cpu())
+    with graphs.eager():
+        outs, warp_ms = timed(lambda: gsa.warp_combos(clip, meas, ok,
+                                                      params))
+        in_j, in_ms = timed(lambda: float(median_jitter_px_device_impl(
+            gray_f32(clip))))
+        out_j, metric_ms = timed(lambda: median_jitter_px_device_impl(
+            gray_f32(outs)).cpu())
     ratios = out_j / max(in_j, 1e-9)
     best = int(torch.argmin(ratios))
-    log(f"  (d) FIR warp of {outs.shape[0]} x {outs.shape[1]} frames "
-        f"{warp_ms:.1f} ms; device jitter metric over all combos' outputs "
-        f"{metric_ms:.1f} ms ({outs.shape[0] * (outs.shape[1] - 1)} pairs), "
-        f"over the input {in_ms:.1f} ms")
+    log(f"  (d) un-captured: FIR warp of {outs.shape[0]} x {outs.shape[1]} "
+        f"frames {warp_ms:.1f} ms; device jitter metric over all combos' "
+        f"outputs {metric_ms:.1f} ms ({outs.shape[0] * (outs.shape[1] - 1)} "
+        f"pairs), over the input {in_ms:.1f} ms (replayed: J7, J8)")
     check(bool(torch.isfinite(ratios).all()) and float(ratios[best]) < 0.6,
           f"input jitter {in_j:.3f} px; best combo {combos[best]} out/in "
           f"{float(ratios[best]):.4f}, worst {float(ratios.max()):.4f}")
-    return entry, launches["gn_solve"]
+    del outs
+    inputs = dict(gray=gray, clip=clip, dyn=dyn, params=params, in_j=in_j,
+                  ratios=ratios, align_ms=sweep_ms, warp_ms=warp_ms,
+                  metric_ms=metric_ms)
+    return entry, launches["gn_solve"], inputs
+
+
+J_SWEEP_REPLAYS = 3
+
+
+@phase("J7. G1's sweep (run_combos: align, accumulate and FIR warp of 27 "
+       "combos) captured and replayed against the un-captured one")
+def sweep_replayed(g1):
+    """``run_combos`` on G1's inputs: the un-captured call twice, the first
+    call and J_SWEEP_REPLAYS replays, outputs, meas and ok byte-equal;
+    times beside G1 (c) and (d)'s un-captured align and FIR. Returns the
+    last replay's outputs for J8."""
+    from video_stabilizer_tpu_torch.apps import grid_search_align as gsa
+
+    out, walls, eager_ms, _ = program_vs_eager(
+        gsa.run_combos,
+        lambda: gsa.run_combos(g1["gray"], g1["clip"], g1["dyn"],
+                               g1["params"]),
+        ("outputs", "meas", "ok"), J_SWEEP_REPLAYS)
+    log(f"  run_combos {replay_figures(walls, eager_ms)}; G1's un-captured "
+        f"align {g1['align_ms']:.1f} ms + FIR {g1['warp_ms']:.1f} ms")
+    return out[0]
+
+
+@phase("J8. the dense-LK jitter metric (median_jitter_px_device_impl) on "
+       "J7's outputs, captured and replayed against the un-captured one")
+def metric_replayed(outs, g1):
+    """``median_jitter_px_device_impl`` over the 27 combos' outputs: the
+    un-captured call twice, the first call and J_SWEEP_REPLAYS replays,
+    byte-equal f32; the out/in ratios equal G1 (d)'s."""
+    from video_stabilizer_tpu_torch.utils.flow import (
+        gray_f32, median_jitter_px_device_impl)
+
+    gray = gray_f32(outs)
+    del outs
+    out, walls, eager_ms, _ = program_vs_eager(
+        median_jitter_px_device_impl,
+        lambda: (median_jitter_px_device_impl(gray),), ("medians",),
+        J_SWEEP_REPLAYS)
+    ratios = out[0].cpu() / max(g1["in_j"], 1e-9)
+    check(torch.equal(ratios, g1["ratios"]),
+          "the replayed metric's out/in ratios equal G1 (d)'s")
+    log(f"  metric over {gray.shape[0]} x {gray.shape[1] - 1} pairs "
+        f"{replay_figures(walls, eager_ms)}; G1 (d) un-captured "
+        f"{g1['metric_ms']:.1f} ms")
 
 
 @phase("G2 kernel C with per-item thresholds vs its plain version (phase "
@@ -2384,7 +2752,7 @@ def apps_pipeline(dev):
 
     from video_stabilizer_tpu_torch.apps import video_test
     from video_stabilizer_tpu_torch.config import StabilizerParams
-    from video_stabilizer_tpu_torch.utils import io, native
+    from video_stabilizer_tpu_torch.utils import graphs, io, native
     from video_stabilizer_tpu_torch.utils.flow import median_jitter_px_device
 
     frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
@@ -2410,6 +2778,15 @@ def apps_pipeline(dev):
               f"{mode}: {len(outs)} outputs in {ms:.1f} ms, align failures "
               f"{failures}; jitter {in_j:.3f} -> {out_j:.3f} px (ratio "
               f"{out_j / in_j:.3f}, bar 0.6)")
+    # The batch mode is a one-shot caller of ``_stabilize_clip_jit`` (the
+    # streams program on one stream): its call above paid the eager run and
+    # the capture.
+    with graphs.eager():
+        (eager_outs, _), eager_ms = timed(
+            lambda: video_test.stabilize_batch(read, params, device=dev))
+    check(all(np.array_equal(a, b) for a, b in zip(eager_outs, outs)),
+          f"batch mode un-captured {eager_ms:.1f} ms against its first call "
+          f"{ms:.1f} ms (eager run and capture): outputs byte-equal")
 
 
 # --------------------------------------------------------------------------
@@ -3052,8 +3429,9 @@ def on_card(params, dev):
     """P5's card part: the graft entry points, and a sharded chunk on the
     one-card mesh against the unsharded call."""
     from video_stabilizer_tpu_torch import graft_entry, parallel
-    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.models import batch, chunked
     from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
+    from video_stabilizer_tpu_torch.utils import graphs
 
     fn, (clip,) = graft_entry.entry()
     out = fn(clip)
@@ -3087,6 +3465,25 @@ def on_card(params, dev):
           f"sharded chunk on the one-card mesh byte-equal to the unsharded "
           f"call: outputs, measurements, flags {same}, carried state "
           f"{same_state}")
+
+    # The sharded clip on the same streams: the shard replays the card's
+    # ``_stabilize_streams_jit`` graph; against the un-captured clip.
+    prog = batch._stabilize_streams_jit
+    graphs.reset([prog])
+    clip = torch.from_numpy(frames).to(dev)
+    with graphs.eager():
+        want, eager_ms = timed(lambda: batch.stabilize_streams(clip, params,
+                                                               dev))
+    runs = [timed(lambda: parallel.stabilize_streams_sharded(clip, mesh,
+                                                             params))
+            for _ in range(2)]
+    same = all(torch.equal(g.shards[0], w)
+               for got, _ in runs for g, w in zip(got, want))
+    check(same and prog.captures == 1 and prog.replays == 1,
+          f"sharded clip (2 x {clip.shape[1]} frames) on the one-card mesh: "
+          f"first call {runs[0][1]:.1f} ms (capture), replay "
+          f"{runs[1][1]:.1f} ms, un-captured {eager_ms:.1f} ms; outputs, "
+          f"measurements, flags byte-equal to the un-captured clip {same}")
 
 
 def main() -> int:
@@ -3172,15 +3569,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         if model == "similarity":
             captured_1080p(frames, prm, dev)
+            clip_1080p(frames, prm, dev)
+            clip_programs(frames, prm, dev)
         else:
             captured_4k(frames, prm, dev)
+            clip_4k(frames, prm, dev)
         del frames
         torch.cuda.empty_cache()
     # The sweeps: G1 (kernel B, one threshold per item) and G2's 4K path
     # (kernel C), each with its own launch counts; then G3.
     sweep = aligner_sweep(dev)
     if sweep is not None:
-        kernels[ITEM_NAME_B], path_launches[ITEM_NAME_B] = sweep
+        kernels[ITEM_NAME_B], path_launches[ITEM_NAME_B], g1 = sweep
+        outs = sweep_replayed(g1)
+        if outs is not None:
+            metric_replayed(outs, g1)
+        del sweep, g1, outs
     torch.cuda.empty_cache()
     n_c = homography_sweep(params_4k, dev)
     if n_c:

@@ -43,7 +43,7 @@ class StandIn:
 
     def __init__(self, fail_capture=False):
         self.fail_capture = fail_capture
-        self.replays = 0
+        self.replays = self.released = 0
 
     def device_of(self, leaves):
         return CPU if any(isinstance(x, torch.Tensor) for x in leaves) \
@@ -75,6 +75,10 @@ class StandIn:
     def replay(self, dev, graph):
         self.replays += 1
         graph()
+
+    def release(self, dev, entries):
+        self.released += len(entries)
+        entries.clear()
 
 
 @pytest.fixture
@@ -218,6 +222,35 @@ def test_cache_key(stand_in):
     metas = {tuple(graphs._meta(v) for v in (c, f))
              for c in (0, 1) for f in (0, 1, 2)}
     assert len(metas) == 6
+
+
+class _PerDevice(StandIn):
+    """The stand-in with each call's tensors' own device as its card."""
+
+    def device_of(self, leaves):
+        return next((x.device for x in leaves
+                     if isinstance(x, torch.Tensor)), None)
+
+
+def test_max_keys_counts_the_keys_of_each_device():
+    """With ``max_keys=1`` a second key on one device drops the first and
+    releases it through the backend; a key on another device does not, so
+    the shards of a mesh each keep their own card's graph."""
+    backend = _PerDevice()
+    prog = graphs.Program(lambda x: x * 2, name="double", max_keys=1)
+    meta = torch.device("meta")
+    with graphs.use_backend(backend):
+        for x in (torch.ones(2), torch.ones(2, device=meta)) * 2:
+            prog(x)
+        assert (prog.captures, prog.replays, prog.evictions) == (2, 2, 0)
+        assert torch.equal(prog(torch.ones(3)), torch.full((3,), 2.0))
+        prog(torch.ones(2, device=meta))
+        assert (prog.captures, prog.replays, prog.evictions) == (3, 3, 1)
+        assert backend.released == 1 and len(prog._cache) == 2
+        prog(torch.ones(2))                 # dropped: captured anew
+        assert (prog.captures, prog.evictions) == (4, 2)
+    prog.reset()
+    assert (prog.captures, prog.replays, prog.evictions) == (0, 0, 0)
 
 
 def test_unhashable_statics_raise_on_the_cpu_path_too():

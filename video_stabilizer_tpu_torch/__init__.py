@@ -29,10 +29,12 @@ Layer map, mirroring the JAX package:
   utils/checkpoint.py  save / load of a VideoStabilizer mid-stream, in the
                      JAX package's .npz layout
   utils/graphs.py    the program layer (jax.jit's counterpart): on the
-                     card the chunk, the streaming align step, gray and
-                     warp, and the smoother window are captured once per
-                     static configuration as CUDA graphs and replayed;
-                     ``graphs.eager()`` runs them un-captured
+                     card the chunk, the clip (align, stabilize, streams),
+                     the streaming align step, gray and warp, the smoother
+                     window, the dense-LK metric and the sweeps' programs
+                     are captured once per static configuration as CUDA
+                     graphs and replayed; ``graphs.eager()`` runs them
+                     un-captured
   utils/spans.py     named CUDA-event spans of the pipeline stages (read
                      from the un-captured path)
   utils/metrics.py   PerformanceMetrics / time_function timers (CUDA events

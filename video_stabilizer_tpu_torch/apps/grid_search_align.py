@@ -8,6 +8,11 @@ threshold, smallest_fraction and max_displacement are per-item aligner
 parameters (models.aligner.DynAlignParams), so all combos of one
 phase-correlate setting align as one batch: one launch of kernel B per
 pyramid level for every combo and frame, with each item's own threshold.
+On the card ``run_combos`` (align, accumulate and FIR warp of every combo)
+is a program, as it is a jit in the JAX app (grid_search_align.py:103):
+captured once per (params, crop) and input shapes as a CUDA graph, then
+replayed, one key per card (utils/graphs.py); with ``--device-metric`` the
+dense-LK metric is its own program (utils/flow.py).
 
 Usage:
     python -m video_stabilizer_tpu_torch.apps.grid_search_align
@@ -21,6 +26,8 @@ import itertools
 import time
 
 import numpy as np
+
+from video_stabilizer_tpu_torch.utils.graphs import Program
 
 # The reference's grid (grid_search_align.cpp:135-146).
 THRESHOLDS = (0.01, 0.02, 0.04)
@@ -98,15 +105,19 @@ def warp_combos(frames, meas, ok, params, crop=CROP):
     return torch.stack(outs)
 
 
-def run_combos(gray, frames, dyn, params, crop=CROP):
+def _run_combos(gray, frames, dyn, params, crop=CROP):
     """Align a (T, H, W) u8 gray clip tensor under every combo of ``dyn``
-    at once (``align_clip_impl``), then ``warp_combos``. Returns (outs,
-    meas (C, T, 4), ok (C, T))."""
-    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+    at once (``batch._align_clip_jit``, inline here), then
+    ``warp_combos``. Returns (outs, meas (C, T, 4), ok (C, T))."""
+    from video_stabilizer_tpu_torch.models.batch import _align_clip_jit
 
     height, width = gray.shape[1:3]
-    meas, ok = align_clip_impl(gray, params.aligner, width, height, dyn=dyn)
+    meas, ok = _align_clip_jit(gray, params.aligner, width, height, dyn=dyn)
     return warp_combos(frames, meas, ok, params, crop), meas, ok
+
+
+run_combos = Program(_run_combos, static_argnames=("params", "crop"),
+                     name="run_combos", max_keys=1)
 
 
 def main(argv=None):

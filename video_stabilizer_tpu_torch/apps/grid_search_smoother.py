@@ -7,7 +7,13 @@ apps/grid_search_smoother.py.
 The aligner runs once; only the smoother, the accumulator and the FIR warp
 re-run per combo. lambda and the decay parameters are per-combo tensors, so
 the combos of one (lag, memory) pair smooth and accumulate as one batch;
-lag and memory change the window geometry and run one pair at a time.
+lag and memory change the window geometry and run one pair at a time. On
+the card the one align is ``batch._align_clip_jit`` and each (lag, memory)
+pair ``eval_combos``, as the JAX app jits both (grid_search_smoother.py:61,
+75): programs of utils/graphs.py. Each pair is a new key of
+``eval_combos``, run once and captured once as a CUDA graph (as the JAX
+app compiles each pair), and the program keeps only the last key's graph
+and memory pool.
 
 Usage:
     python -m video_stabilizer_tpu_torch.apps.grid_search_smoother
@@ -20,6 +26,8 @@ import time
 
 import numpy as np
 
+from video_stabilizer_tpu_torch.utils.graphs import Program
+
 # Grids in the spirit of grid_search_smoother.cpp:164-187 (lag x memory
 # with validity filter lag >= memory; lambda; decay windows).
 LAGS = (6, 10, 14)
@@ -30,7 +38,7 @@ DECAYS = ((48.0, 64.0, 0.9, 0.7), (32.0, 48.0, 0.95, 0.8),
 CROP = 16
 
 
-def eval_combos(frames, meas, ok, params, lams, decays, crop=CROP):
+def _eval_combos(frames, meas, ok, params, lams, decays, crop=CROP):
     """Smooth (with one ``lams`` entry per combo), accumulate (with one
     (min_disp, max_disp, min_decay, max_decay) row of ``decays`` per combo)
     and FIR-warp a (T, H, W, 3) u8 clip tensor's delayed frames for C
@@ -62,6 +70,10 @@ def eval_combos(frames, meas, ok, params, lams, decays, crop=CROP):
     return torch.stack(outs)
 
 
+eval_combos = Program(_eval_combos, static_argnames=("params", "crop"),
+                      name="eval_combos", max_keys=1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--video")
@@ -75,7 +87,7 @@ def main(argv=None):
 
     from video_stabilizer_tpu_torch.config import StabilizerParams
     from video_stabilizer_tpu_torch.device import resolve_device
-    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+    from video_stabilizer_tpu_torch.models.batch import _align_clip_jit
     from video_stabilizer_tpu_torch.utils.io import (
         read_video, synth_shaky_clip)
     from video_stabilizer_tpu_torch.utils.jitter import median_jitter_px
@@ -96,7 +108,7 @@ def main(argv=None):
 
     # Align once.
     base = StabilizerParams()
-    meas, ok = align_clip_impl(torch.as_tensor(gray).to(device), base.aligner,
+    meas, ok = _align_clip_jit(torch.as_tensor(gray).to(device), base.aligner,
                                width, height)
     print(f"aligned once: {int((~ok).sum()) - 1} failures")
 

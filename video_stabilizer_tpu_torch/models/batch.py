@@ -28,6 +28,19 @@ item axis: one kernel B launch per level for C x aligns items, which share
 the keyframe windows through ``key_index`` rather than copying them. The
 smoother and the accumulator take a per-combo ``lam`` and ``decay`` for the
 smoother sweep (apps/grid_search_smoother.py).
+
+On the card the clip entry points replay the JAX package's three clip
+programs (batch.py:232, 383, 395), captured once per static configuration
+as CUDA graphs (utils/graphs.py): ``_align_clip_jit`` (``align_clip_impl``,
+with ``dyn`` a tensor input whose shapes are part of the key) and
+``_stabilize_streams_jit``; ``_stabilize_clip_jit`` is the streams program
+on a batch of one. The model is one of their static arguments, so the
+homography family's three jits (homography_aligner.py:326, 436, 449) are
+these programs keyed on ``model="homography"``. Each keeps one key per
+card (``max_keys=1``): a call with another clip length, stream count or
+combo count drops the last key's graph and memory pool and captures anew.
+``stabilize_clip_core`` stays un-captured for the stage tables, as
+``chunked.stabilize_chunk_core`` does.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from video_stabilizer_tpu_torch.ops.fast_warp import (
     warp_homography_fast, warp_image_fast)
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
 
 
@@ -400,33 +414,62 @@ def align_clip_impl(frames, params, width: int, height: int, dyn=None,
     return meas[..., 0, :t_in, :], ok[..., 0, :t_in]
 
 
+def _stabilize_streams_body(frames, params: StabilizerParams, width: int,
+                            height: int, model: str = "similarity"):
+    """``stabilize_clip_core`` and the one warp of the whole (S, T - lag)
+    batch (batch.py:395-402)."""
+    delayed, accums, meas, ok = stabilize_clip_core(frames, params, width,
+                                                    height, model)
+    out = warp_delayed(delayed, accums, params, width, height, model)
+    return out, meas, ok
+
+
+# The JAX package's clip programs, one key per card; the chunk programs
+# (models/chunked.py) take the same static arguments.
+STATICS = ("params", "width", "height", "model")
+_align_clip_jit = Program(align_clip_impl, static_argnames=STATICS,
+                          name="_align_clip_jit", max_keys=1)
+_stabilize_streams_jit = Program(_stabilize_streams_body,
+                                 static_argnames=STATICS,
+                                 name="_stabilize_streams_jit", max_keys=1)
+
+
+def _stabilize_clip_jit(frames, params: StabilizerParams, width: int,
+                        height: int, model: str = "similarity"):
+    """One (T, H, W[, 3]) clip (batch.py:383): ``_stabilize_streams_jit``
+    on a batch of one, its graph shared with one-stream calls."""
+    out, meas, ok = _stabilize_streams_jit(frames[None], params, width,
+                                           height, model)
+    return out[0], meas[0], ok[0]
+
+
 def align_clip(frames, params=None, device=None, model: str = "similarity"):
     """(T, H, W) or (T, H, W, 3) u8 clip -> (meas (T, P), success (T,)),
     per-frame motion from the previous frame; the first frame is reported
-    unsuccessful like the streaming path."""
+    unsuccessful like the streaming path. On the card a replay of
+    ``_align_clip_jit``."""
     from video_stabilizer_tpu_torch.config import AlignerParams
     params = AlignerParams() if params is None else params
     frames = torch.as_tensor(frames).to(resolve_device(device))
     h, w = frames.shape[1], frames.shape[2]
-    return align_clip_impl(frames, params, w, h, model=model)
+    return _align_clip_jit(frames, params, w, h, model=model)
 
 
 def stabilize_streams(frames, params: StabilizerParams = StabilizerParams(),
                       device=None, model: str = "similarity"):
     """(S, T, H, W[, 3]) u8 -> (stabilized (S, T - lag, H - 2c, W - 2c[, 3])
     u8, meas (S, T, P), success (S, T)); the warp runs once over the whole
-    (S, T - lag) batch."""
-    dev = resolve_device(device)
-    frames = torch.as_tensor(frames).to(dev)
+    (S, T - lag) batch. On the card a replay of ``_stabilize_streams_jit``;
+    the clip crosses to the card before the call."""
+    frames = torch.as_tensor(frames).to(resolve_device(device))
     h, w = frames.shape[2], frames.shape[3]
-    delayed, accums, meas, ok = stabilize_clip_core(frames, params, w, h,
-                                                    model)
-    return warp_delayed(delayed, accums, params, w, h, model), meas, ok
+    return _stabilize_streams_jit(frames, params, w, h, model)
 
 
 def stabilize_clip(frames, params: StabilizerParams = StabilizerParams(),
                    device=None, model: str = "similarity"):
-    """(T, H, W[, 3]) u8 clip -> (stabilized (T - lag, ...), meas, success)."""
-    out, meas, ok = stabilize_streams(torch.as_tensor(frames)[None], params,
-                                      device, model)
-    return out[0], meas[0], ok[0]
+    """(T, H, W[, 3]) u8 clip -> (stabilized (T - lag, ...), meas, success);
+    on the card a replay of ``_stabilize_streams_jit`` on one stream."""
+    frames = torch.as_tensor(frames).to(resolve_device(device))
+    h, w = frames.shape[1], frames.shape[2]
+    return _stabilize_clip_jit(frames, params, w, h, model)

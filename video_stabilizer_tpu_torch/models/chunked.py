@@ -38,7 +38,7 @@ from video_stabilizer_tpu_torch.config import (  # noqa: F401 (re-export)
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import LevelKeyData, level_specs
 from video_stabilizer_tpu_torch.models.batch import (
-    PairCarry, align_pairs, fold_jitter, init_pair_carry, model_ops,
+    STATICS, PairCarry, align_pairs, fold_jitter, init_pair_carry, model_ops,
     warp_delayed)
 from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
@@ -187,11 +187,10 @@ def _chunk_one_stream(state: StreamState, frames, params: StabilizerParams,
 # each is captured once per static configuration and replayed
 # (utils/graphs.py); a host frame tensor is copied straight into the
 # graph's input (pinned memory: asynchronously).
-_STATICS = ("params", "width", "height", "model")
 _stabilize_chunk_streams_jit = Program(_chunk_streams,
-                                       static_argnames=_STATICS,
+                                       static_argnames=STATICS,
                                        name="_stabilize_chunk_streams_jit")
-_stabilize_chunk_jit = Program(_chunk_one_stream, static_argnames=_STATICS,
+_stabilize_chunk_jit = Program(_chunk_one_stream, static_argnames=STATICS,
                                name="_stabilize_chunk_jit")
 
 

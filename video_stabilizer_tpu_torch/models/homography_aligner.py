@@ -15,10 +15,15 @@ levels. Each level's GN loop runs in kernel C (``ops/gn8_solve.py``).
 An item is one alignment of a template pyramid against a keyframe, named by
 index, as in ``models/aligner.py``. The clip, stream and chunked pipelines
 are those of ``models/batch.py`` and ``models/chunked.py`` with
-``model="homography"``; the entry points below name them.
+``model="homography"``; the entry points below name them. The JAX
+package's three homography clip programs (homography_aligner.py:326, 436,
+449) are batch's clip programs keyed on ``model="homography"``: the same
+captured graphs as the entry points below replay.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,6 +32,9 @@ from video_stabilizer_tpu_torch.config import AlignerParams, StabilizerParams
 from video_stabilizer_tpu_torch.models.aligner import (
     LevelKeyData, LevelSpec, per_item_params, selection_mask,
     template_intensities)
+from video_stabilizer_tpu_torch.models.batch import (
+    _align_clip_jit, _stabilize_clip_jit, _stabilize_streams_jit, align_clip,
+    stabilize_clip, stabilize_clip_core, stabilize_streams, warp_delayed)
 from video_stabilizer_tpu_torch.ops.argmax import (
     grad_argmax, take_at_tile_argmax)
 from video_stabilizer_tpu_torch.ops.gn8_solve import (
@@ -160,21 +168,25 @@ def warp_delayed_homography(delayed, accums, params: StabilizerParams,
                             width: int, height: int):
     """Warp + crop delayed frames by their (..., 8) corrections, which are
     the sampling homographies themselves (homography_aligner.py:382-408)."""
-    from video_stabilizer_tpu_torch.models.batch import warp_delayed
     return warp_delayed(delayed, accums, params, width, height,
                         model="homography")
 
 
+_align_clip_h_jit = functools.partial(_align_clip_jit, model="homography")
+_stabilize_clip_h_jit = functools.partial(_stabilize_clip_jit,
+                                          model="homography")
+_stabilize_streams_h_jit = functools.partial(_stabilize_streams_jit,
+                                             model="homography")
+
+
 def align_clip_homography(frames, params=None, device=None):
     """(T, H, W[, 3]) u8 -> ((T, 8) homographies, (T,) success)."""
-    from video_stabilizer_tpu_torch.models.batch import align_clip
     return align_clip(frames, params, device, model="homography")
 
 
 def stabilize_clip_homography_core(frames, params: StabilizerParams,
                                    width: int, height: int):
     """Align + smooth + accumulate (no warp) of (S, T, H, W[, 3]) u8."""
-    from video_stabilizer_tpu_torch.models.batch import stabilize_clip_core
     return stabilize_clip_core(frames, params, width, height,
                                model="homography")
 
@@ -183,7 +195,6 @@ def stabilize_streams_homography(frames,
                                  params: StabilizerParams = StabilizerParams(),
                                  device=None):
     """(S, T, H, W[, 3]) u8 -> (S, T - lag, ...) with the 8-DOF model."""
-    from video_stabilizer_tpu_torch.models.batch import stabilize_streams
     return stabilize_streams(frames, params, device, model="homography")
 
 
@@ -191,5 +202,4 @@ def stabilize_clip_homography(frames,
                               params: StabilizerParams = StabilizerParams(),
                               device=None):
     """Full 8-DOF stabilization of a (T, H, W[, 3]) u8 clip."""
-    from video_stabilizer_tpu_torch.models.batch import stabilize_clip
     return stabilize_clip(frames, params, device, model="homography")

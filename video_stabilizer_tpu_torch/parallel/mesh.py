@@ -12,12 +12,18 @@ function once per shard, on the shard's device, on that shard's tensors
 only. No operation reads another shard's tensors: that is this port's form
 of the zero-collective program.
 
-One host thread issues the shards in turn. A chunk is bound by the host's
-launches, not by the card (PERF.md section 5: the device idles most of a
-chunk while the host issues eager launches), so N cards driven this way do
-not run N times as many streams: the host issues the N shards' launches
-one after the other. Whether a thread or a process per card would scale is
-not measured; only one card has been.
+On the card each shard replays its own card's captured graph: the chunk
+program (``chunked._stabilize_chunk_streams_jit``) for a chunk, the clip
+program (``batch._stabilize_streams_jit``) for a clip. A program's cache key
+holds its tensors' device, so each card captures its own graph once and
+replays it; no graph spans two cards. That is the counterpart of the JAX
+package's ``_stabilize_sharded_jit`` (mesh.py:51) and its sharded chunk
+(mesh.py:119), local programs under ``shard_map`` with zero collectives,
+and needs no program of its own.
+
+One host thread issues the shards in turn: a shard costs it one graph
+launch and the copies in and out. Whether N cards then run N times as many
+streams is not measured; only one card has been.
 """
 
 from __future__ import annotations
@@ -109,7 +115,8 @@ def shard_streams(batch, mesh: Mesh) -> Sharded:
 def stabilize_streams_sharded(frames_bgr, mesh: Mesh,
                               params: StabilizerParams = StabilizerParams()):
     """Stabilize (S, T, H, W, 3) u8 with S split over ``mesh`` (S divisible
-    by the mesh size): the port's ``stabilize_streams`` per shard. Returns
+    by the mesh size): the port's ``stabilize_streams`` per shard, which on
+    a card replays that card's ``_stabilize_streams_jit`` graph. Returns
     (stabilized, measurements, success), each ``Sharded`` like the input."""
     frames = shard_streams(frames_bgr, mesh)
     results = []

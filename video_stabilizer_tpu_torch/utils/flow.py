@@ -15,6 +15,13 @@ and the combos of a sweep):
   - the pyramid is a float32 [1, 4, 6, 4, 1] / 16 blur with repeated edges
     and 2x decimation.
 
+On the card ``median_flow_px`` and ``median_jitter_px_device_impl`` are
+programs, as they are jits in the JAX package (flow.py:141, 154): each is
+captured once per static configuration (``levels``, ``radius``, ``iters``,
+``crop``) and input shape as a CUDA graph and replayed (utils/graphs.py),
+keeping one key per card; inside ``median_jitter_px_device_impl`` the
+per-group ``median_flow_px`` runs inline.
+
 Plain PyTorch: the JAX package runs this as XLA, not as a Pallas kernel.
 The box sums differ from the JAX package's in the last bits, because a
 cumulative sum adds in another order (on the CPU torch accumulates it in
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from video_stabilizer_tpu_torch.device import resolve_device
+from video_stabilizer_tpu_torch.utils.graphs import Program
 
 # Pixels of float32 work per call of ``median_flow_px`` in
 # ``median_jitter_px_device_impl``: a 1080p pair holds some 25 full-size
@@ -169,8 +177,8 @@ def _median(x, dim: int = -1):
     return ((lo + hi) * 0.5).squeeze(dim)
 
 
-def median_flow_px(prev, curr, levels: int = 3, radius: int = 7,
-                   iters: int = 3, crop: int = 8):
+def _median_flow_px(prev, curr, levels: int = 3, radius: int = 7,
+                    iters: int = 3, crop: int = 8):
     """Median |flow| between (..., H, W) frame pairs, border-cropped (the
     per-pair statistic of eval_jitter.cpp:59-65, flow.py:141-151): (...,)
     f32."""
@@ -181,8 +189,14 @@ def median_flow_px(prev, curr, levels: int = 3, radius: int = 7,
     return _median(mag.flatten(-2))
 
 
-def median_jitter_px_device_impl(gray_clip, levels: int = 3, radius: int = 7,
-                                 iters: int = 3, crop: int = 8):
+_FLOW_STATICS = ("levels", "radius", "iters", "crop")
+median_flow_px = Program(_median_flow_px, static_argnames=_FLOW_STATICS,
+                         name="median_flow_px", max_keys=1)
+
+
+def _median_jitter_px_device_impl(gray_clip, levels: int = 3,
+                                  radius: int = 7, iters: int = 3,
+                                  crop: int = 8):
     """(..., T, H, W) gray clips -> (...,) f32 medians over their
     consecutive-pair medians, on the clips' device (flow.py:154-164). The
     pairs of all clips run in groups of PAIR_GROUP_PIXELS."""
@@ -196,6 +210,12 @@ def median_jitter_px_device_impl(gray_clip, levels: int = 3, radius: int = 7,
                        radius, iters, crop)
         for i in range(0, prevs.shape[0], group)])
     return _median(meds.reshape(clips.shape[0], t_n - 1)).reshape(lead)
+
+
+median_jitter_px_device_impl = Program(_median_jitter_px_device_impl,
+                                       static_argnames=_FLOW_STATICS,
+                                       name="median_jitter_px_device_impl",
+                                       max_keys=1)
 
 
 def gray_f32(frames):

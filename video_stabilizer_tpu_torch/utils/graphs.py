@@ -35,6 +35,14 @@ once, then replayed:
     (the counterpart of ``jax.disable_jit``): stage tables come from there.
   - A capture that fails raises, naming the last torch function it reached;
     nothing falls back to the eager path.
+  - Each key keeps its graph, its memory pool and its static inputs until
+    ``reset``, unless the program was made with ``max_keys``: then a new
+    key's first call on a card that already holds ``max_keys`` of its keys
+    first drops the least recently called of them, its graph and pool with
+    it, and gives their memory back to the card. The clip, metric and
+    sweep programs keep one key per card: a clip's pool grows with its
+    length (14.91 GB for 8 x 32 frames of 1080p on an NVIDIA H100), and a
+    video's length changes from clip to clip.
 
 On CPU tensors a program calls ``fn`` directly: the CPU runs the plain
 versions, as the kernel wrappers do. A program called from inside another
@@ -215,6 +223,14 @@ class CudaGraphs:
     def replay(self, dev, graph):
         graph.replay()
 
+    def release(self, dev, entries):
+        """Free the dropped ``entries`` (their graphs, static inputs and
+        outputs) once the card has run what was queued, and give their
+        memory pools back to the card."""
+        torch.cuda.synchronize(dev)
+        entries.clear()
+        torch.cuda.empty_cache()
+
 
 def _the_backend():
     global _backend
@@ -261,11 +277,12 @@ def _tracing():
 # -- programs -----------------------------------------------------------------
 
 class _Entry:
-    """One captured key: static inputs (None for non-tensor leaves), the
-    graph, its static outputs and their structure, the launch-count deltas
-    of one replay, and what the capture cost."""
+    """One captured key: its device, static inputs (None for non-tensor
+    leaves), the graph, its static outputs and their structure, the
+    launch-count deltas of one replay, and what the capture cost."""
 
-    def __init__(self, static_in, graph, out, delta, stats):
+    def __init__(self, dev, static_in, graph, out, delta, stats):
+        self.dev = dev
         self.static_in = static_in
         self.graph = graph
         self.out_leaves = []
@@ -277,9 +294,10 @@ class _Entry:
 class Program:
     """A function captured once per cache key and replayed on the card
     (see the module's docstring). ``captures`` and ``replays`` count what
-    it did; ``stats()`` lists each key's capture figures."""
+    it did, ``evictions`` the keys ``max_keys`` dropped; ``stats()`` lists
+    each kept key's capture figures."""
 
-    def __init__(self, fn, static_argnames=(), name=None):
+    def __init__(self, fn, static_argnames=(), name=None, max_keys=None):
         self.fn = fn
         self.name = name or fn.__name__
         self._sig = inspect.signature(fn)
@@ -287,9 +305,9 @@ class Program:
         if unknown:
             raise ValueError(f"{self.name} has no argument {sorted(unknown)}")
         self.static_argnames = tuple(static_argnames)
-        self._cache = {}
-        self.captures = 0
-        self.replays = 0
+        self.max_keys = max_keys
+        self._cache = {}         # least recently called first
+        self.captures = self.replays = self.evictions = 0
         PROGRAMS.append(self)
 
     def __repr__(self):
@@ -300,7 +318,7 @@ class Program:
         """Drop every captured graph (and its memory pool) and set the
         counts to 0."""
         self._cache.clear()
-        self.captures = self.replays = 0
+        self.captures = self.replays = self.evictions = 0
 
     def stats(self) -> list:
         return [e.stats for e in self._cache.values()]
@@ -337,10 +355,12 @@ class Program:
                 "replayed graph cannot be timed; record the stages inside "
                 "graphs.eager()")
         with backend.on(dev):
-            entry = self._cache.get(key)
+            entry = self._cache.pop(key, None)
             if entry is None:
+                self._make_room(dev, backend)
                 return self._first_call(key, arguments, dyn_names, spec,
                                         leaves, dev, backend)
+            self._cache[key] = entry
             for buf, x in zip(entry.static_in, leaves):
                 if buf is not None:
                     buf.copy_(x, non_blocking=True)
@@ -350,6 +370,17 @@ class Program:
             return _unflatten(entry.out_spec, iter(
                 [y.clone() if isinstance(y, torch.Tensor) else y
                  for y in entry.out_leaves]))
+
+    def _make_room(self, dev, backend):
+        """Drop the least recently called keys on ``dev`` beyond
+        ``max_keys - 1``, before a new key's capture needs their memory."""
+        if self.max_keys is None:
+            return
+        on_dev = [k for k, e in self._cache.items() if e.dev == dev]
+        old = on_dev[:max(0, len(on_dev) - self.max_keys + 1)]
+        if old:
+            self.evictions += len(old)
+            backend.release(dev, [self._cache.pop(k) for k in old])
 
     def _first_call(self, key, arguments, dyn_names, spec, leaves, dev,
                     backend):
@@ -382,7 +413,8 @@ class Program:
         stats = dict(program=self.name, first_call_s=time.perf_counter() - t0,
                      eager_s=t1 - t0, capture_s=cap_s, instantiate_s=inst_s,
                      pool_bytes=pool, launches_per_replay=delta)
-        self._cache[key] = _Entry(static_in, graph, static_out, delta, stats)
+        self._cache[key] = _Entry(dev, static_in, graph, static_out, delta,
+                                  stats)
         self.captures += 1
         print(f"{self.name}: first call {stats['first_call_s']:.2f} s (eager "
               f"{stats['eager_s']:.2f} s, capture {cap_s:.2f} s, instantiate "
