@@ -133,6 +133,23 @@ Run from the root of the repository. Phases:
      app's default clip (60 frames of 360x640, seed 4; lag 10, memory 5,
      its 12 combos), after the app's one align, (d) ``median_flow_px``
      called alone on 8 1080p pairs: each as J5, with 2 or 3 replays.
+J10. The chunk programs' memory, and long replay. (a)
+     ``stabilize_chunk_streams`` on 16-frame chunks of phase 9's streams
+     with 8, 6, 4, 8, 6, 4 and 8 streams in a row (each stream count's
+     state carried to its next call), then ``ChunkedStabilizer.
+     process_chunk`` on one stream with chunks of 16, 8, 16, 8, 6, 4 and 2
+     frames. After each call, its cache emptied, the card holds no more
+     than the largest pool a key grew at its capture, the kept keys'
+     static inputs, the other kept keys' static outputs, the caller's
+     state and 0.25 GB (the shared pool's own segments printed beside);
+     at most 4 keys are kept, and the 5th chunk length drops the least
+     recently called. Every repeated shape replays, and every replay is
+     byte-equal to the un-captured call on the same inputs (outputs,
+     meas, success, valid, carried state), after the other keys of the
+     shared pool captured and replayed in between. (b) 1,000 replays of
+     tests/test_torch_soak.py's 64x48 two-frame chunk: one capture, the
+     card's reserved memory the same after replay 1 and replay 1,000, the
+     state finite; the replays' median time.
  11. Reported, no bar: one chunk of 4 px jitter content through kernel B
      and through its plain version (un-captured, so the patched engine
      runs), with convergence and known-motion
@@ -262,8 +279,8 @@ Run from the root of the repository. Phases:
      ``apps/multihost_smoke`` (CPU, gloo) as a subprocess.
 
 After each phase every program's graphs but the streaming programs' are
-dropped (a chunk graph holds a memory pool of 8.76 GB); the streaming
-programs' stay. Every
+dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
+GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
 (nine entries: kernel A's two chunked forms and its one-frame form, B per
@@ -340,8 +357,8 @@ def phase(name: str):
 
 def release_graphs():
     """Drop every program's captured graphs after a phase but the streaming
-    programs': a chunk, clip, sweep or metric graph holds its own memory
-    pool (8.76 GB for an 8-stream 1080p or a 2-stream 4K chunk), and the
+    programs': a chunk, clip, sweep or metric program holds a memory pool
+    (8.76 GB for an 8-stream 1080p or a 2-stream 4K chunk), and the
     phases run dozens of configurations. The streaming programs' pools are
     small (under 0.1 GB each) and stay, so that the streaming phases replay
     graphs the earlier ones captured."""
@@ -1884,6 +1901,227 @@ def clip_programs(frames, params, dev):
     check(tuple(out[0].shape) == (8,) and bool(torch.isfinite(out[0]).all()),
           f"8 pairs' medians, finite: {[round(float(x), 3) for x in out[0]]}")
     log("  median_flow_px over 8 pairs " + replay_figures(walls, eager_ms))
+
+
+J10_STREAMS = (8, 6, 4, 8, 6, 4, 8)    # J10 (a): stream counts in a row
+J10_LENGTHS = (16, 8, 16, 8, 6, 4, 2)  # then one stream's chunk lengths
+J10_REPLAYS = 1000                     # J10 (b): the soak's chunk replayed
+J10_NAMES = ("state", "outputs", "meas", "succ", "valid")
+# tests/test_torch_soak.py's stream: 64x48, its parameters and content.
+SOAK_H, SOAK_W, SOAK_FRAMES = 48, 64, 1000
+
+
+def tree_to(tree, dev):
+    """A tensor or a nested tuple (NamedTuple) of them, moved to ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, tuple):
+        items = [tree_to(x, dev) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return tree
+
+
+def pool_segments(handle) -> int:
+    """The bytes of the card's segments in the memory pool ``handle``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(handle))
+
+
+def same_as_eager(call, got) -> bool:
+    """A replay's outputs ``got`` (named J10_NAMES) against ``call()`` run
+    twice inside ``graphs.eager()`` on the same inputs: byte-equal to the
+    first run, or within phase 9's bars where the two runs differ from each
+    other (the state is then not held)."""
+    from video_stabilizer_tpu_torch.utils import graphs
+    with graphs.eager():
+        runs = [call() for _ in range(2)]
+    ok = True
+    for name, g, w, w2 in zip(J10_NAMES, got, *runs):
+        if name == "state":
+            ok &= leaves_equal(g, w) or not leaves_equal(w, w2)
+        elif torch.equal(w, w2):
+            ok &= g.dtype == w.dtype and torch.equal(g, w)
+        else:
+            ok &= within_bars(name, g, w)
+    return ok
+
+
+class HeldMemory:
+    """J10 (a)'s bar: after a call, with the card's cache emptied, the
+    reserved memory over ``base`` is at most the largest pool a key of the
+    program grew at its capture since the pool opened (a dropped key's
+    blocks stay in the shared pool while another key holds it), the kept
+    keys' static inputs, the other kept keys' static outputs, what the
+    caller holds, and 0.25 GB."""
+
+    def __init__(self, prog):
+        self.prog = prog
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self.base = torch.cuda.memory_reserved()
+        self.peak = 0
+
+    def read(self, caller) -> tuple:
+        """(within the bar, a line for the log)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() - self.base
+        stats = self.prog.stats()
+        self.peak = max([self.peak] + [s["pool_bytes"] for s in stats])
+        largest = max(stats, key=lambda s: s["pool_bytes"])
+        ins = sum(s["static_in_bytes"] for s in stats)
+        outs = sum(s["static_out_bytes"] for s in stats)
+        if largest["pool_bytes"] == self.peak:
+            outs -= largest["static_out_bytes"]
+        bar = self.peak + ins + outs + caller + J_HELD_SLACK
+        pool = pool_segments(self.prog.pool(torch.device(
+            "cuda", torch.cuda.current_device())))
+        return held <= bar, (
+            f"keys kept {len(stats)}, captures {self.prog.captures}, "
+            f"replays {self.prog.replays}, evictions {self.prog.evictions}; "
+            f"held {held / 1e9:.2f} GB <= {bar / 1e9:.2f} GB (largest pool "
+            f"{self.peak / 1e9:.2f} + static inputs {ins / 1e9:.2f} + other "
+            f"keys' static outputs {outs / 1e9:.2f} + the caller's "
+            f"{caller / 1e9:.2f} + {J_HELD_SLACK / 1e9:.2f}); the shared "
+            f"pool's segments {pool / 1e9:.2f} GB")
+
+
+@phase("J10. the chunk programs' memory over stream counts and chunk "
+       "lengths (4 keys per card in one shared pool), and 1,000 replays of "
+       "the soak's chunk")
+def chunk_programs(frames, params, dev):
+    """See J10 in the module's docstring."""
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
+    from video_stabilizer_tpu_torch.utils import graphs
+    from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
+
+    prog = chunked._stabilize_chunk_streams_jit
+    graphs.reset([prog])
+    memory = HeldMemory(prog)
+    log(f"  (a) stabilize_chunk_streams on {CHUNK}-frame chunks of "
+        f"{J10_STREAMS} streams in a row, each stream count's state "
+        f"carried on the host (the program copies it in); reserved memory "
+        f"after each call (cache emptied) over the "
+        f"{memory.base / 1e9:.2f} GB before:")
+    states, ok_held, ok_same, most, calls = {}, True, True, 0, {}
+    for s in J10_STREAMS:
+        c = calls[s] = calls.get(s, -1) + 1
+        x = torch.from_numpy(np.ascontiguousarray(
+            frames[:s, c * CHUNK:(c + 1) * CHUNK]))
+        state = states.get(s) or chunked.init_stream_state(
+            WIDTH, HEIGHT, params, 3, s, "cpu")
+        replays = prog.replays
+        got, ms = timed(lambda: chunked.stabilize_chunk_streams(
+            tree_to(state, dev), x, params))
+        replayed = prog.replays > replays
+        if replayed:
+            ok_same &= same_as_eager(
+                lambda: chunked.stabilize_chunk_streams(
+                    tree_to(state, dev), x, params), got)
+        states[s] = tree_to(got[0], "cpu")
+        del got, state
+        within, line = memory.read(0)
+        ok_held &= within
+        most = max(most, len(prog.stats()))
+        log(f"    {s} streams, chunk {c}: "
+            f"{'replay' if replayed else 'first call'} {ms:.1f} ms; {line}")
+    n_keys = len(set(J10_STREAMS))
+    check(ok_held and most <= 4,
+          "the card held no more than the bar after every call, at most 4 "
+          "keys kept")
+    check((prog.captures, prog.replays, prog.evictions)
+          == (n_keys, len(J10_STREAMS) - n_keys, 0) and ok_same,
+          f"{prog.captures} captures, {prog.replays} replays: every repeated "
+          "stream count replayed, byte-equal to the un-captured call "
+          "(outputs, meas, success, valid, carried state) after the other "
+          "keys' captures and replays")
+    del states
+
+    prog1 = chunked._stabilize_chunk_jit
+    graphs.reset([prog, prog1])
+    memory = HeldMemory(prog1)
+    log(f"  ChunkedStabilizer.process_chunk on one stream, chunks of "
+        f"{J10_LENGTHS} frames in a row:")
+    stab = chunked.ChunkedStabilizer(params, device=dev)
+    start, ok_held, ok_same = 0, True, True
+    for t in J10_LENGTHS:
+        x = torch.from_numpy(np.ascontiguousarray(frames[0, start:start + t]))
+        start += t
+        prev = stab._state if stab._state is not None else \
+            chunked.init_stream_state(WIDTH, HEIGHT, params, 3, 1, dev)
+        replays = prog1.replays
+        got, ms = timed(lambda: stab.process_chunk(x))
+        replayed = prog1.replays > replays
+        if replayed:
+            def reference():
+                st, out, meas, succ, valid = chunked.stabilize_chunk_impl(
+                    prev, x, params)
+                return st, out[valid], meas, succ
+            ok_same &= same_as_eager(reference, (stab._state, *got))
+        del got, prev
+        within, line = memory.read(graphs.storage_nbytes(tensor_leaves(
+            stab._state)))
+        ok_held &= within
+        log(f"    {t} frames: {'replay' if replayed else 'first call'} "
+            f"{ms:.1f} ms; {line}")
+    kept = sorted({m[1][0] for key in prog1._cache for m in key[2]
+                   if m[0] == "tensor" and m[1][1:] == (HEIGHT, WIDTH, 3)})
+    want_kept = sorted(set(J10_LENGTHS) - {J10_LENGTHS[0]})
+    n_keys = len(set(J10_LENGTHS))
+    check(ok_held, "the card held no more than the bar after every call")
+    check((prog1.captures, prog1.replays, prog1.evictions)
+          == (n_keys, len(J10_LENGTHS) - n_keys, n_keys - 4) and ok_same
+          and kept == want_kept,
+          f"{prog1.captures} captures, {prog1.replays} replays (byte-equal "
+          f"to the un-captured call), {prog1.evictions} eviction: the 5th "
+          f"chunk length dropped the least recently called; kept {kept}")
+    del stab
+
+    log(f"  (b) {J10_REPLAYS} replays of the soak's {SOAK_W}x{SOAK_H} "
+        "two-frame chunk (tests/test_torch_soak.py's stream):")
+    soak = StabilizerParams(lag=4, smoother_memory=2, crop_pixels=4)
+    clip = synth_shaky_clip(SOAK_FRAMES, SOAK_H, SOAK_W, seed=1000,
+                            jitter_px=0.6, pan_px_per_frame=0.1, device=dev)
+    graphs.reset([prog1])
+    state = chunked.init_stream_state(SOAK_W, SOAK_H, soak, 3, 1, dev)
+    walls, reserved, readings = [], [], {}
+
+    def read():
+        """(bytes allocated, bytes reserved with the cache emptied)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    for k in range(J10_REPLAYS + 1):
+        i = 2 * k % SOAK_FRAMES
+        (state, *_), ms = timed(lambda: chunked.stabilize_chunk_impl(
+            state, torch.from_numpy(clip[i:i + 2]), soak))
+        walls.append(ms)
+        reserved.append(torch.cuda.memory_reserved())
+        if k in (1, J10_REPLAYS):
+            readings[k] = read()
+    finite = bool(torch.isfinite(state.accum).all()
+                  and torch.isfinite(state.meas_tail).all())
+    walls = np.asarray(walls[1:])
+    (alloc1, res1), (alloc_n, res_n) = readings[1], readings[J10_REPLAYS]
+    # Replay 1's reading emptied the cache: count changes from replay 2 on.
+    steps = [(k, reserved[k] - reserved[k - 1]) for k in range(3, len(
+        reserved)) if reserved[k] != reserved[k - 1]]
+    check(prog1.captures == 1 and prog1.replays == J10_REPLAYS
+          and (alloc_n, res_n) == (alloc1, res1) and finite
+          and int(state.steps_seen) == 2 * (J10_REPLAYS + 1),
+          f"{prog1.captures} capture, {prog1.replays} replays; after replay "
+          f"1 / {J10_REPLAYS}: allocated {alloc1} / {alloc_n} bytes, "
+          f"reserved (cache emptied) {res1 / 1e6:.1f} / {res_n / 1e6:.1f} MB;"
+          f" state finite {finite}, steps_seen {int(state.steps_seen)}; a "
+          f"replay (host clock, synchronized) median {np.median(walls):.3f} "
+          f"ms, min {walls.min():.3f}, max {walls.max():.3f}")
+    log(f"  reserved without emptying the cache: {reserved[1] / 1e6:.1f} MB "
+        f"after replay 1, {reserved[-1] / 1e6:.1f} MB after replay "
+        f"{J10_REPLAYS}; changes at (replay, bytes) {steps[:10]}")
 
 
 @phase("1080p similarity with selection='topk': 8 streams x 16-frame "
@@ -3571,6 +3809,7 @@ def main() -> int:
             captured_1080p(frames, prm, dev)
             clip_1080p(frames, prm, dev)
             clip_programs(frames, prm, dev)
+            chunk_programs(frames, prm, dev)
         else:
             captured_4k(frames, prm, dev)
             clip_4k(frames, prm, dev)

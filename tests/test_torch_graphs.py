@@ -43,7 +43,12 @@ class StandIn:
 
     def __init__(self, fail_capture=False):
         self.fail_capture = fail_capture
-        self.replays = self.released = 0
+        self.replays = self.released = self.opened = 0
+        self.pools = []            # (program name, device, pool) a capture
+
+    def new_pool(self, dev):
+        self.opened += 1
+        return ("pool", self.opened)
 
     def device_of(self, leaves):
         return CPU if any(isinstance(x, torch.Tensor) for x in leaves) \
@@ -55,7 +60,8 @@ class StandIn:
     def warmup(self, dev, fn):
         return fn()
 
-    def capture(self, dev, fn, name):
+    def capture(self, dev, fn, name, pool):
+        self.pools.append((name, dev, pool))
         if self.fail_capture:
             raise RuntimeError(f"{name}: capture refused")
         out = fn()
@@ -151,6 +157,37 @@ def test_one_stream_chunk_program(stand_in):
                                                             PARAMS)
         assert_same((got_s, got), (want_s, [w[0] for w in want]))
     assert chunked._stabilize_chunk_jit.replays == 1
+
+
+def test_chunk_programs_keep_four_keys_per_card():
+    assert chunked._stabilize_chunk_streams_jit.max_keys == 4
+    assert chunked._stabilize_chunk_jit.max_keys == 4
+
+
+def test_a_stream_count_met_again_replays_into_the_shared_pool(stand_in):
+    """The chunk program at 48x64 with 1, 2, then 1 stream: two keys in one
+    pool, and the repeated key replays, byte-equal to its un-captured
+    call."""
+    h, w = 48, 64
+    params = StabilizerParams(lag=4, smoother_memory=2, crop_pixels=4)
+    frames = torch.from_numpy(np.stack([
+        synth_shaky_clip(4, h, w, seed=1000 + s, jitter_px=0.6,
+                         pan_px_per_frame=0.1) for s in range(2)]))
+    prog = chunked._stabilize_chunk_streams_jit
+    state1 = chunked.init_stream_state(w, h, params, 3, 1, CPU)
+    state1, *_ = chunked.stabilize_chunk_streams(state1, frames[:1, :2],
+                                                 params)
+    chunked.stabilize_chunk_streams(
+        chunked.init_stream_state(w, h, params, 3, 2, CPU), frames[:, :2],
+        params)
+    got = chunked.stabilize_chunk_streams(state1, frames[:1, 2:], params)
+    with graphs.eager():
+        want = chunked.stabilize_chunk_streams(state1, frames[:1, 2:],
+                                               params)
+    assert_same(got, want)
+    assert (prog.captures, prog.replays, prog.evictions) == (2, 1, 0)
+    assert {p for name, _, p in stand_in.pools if name == prog.name} == {
+        prog.pool(CPU)}
 
 
 def test_streaming_programs_equal_eager(stand_in):
@@ -253,6 +290,50 @@ def test_max_keys_counts_the_keys_of_each_device():
     assert (prog.captures, prog.replays, prog.evictions) == (0, 0, 0)
 
 
+def test_the_keys_of_a_program_on_a_device_share_one_pool():
+    """Every key of one program on one device is captured into one pool;
+    another device or another program has its own; a key dropped while
+    others stay on its device leaves the pool in use."""
+    backend = _PerDevice()
+    meta = torch.device("meta")
+    two = graphs.Program(lambda x: x * 2, name="two", max_keys=2)
+    other = graphs.Program(lambda x: x * 3, name="other")
+    with graphs.use_backend(backend):
+        for n in (1, 2):
+            two(torch.ones(n))
+            two(torch.ones(n, device=meta))
+        other(torch.ones(1))
+        pools = {(name, dev, pool) for name, dev, pool in backend.pools}
+        assert len(backend.pools) == 5 and len(pools) == 3
+        assert two.pool(CPU) not in (two.pool(meta), other.pool(CPU))
+        kept = two.pool(CPU)
+        two(torch.ones(3))                  # drops the key of n = 1
+        assert two.evictions == 1 and two.pool(CPU) == kept
+        assert backend.pools[-1] == ("two", CPU, kept)
+    two.reset()
+    assert two.pool(CPU) is None and two.pool(meta) is None
+
+
+def test_dropping_the_last_key_on_a_device_gives_its_pool_back():
+    """With one key per device, a new key first drops the last one: the
+    pool goes back with it, and the new key opens another; the other
+    device keeps its own."""
+    backend = _PerDevice()
+    meta = torch.device("meta")
+    prog = graphs.Program(lambda x: x + 1, name="one", max_keys=1)
+    with graphs.use_backend(backend):
+        prog(torch.ones(2))
+        prog(torch.ones(2, device=meta))
+        first, on_meta = prog.pool(CPU), prog.pool(meta)
+        prog(torch.ones(3))
+        assert backend.released == 1 and prog.evictions == 1
+        assert prog.pool(CPU) not in (first, None)
+        assert prog.pool(meta) == on_meta
+        assert [p for _, _, p in backend.pools] == [first, on_meta,
+                                                    prog.pool(CPU)]
+    prog.reset()
+
+
 def test_unhashable_statics_raise_on_the_cpu_path_too():
     prog = graphs.Program(_scaled, static_argnames=("params",))
     with pytest.raises(TypeError, match="hashable"):
@@ -332,6 +413,7 @@ def test_a_failed_capture_raises():
             pytest.raises(RuntimeError, match="capture refused"):
         prog(torch.ones(2), PARAMS)
     assert prog.captures == 0 and not prog.stats()
+    assert prog.pool(CPU) is None            # no graph holds the pool
 
 
 def test_nested_programs_run_inside_the_outer_one(stand_in):

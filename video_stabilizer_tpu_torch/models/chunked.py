@@ -186,12 +186,19 @@ def _chunk_one_stream(state: StreamState, frames, params: StabilizerParams,
 # The JAX package's two chunk programs (chunked.py:237-258): on the card
 # each is captured once per static configuration and replayed
 # (utils/graphs.py); a host frame tensor is copied straight into the
-# graph's input (pinned memory: asynchronously).
+# graph's input (pinned memory: asynchronously). The stream count and the
+# chunk length are in the key, and each key holds its static inputs and
+# outputs (about 3.5 GB for 8 x 16 frames of 1080p) beside the pool its
+# program's keys share on the card, so each program keeps at most 4 keys
+# per card: a serving process that switches among a few stream counts, or
+# feeds a shorter last chunk, replays them all, where one key would
+# capture again at every switch (about 2x the un-captured time).
 _stabilize_chunk_streams_jit = Program(_chunk_streams,
                                        static_argnames=STATICS,
-                                       name="_stabilize_chunk_streams_jit")
+                                       name="_stabilize_chunk_streams_jit",
+                                       max_keys=4)
 _stabilize_chunk_jit = Program(_chunk_one_stream, static_argnames=STATICS,
-                               name="_stabilize_chunk_jit")
+                               name="_stabilize_chunk_jit", max_keys=4)
 
 
 def stabilize_chunk_streams(states: StreamState, frames,

@@ -16,9 +16,9 @@ once, then replayed:
     set-up (the nvcc build, kernel B's and C's launch-shape caches and
     shared-memory limits, cuFFT's plans, the per-device index tables).
     Its outputs are the call's result. Then ``fn`` is captured once more
-    as a CUDA graph (``torch.cuda.CUDAGraph``, its own memory pool) on the
-    static inputs; the first call's time and the capture's are printed to
-    stderr.
+    as a CUDA graph (``torch.cuda.CUDAGraph``) on the static inputs, into
+    the program's memory pool on that card (below); the first call's time
+    and the capture's are printed to stderr.
   - Every later call copies its inputs into the static inputs (a pinned
     host tensor with ``non_blocking=True``: the caller must not overwrite
     it before the stream has read it), replays the graph and returns
@@ -35,14 +35,27 @@ once, then replayed:
     (the counterpart of ``jax.disable_jit``): stage tables come from there.
   - A capture that fails raises, naming the last torch function it reached;
     nothing falls back to the eager path.
-  - Each key keeps its graph, its memory pool and its static inputs until
+  - All keys of one program on one card are captured into one memory pool
+    (``torch.cuda.graph_pool_handle()``), so the card holds the largest
+    key's temporaries once, not once per key. Sharing is safe because a
+    key's temporaries are written before they are read in every replay;
+    each key's static outputs stay allocated as live tensors, so another
+    capture never receives them; every call clones its outputs right after
+    its replay; and static inputs are allocated before the capture,
+    outside the pool. The hazard left is two keys of one program replayed
+    at the same time on two streams of one card: no caller does that
+    (every replay runs on the caller's current stream, and each card of
+    ``parallel/mesh.py`` has a pool of its own).
+  - Each key keeps its graph, its static inputs and outputs until
     ``reset``, unless the program was made with ``max_keys``: then a new
     key's first call on a card that already holds ``max_keys`` of its keys
-    first drops the least recently called of them, its graph and pool with
-    it, and gives their memory back to the card. The clip, metric and
-    sweep programs keep one key per card: a clip's pool grows with its
-    length (14.91 GB for 8 x 32 frames of 1080p on an NVIDIA H100), and a
-    video's length changes from clip to clip.
+    first drops the least recently called of them. Once a card holds no
+    key of the program, its pool goes back to the card and the next
+    capture there opens a new one. The clip, metric and sweep programs
+    keep one key per card: a clip's pool grows with its length (14.91 GB
+    for 8 x 32 frames of 1080p on an NVIDIA H100), and a video's length
+    changes from clip to clip. The chunk programs keep four
+    (``models/chunked.py``).
 
 On CPU tensors a program calls ``fn`` directly: the CPU runs the plain
 versions, as the kernel wrappers do. A program called from inside another
@@ -192,8 +205,14 @@ class CudaGraphs:
         main.wait_stream(side)
         return out
 
-    def capture(self, dev, fn, name):
-        """(graph, static outputs, capture s, instantiate s, pool bytes)."""
+    def new_pool(self, dev):
+        """A handle for a new memory pool that captures on ``dev`` share."""
+        return torch.cuda.graph_pool_handle()
+
+    def capture(self, dev, fn, name, pool):
+        """(graph, static outputs, capture s, instantiate s, the bytes the
+        capture added to the card's reserved memory): ``fn`` captured into
+        the memory pool ``pool``."""
         side = self._side(dev)
         torch.cuda.synchronize(dev)
         reserved = torch.cuda.memory_reserved(dev)
@@ -201,7 +220,7 @@ class CudaGraphs:
         tracker = _LastFunction()
         t0 = time.perf_counter()
         with torch.cuda.stream(side):
-            graph.capture_begin()
+            graph.capture_begin(pool=pool)
             try:
                 with tracker:
                     out = fn()
@@ -225,8 +244,9 @@ class CudaGraphs:
 
     def release(self, dev, entries):
         """Free the dropped ``entries`` (their graphs, static inputs and
-        outputs) once the card has run what was queued, and give their
-        memory pools back to the card."""
+        outputs) once the card has run what was queued. A pool whose last
+        graph went goes back to the card; the blocks of a pool still in use
+        stay in it for its next capture."""
         torch.cuda.synchronize(dev)
         entries.clear()
         torch.cuda.empty_cache()
@@ -279,7 +299,8 @@ def _tracing():
 class _Entry:
     """One captured key: its device, static inputs (None for non-tensor
     leaves), the graph, its static outputs and their structure, the
-    launch-count deltas of one replay, and what the capture cost."""
+    launch-count deltas of one replay, and what the capture cost and
+    holds."""
 
     def __init__(self, dev, static_in, graph, out, delta, stats):
         self.dev = dev
@@ -288,14 +309,22 @@ class _Entry:
         self.out_leaves = []
         self.out_spec = _flatten(out, self.out_leaves)
         self.delta = delta
-        self.stats = stats
+        self.stats = dict(stats, static_in_bytes=storage_nbytes(static_in),
+                          static_out_bytes=storage_nbytes(self.out_leaves))
+
+
+def storage_nbytes(leaves) -> int:
+    """The bytes of the storages the tensor leaves hold, each once."""
+    storages = {x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+                for x in leaves if isinstance(x, torch.Tensor)}
+    return sum(storages.values())
 
 
 class Program:
     """A function captured once per cache key and replayed on the card
     (see the module's docstring). ``captures`` and ``replays`` count what
     it did, ``evictions`` the keys ``max_keys`` dropped; ``stats()`` lists
-    each kept key's capture figures."""
+    each kept key's capture figures, least recently called first."""
 
     def __init__(self, fn, static_argnames=(), name=None, max_keys=None):
         self.fn = fn
@@ -307,6 +336,7 @@ class Program:
         self.static_argnames = tuple(static_argnames)
         self.max_keys = max_keys
         self._cache = {}         # least recently called first
+        self._pools = {}         # device -> the pool its keys share
         self.captures = self.replays = self.evictions = 0
         PROGRAMS.append(self)
 
@@ -315,13 +345,19 @@ class Program:
                 f"{self.replays} replays>")
 
     def reset(self):
-        """Drop every captured graph (and its memory pool) and set the
+        """Drop every captured graph (and its memory pools) and set the
         counts to 0."""
         self._cache.clear()
+        self._pools.clear()
         self.captures = self.replays = self.evictions = 0
 
     def stats(self) -> list:
         return [e.stats for e in self._cache.values()]
+
+    def pool(self, dev):
+        """The handle of the pool this program's keys share on ``dev``, or
+        None while it holds no key there."""
+        return self._pools.get(dev)
 
     def _call(self, arguments, dyn_names, dyn_values):
         kwargs = dict(arguments)
@@ -381,6 +417,15 @@ class Program:
         if old:
             self.evictions += len(old)
             backend.release(dev, [self._cache.pop(k) for k in old])
+            self._forget_empty_pool(dev)
+
+    def _forget_empty_pool(self, dev):
+        """Once no key is left on ``dev``, its pool has gone back to the
+        card (or no graph ever used it): the next capture opens a new one,
+        since the allocator cannot reopen a pool whose graphs are all
+        gone."""
+        if all(e.dev != dev for e in self._cache.values()):
+            self._pools.pop(dev, None)
 
     def _first_call(self, key, arguments, dyn_names, spec, leaves, dev,
                     backend):
@@ -403,22 +448,28 @@ class Program:
             out = backend.warmup(dev, run)
             t1 = time.perf_counter()
             before = launch_counts()
+            if dev not in self._pools:
+                self._pools[dev] = backend.new_pool(dev)
             try:
-                graph, static_out, cap_s, inst_s, pool = backend.capture(
-                    dev, run, self.name)
+                graph, static_out, cap_s, inst_s, grew = backend.capture(
+                    dev, run, self.name, self._pools[dev])
+            except BaseException:
+                self._forget_empty_pool(dev)
+                raise
             finally:
                 # A capture launches nothing: take back what it counted.
                 delta = _count_delta(before, launch_counts())
                 add_launches({k: -n for k, n in delta.items()})
         stats = dict(program=self.name, first_call_s=time.perf_counter() - t0,
                      eager_s=t1 - t0, capture_s=cap_s, instantiate_s=inst_s,
-                     pool_bytes=pool, launches_per_replay=delta)
+                     pool_bytes=grew, launches_per_replay=delta)
         self._cache[key] = _Entry(dev, static_in, graph, static_out, delta,
                                   stats)
         self.captures += 1
         print(f"{self.name}: first call {stats['first_call_s']:.2f} s (eager "
               f"{stats['eager_s']:.2f} s, capture {cap_s:.2f} s, instantiate "
-              f"{inst_s:.2f} s), graph pool {pool / 1e6:.1f} MB",
+              f"{inst_s:.2f} s), the shared graph pool grew "
+              f"{grew / 1e6:.1f} MB",
               file=sys.stderr)
         # The eager outputs are the call's result; any that shares memory
         # with a static input would change at the next call: copy it.
