@@ -8,7 +8,8 @@ Run from the root of the repository. Phases:
   1. Build the port's CUDA kernels from ``video_stabilizer_tpu_torch/csrc``
      (one nvcc per source, all at once) and print what ptxas reports for
      each kernel; all 16 instances of kernel A (2 models x 2 interps x 1-4
-     channels) and every block-size instance of kernels B and C must
+     channels), every block-size instance of kernels B and C and all 33
+     of kernel D (window lengths 1-32 in registers, any length) must
      report a 0-byte stack frame and no spills.
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
@@ -61,6 +62,25 @@ Run from the root of the repository. Phases:
      median max(|p6|,|p7|) at least 10x the largest p6/p7 gap. Two
      launches must give bit-identical outputs. Reported per level as in
      phase 5.
+ D.  Kernel D (the TV-L1 smoother's whole 100-iteration loop, one launch)
+     against its plain version, bit for bit (float32 bits, so NaN
+     positions count): (a) the 1080p chunk's rows (8 x 16 x 4 of 16, the
+     valid lengths and lam as ``_chunk_smoothed`` built them in phase 3's
+     chunk), (b) the 4K chunk's (2 x 16 x 8, phase 6's), (c) the
+     streaming window (4 rows, count 1-16, a real window of (a)), (d)
+     ``eval_combos``' rows (its 12 lambdas, one per combo, 12 x 55 x 4),
+     (e) edge rows: N = 1, 2, 23, and 64 and 400 (the working values in
+     the output row), lam 0.1, valid_len 1, N and per
+     row, exact ties at mag == lam, a NaN row, values of 1e-30 and 1e6.
+     Also whether torch on the card compares and subtracts a Python float
+     lam in float32 (as JAX does). Times (a)-(d): the wrapper between CUDA
+     events over 50 launches, the device time (50 launches replayed from a
+     CUDA graph), the plain version, the roofline bound and the
+     dependent-chain bound, measured: one row of the shape alone, its
+     device time at 1,100 iterations less that at 100, over 10 (the launch
+     cost drops out), so the time of the row's 100 x (N - 1) dependent
+     pair updates run in order; the device time per dependent step. No
+     library call computes this loop.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -220,8 +240,9 @@ J10. The chunk programs' memory, and long replay. (a)
      alignable frames, TX/TY against the known motion (phase 9's bars),
      and the launches: kernel A once per output, kernel B once per level
      of every frame (the first frame runs the level loop, as in the JAX
-     package), kernel C never. Prints the per-frame latency (host clock up
-     to each frame's sync; median and p90 of frames 12-47) and the
+     package), kernel C never, kernel D once per smoothed window.
+     Prints the per-frame latency (host clock up to each frame's sync;
+     median and p90 of frames 12-47) and the
      per-frame stage table from the spans; then 8 more frames, replayed,
      run under torch.profiler (device busy share).
  J3. A third fresh ``VideoStabilizer`` over S1's frames with every key
@@ -250,10 +271,10 @@ J10. The chunk programs' memory, and long replay. (a)
  P1. ``python -m video_stabilizer_tpu_torch.bench`` at its defaults (8
      streams x 16 1080p frames, 4 reps x 4 chunks), in this process: its
      JSON line parses with its metric string and the card's name, the
-     align success >= 0.9, and the launch counts show kernels A and B
+     align success >= 0.9, and the launch counts show kernels A, B and D
      launched, C not.
  P2. ``apps/bench_configs.py``'s ``bench_4k`` at 2 streams, 3 reps:
-     kernels A and C launched, B not; success >= 0.9 on the frames after
+     kernels A, C and D launched, B not; success >= 0.9 on the frames after
      each stream's first.
  P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps;
      the chain replayed as one captured graph),
@@ -267,7 +288,8 @@ J10. The chunk programs' memory, and long replay. (a)
      issued one call each.
  P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
      graph has no Python frames): its per-kernel table
-     names kernel A's and B's symbols, ``--parse-only`` reprints the same
+     names kernel A's, B's and D's symbols, the smoother's kernels and
+     device time per chunk are printed, ``--parse-only`` reprints the same
      totals from the saved trace, and ``--by-source`` puts over 90 % of
      the device time on frames under ``video_stabilizer_tpu_torch/``.
  P5. The scale-out modules on the card: ``graft_entry.entry()``,
@@ -275,7 +297,8 @@ J10. The chunk programs' memory, and long replay. (a)
      byte-equal to the unsharded call on the same 2 1080p streams (outputs
      and carried state), ``stabilize_streams_sharded`` on those 2 x 32
      frames twice (a capture of the card's ``_stabilize_streams_jit``, then
-     a replay) byte-equal to the un-captured clip, and
+     a replay, kernel D launched by each) byte-equal to the un-captured
+     clip, and
      ``apps/multihost_smoke`` (CPU, gloo) as a subprocess.
 
 After each phase every program's graphs but the streaming programs' are
@@ -283,10 +306,11 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(nine entries: kernel A's two chunked forms and its one-frame form, B per
+(ten entries: kernel A's two chunked forms and its one-frame form, B per
 chunk, at one item, in its fixed mode at K = 4 (S5's launches) and with
 per-item thresholds (G1's launches), C per chunk and with per-item
-thresholds (the G2 path's launches)), the
+thresholds (the G2 path's launches), D at the 1080p chunk's rows (the
+1080p path's launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -322,6 +346,21 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 WARP_REPLACES = "video_stabilizer_tpu/ops/pallas_warp.py:117"
 GN_REPLACES = "video_stabilizer_tpu/ops/pallas_gn.py:133"
 GN8_REPLACES = "video_stabilizer_tpu/ops/pallas_gn.py:383"
+# Kernel D replaces an XLA device loop, not a Pallas kernel: the lax.scan
+# of tvl1_smooth.
+TVL1_REPLACES = "video_stabilizer_tpu/models/smoother.py:30"
+TVL1_NAME = "tvl1_smooth"
+TVL1_ITERS = 100
+# csrc/tvl1.cu's REG_MAX: rows of up to this many values are held in
+# registers, one template instance per length; longer ones take its
+# any-length kernel.
+TVL1_REG_MAX = 32
+# Float32 operations of csrc/tvl1.cu per column and iteration (the
+# relaxation's two multiplies and add) and per live pair update (the
+# difference, abs, mag - lam, the clamp, the divide, * 0.5, xi + xj, * 0.5,
+# the compare, diff * shrink, the add, the subtract and the two selects).
+TVL1_OPS_PER_COLUMN = 3
+TVL1_OPS_PER_PAIR = 14
 
 failures: list[str] = []
 
@@ -367,6 +406,23 @@ def release_graphs():
     streaming = (aligner._align_next_frame_impl, smoother._smooth_window,
                  stabilizer._to_gray, stabilizer._warp_fn)
     graphs.reset([p for p in graphs.PROGRAMS if p not in streaming])
+
+
+PLAIN_SMOOTHER_ON_CARD = [0]
+
+
+def count_plain_smoother():
+    """Count the calls of the plain smoother on a card tensor made through
+    ``models.smoother.tvl1_smooth`` (every path's smoother): phase D calls
+    ``ops.tvl1.tvl1_smooth_plain`` itself, which is not counted."""
+    from video_stabilizer_tpu_torch.models import smoother
+    plain = smoother.tvl1_smooth_plain
+
+    def counted(data, *args, **kw):
+        if data.device.type != "cpu":
+            PLAIN_SMOOTHER_ON_CARD[0] += 1
+        return plain(data, *args, **kw)
+    smoother.tvl1_smooth_plain = counted
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -457,19 +513,23 @@ def reset_launch_counts():
     from video_stabilizer_tpu_torch.ops import warp_kernel
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     warp_kernel.reset_launches()
     gn_solve.launches = 0
     gn8_solve.launches = 0
+    tvl1_smooth_kernel.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches since the last reset, per kernel and form."""
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     counts = {f"warp_frames[{m},{i}]": n
               for (m, i), n in warp_frames.form_launches.items()}
-    counts.update(gn_solve=gn_solve.launches, gn8_solve=gn8_solve.launches)
+    counts.update(gn_solve=gn_solve.launches, gn8_solve=gn8_solve.launches,
+                  tvl1_smooth=tvl1_smooth_kernel.launches)
     return counts
 
 
@@ -481,9 +541,10 @@ def launch_counts() -> dict:
 def build_kernels():
     from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
-    # per block size.
+    # per block size; D: one per window length held in registers, and the
+    # any-length one.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
-                     gn8_solve=len(gn8_solve.THREADS))
+                     gn8_solve=len(gn8_solve.THREADS), tvl1=TVL1_REG_MAX + 1)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -530,7 +591,9 @@ def capture(params, dev):
     states = chunked.stabilize_chunk_streams(states, frames[:, :CHUNK],
                                              params)[0]
     chunk1 = torch.as_tensor(frames[:, CHUNK:2 * CHUNK]).to(dev)
-    with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as spy:
+    with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as spy, \
+            mock.patch.object(chunked, "tvl1_smooth",
+                              wraps=chunked.tvl1_smooth) as smooth:
         _, delayed, accums, *_ = chunked.stabilize_chunk_core(
             states, chunk1, params, WIDTH, HEIGHT)
     t_ul = T.center_to_ul(accums, WIDTH, HEIGHT, minus_one=True)
@@ -538,6 +601,8 @@ def capture(params, dev):
     return dict(warp_frames=delayed.reshape(-1, HEIGHT, WIDTH, 3),
                 warp_ts=t_ul.reshape(-1, 4).contiguous(),
                 gn_calls=[(c.args, c.kwargs) for c in spy.call_args_list],
+                tvl1_calls=[(c.args, c.kwargs)
+                            for c in smooth.call_args_list],
                 levels=len(aligner.level_specs(WIDTH, HEIGHT,
                                                params.aligner)))
 
@@ -979,10 +1044,13 @@ def capture_4k(params, dev):
     states = chunked.stabilize_chunk_streams(states, frames[:, :CHUNK],
                                              params, HOMOGRAPHY)[0]
     chunk1 = torch.as_tensor(frames[:, CHUNK:]).to(dev)
-    with mock.patch.object(ha, "gn8_solve", wraps=gn8_solve) as spy:
+    with mock.patch.object(ha, "gn8_solve", wraps=gn8_solve) as spy, \
+            mock.patch.object(chunked, "tvl1_smooth",
+                              wraps=chunked.tvl1_smooth) as smooth:
         _, delayed, accums, *_ = chunked.stabilize_chunk_core(
             states, chunk1, params, W4K, H4K, HOMOGRAPHY)
     calls = [(c.args, c.kwargs) for c in spy.call_args_list]
+    tvl1_calls = [(c.args, c.kwargs) for c in smooth.call_args_list]
 
     # Pairs with perspective: each template is a frame of the clip warped
     # by a known homography through kernel A, so the aligner must find
@@ -1009,7 +1077,7 @@ def capture_4k(params, dev):
     torch.cuda.synchronize()
     return dict(warp_frames=delayed.reshape(-1, H4K, W4K, 3),
                 warp_ts=accums.reshape(-1, 8).contiguous(), gn8_calls=calls,
-                persp_calls=persp, levels=len(specs))
+                persp_calls=persp, tvl1_calls=tvl1_calls, levels=len(specs))
 
 
 @phase("kernel A: output warp vs its plain version (4K, homography)")
@@ -1284,6 +1352,186 @@ def check_4k_content(params_4k, dev):
                    f"(N={args[0].shape[3]}, {args[-1].shape[0]} items)")
 
 
+def tvl1_call_args(call):
+    """(data, lam, valid_len) of a recorded ``tvl1_smooth`` call, which
+    must run TVL1_ITERS iterations."""
+    import inspect
+
+    from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_plain
+    args, kw = call
+    bound = inspect.signature(tvl1_smooth_plain).bind(*args, **kw)
+    bound.apply_defaults()
+    if bound.arguments["iterations"] != TVL1_ITERS:
+        raise ValueError(f"the path smooths with "
+                         f"{bound.arguments['iterations']} iterations")
+    return (bound.arguments["data"], bound.arguments["lam"],
+            bound.arguments["valid_len"])
+
+
+def tvl1_compare(data, lam, valid):
+    """(bits equal, NaN positions equal, max |diff| where both are finite)
+    of kernel D against its plain version on one call."""
+    from video_stabilizer_tpu_torch.ops.tvl1 import (
+        tvl1_smooth_kernel, tvl1_smooth_plain)
+    got = tvl1_smooth_kernel(data, lam, TVL1_ITERS, valid)
+    want = tvl1_smooth_plain(data, lam, TVL1_ITERS, valid)
+    same = torch.equal(got.contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32))
+    nan_same = torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want).abs()[fin].max()) if bool(fin.any()) else 0.0
+    return same, nan_same, err
+
+
+def tvl1_bound(data, lam, valid):
+    """(roofline ms, what bounds it, dependent-chain ms, rows, N) of one
+    kernel D call. Roofline: each row, lam and valid_len read once, each
+    output written once; the operations of the live pairs only. Dependent
+    chain, measured: the call's row with the most live pairs (the first
+    such) alone, its device time at 11 x TVL1_ITERS iterations less that at
+    TVL1_ITERS, over 10, so the time of one row's TVL1_ITERS x (N - 1) pair
+    updates in order without the launch."""
+    from video_stabilizer_tpu_torch.ops.tvl1 import (
+        pack_rows, tvl1_smooth_kernel)
+    rows_t, lam_r, valid_r = pack_rows(data, lam, valid)
+    rows, n = rows_t.shape
+    pairs = int((valid_r.clamp(max=n) - 1).clamp(min=0).sum())
+    bytes_moved = 2 * rows * n * 4 + rows * 8
+    ops = TVL1_ITERS * (rows * n * TVL1_OPS_PER_COLUMN
+                        + pairs * TVL1_OPS_PER_PAIR)
+    bound_ms, bound_by = roofline(bytes_moved, ops)
+    k = int(valid_r.argmax())
+    row, lam_k, valid_k = rows_t[k:k + 1], lam_r[k:k + 1], valid_r[k:k + 1]
+
+    def one_row_ms(iters):
+        return graph_ms(lambda: tvl1_smooth_kernel(row, lam_k, iters,
+                                                   valid_k), 10)
+
+    chain_ms = (one_row_ms(11 * TVL1_ITERS) - one_row_ms(TVL1_ITERS)) / 10
+    return bound_ms, bound_by, chain_ms, rows, n
+
+
+def tvl1_edge_calls(dev):
+    """Phase D (e): rows of N = 1, 2, 23, and 64 and 400 (the working
+    values in the output row), each call with lam 0.1 (a float32
+    cannot hold it), valid_len 1, N and one per row, ties at mag == lam, a
+    NaN, values of 1e-30 and 1e6."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    calls = []
+    for n in (1, 2, 23, 64, 400):
+        x = torch.cumsum(torch.randn((8, n), generator=g), -1) * 3
+        if n >= 2:
+            x[0, :2] = torch.tensor([0.0, 0.1])    # |diff| == float32(0.1)
+            x[4, :2] = torch.tensor([1.0, 5.0])    # |diff| == 4.0
+        x[1, n // 2] = float("nan")
+        x[2] = 1e-30 * torch.arange(n)
+        x[3] = 1e6 * torch.randn(n, generator=g)
+        x = x.to(dev)
+        lams = torch.tensor([0.1, 0.5, 1.0, 4.0] * 2, device=dev)
+        valid = torch.tensor([n, 1, n // 2 + 1, n, 4, n, 2, n],
+                             device=dev)
+        for lam, v in ((0.1, None), (0.1, 1), (4.0, n), (lams, valid)):
+            per_row = isinstance(v, torch.Tensor)
+            what = (f"N={n}, lam {'per row' if per_row else lam}, "
+                    f"valid_len {'per row' if per_row else v}")
+            calls.append((what, (x, lam, v)))
+    return calls
+
+
+@phase("kernel D: TV-L1 smoother vs its plain version (the chunks, the "
+       "streaming window, eval_combos, edge rows)")
+def check_tvl1(calls_1080p, calls_4k, params, dev):
+    """See D in the module's docstring."""
+    from video_stabilizer_tpu_torch.apps import grid_search_smoother as gss
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import batch
+    from video_stabilizer_tpu_torch.ops.tvl1 import (
+        tvl1_smooth_kernel, tvl1_smooth_plain)
+
+    # Whether torch on the card takes a Python float lam as float32, as
+    # JAX's jnp.asarray(lam, float32) does (on the CPU it does).
+    m = torch.tensor([0.1], device=dev)
+    gt, sub = bool(m > 0.1), float(m - 0.1)
+    check(not gt and sub == 0.0,
+          f"torch on the card: float32(0.1) > 0.1 is {gt}, float32(0.1) - "
+          f"0.1 = {sub!r} (float32 arithmetic: False and 0.0)")
+
+    check(len(calls_1080p) == 1 and len(calls_4k) == 1,
+          f"one smoother call per chunk: {len(calls_1080p)} (1080p), "
+          f"{len(calls_4k)} (4K)")
+    chunk = tvl1_call_args(calls_1080p[0])
+    chunk_4k = tvl1_call_args(calls_4k[0])
+    # (c) the streaming window: a real window of the 1080p chunk (stream
+    # 0, its last frame), the first ``count`` rows of the ring's stage
+    # buffer filled, the rest 0, as L1SmootherCenter.update leaves it.
+    window = chunk[0][0, -1].T                        # (win, 4)
+    stream = []
+    for count in range(1, window.shape[0] + 1):
+        buf = torch.zeros_like(window)
+        buf[:count] = window[:count]
+        stream.append((buf.T, params.lambda_, count))
+    # (d) eval_combos' rows: its 12 lambdas over 60 frames of measurements
+    # (a seeded random walk), through smooth_trajectory.
+    rng = np.random.default_rng(SEED + 5)
+    meas = torch.from_numpy(np.stack(
+        [rng.normal(0, 1e-3, 60), rng.normal(0, 1e-3, 60),
+         rng.normal(0.3, 1.0, 60), rng.normal(0, 1.0, 60)], -1).astype(
+        np.float32)).to(dev)
+    combos = list(itertools.product(gss.LAMBDAS, gss.DECAYS))
+    lams = torch.tensor([c[0] for c in combos], device=dev)
+    with mock.patch.object(batch, "tvl1_smooth",
+                           wraps=batch.tvl1_smooth) as spy:
+        batch.smooth_trajectory(meas.expand((len(combos),) + meas.shape),
+                                StabilizerParams(lag=10, smoother_memory=5),
+                                lam=lams)
+    combo = tvl1_call_args((spy.call_args.args, spy.call_args.kwargs))
+
+    timed_calls = [("(a) 1080p chunk", chunk), ("(b) 4K chunk", chunk_4k),
+                   ("(c) streaming window, count 16", stream[-1]),
+                   ("(d) eval_combos, 12 lambdas", combo)]
+    checked = (timed_calls[:2]
+               + [(f"(c) streaming window, count {c[2]}", c) for c in stream]
+               + timed_calls[3:] + tvl1_edge_calls(dev))
+    worst, all_same = 0.0, True
+    for what, (data, lam, valid) in checked:
+        same, nan_same, err = tvl1_compare(data, lam, valid)
+        worst = max(worst, err)
+        all_same &= same
+        if not same:
+            log(f"    {what}: bits differ; NaN positions equal {nan_same}, "
+                f"max |diff| {err:.3e}")
+    check(all_same, f"kernel D bit-equal to its plain version on all "
+          f"{len(checked)} calls ((a)-(e), NaN rows included); max |diff| "
+          f"where both finite {worst:.3e}")
+
+    log("  shape | rows x N | kernel ms | device ms | plain ms | roofline "
+        "ms | chain ms | device ns per dependent step")
+    entry = None
+    for what, (data, lam, valid) in timed_calls:
+        ms = cuda_ms(lambda: tvl1_smooth_kernel(data, lam, TVL1_ITERS,
+                                                valid), 50)
+        device_ms = graph_ms(lambda: tvl1_smooth_kernel(
+            data, lam, TVL1_ITERS, valid), 50)
+        plain_ms = cuda_ms(lambda: tvl1_smooth_plain(data, lam, TVL1_ITERS,
+                                                     valid), 1)
+        bound_ms, bound_by, chain_ms, rows, n = tvl1_bound(data, lam, valid)
+        step_ns = device_ms * 1e6 / (TVL1_ITERS * max(n - 1, 1))
+        chain_step_ns = chain_ms * 1e6 / (TVL1_ITERS * max(n - 1, 1))
+        log(f"  {what} | {rows} x {n} | {ms:.4f} | {device_ms:.4f} | "
+            f"{plain_ms:.2f} | {bound_ms:.6f} ({bound_by}) | {chain_ms:.4f} "
+            f"({chain_step_ns:.1f} ns a step) | {step_ns:.1f} ns; kernel / "
+            f"chain {device_ms / chain_ms:.2f}")
+        if entry is None:
+            entry = dict(name=TVL1_NAME, route="cuda",
+                         source="video_stabilizer_tpu_torch/csrc/tvl1.cu",
+                         replaces=TVL1_REPLACES, max_abs_err=worst, ms=ms,
+                         device_ms=device_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         chain_bound_ms=chain_ms, library_ms=None)
+    log("  library: none (no PyTorch call runs this loop)")
+    return entry
+
+
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
     from a fresh state, twice: un-captured (``graphs.eager()``) under a
@@ -1394,8 +1642,8 @@ def main_path(frames, poses, params, dev):
     launches, meas, ok, states, last, stages = drive_path(frames, params,
                                                           dev)
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
-          and launches["gn_solve"] > 0,
-          "kernel A (similarity, bilinear) and kernel B launched")
+          and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
+          "kernel A (similarity, bilinear), kernel B and kernel D launched")
     known_motion_checks(meas, ok, poses)
     return launches, states, last, stages
 
@@ -1422,9 +1670,9 @@ def main_path_4k(frames, poses, params, dev):
         frames, params, dev, HOMOGRAPHY)
     check(launches["gn8_solve"] > 0
           and launches.get("warp_frames[homography,lanczos2]", 0) > 0
-          and launches["gn_solve"] == 0,
-          "kernel C and kernel A (homography, Lanczos2) launched, kernel B "
-          "not")
+          and launches["tvl1_smooth"] > 0 and launches["gn_solve"] == 0,
+          "kernel C, kernel A (homography, Lanczos2) and kernel D launched, "
+          "kernel B not")
     # The normalized translation (p2, p5) times W is the motion in px at
     # the frame centre. On such a clip (270x480, jitter 1 px, pan 0.3,
     # seeds 5 and 6, 12 frames, on the CPU) the JAX package's 8-DOF aligner
@@ -1606,6 +1854,8 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
     per_replay = {(f"{k[0]}[{','.join(k[1])}]" if k[1] else k[0]): n
                   for k, n in stats["launches_per_replay"].items()}
     log(f"  launches per replay {per_replay}; this run's counts {launches}")
+    check(per_replay.get("tvl1_smooth_kernel", 0) == 1,
+          "kernel D launched once in every replay (the chunk's smoother)")
 
     n = J_STEADY[model]
     walls = []
@@ -1781,9 +2031,10 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
     need = "gn_solve" if model == "similarity" else "gn8_solve"
     per = stats["launches_per_replay"]
     check(any(k[0] == "warp_frames" and k[1] is None for k in per)
-          and per.get((need, None), 0) > 0,
+          and per.get((need, None), 0) > 0
+          and per.get(("tvl1_smooth_kernel", None), 0) == 1,
           f"kernel A and kernel {'B' if need == 'gn_solve' else 'C'} "
-          "launched in every replay")
+          "launched in every replay, kernel D once")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
     return walls
 
@@ -1880,10 +2131,12 @@ def clip_programs(frames, params, dev):
     lams = torch.tensor([c[0] for c in combos], device=dev)
     decays = torch.tensor([c[1] for c in combos], device=dev)
     pair = StabilizerParams(lag=10, smoother_memory=5)
-    out, walls, eager_ms, _ = program_vs_eager(
+    out, walls, eager_ms, stats = program_vs_eager(
         gss.eval_combos,
         lambda: (gss.eval_combos(small, meas, ok, pair, lams, decays),),
         ("outputs",), 2)
+    check(stats["launches_per_replay"].get(("tvl1_smooth_kernel", None), 0)
+          == 1, "kernel D launched once in every replay (all combos' rows)")
     check(tuple(out[0].shape) == (len(combos), t - pair.lag,
                                   h - 2 * gss.CROP, w - 2 * gss.CROP, 3),
           f"eval_combos output {tuple(out[0].shape)}")
@@ -2131,8 +2384,8 @@ def topk_path(frames, poses, params, dev, mask_stages):
     checks, and its stage table beside phase 9's (histogram mask)."""
     launches, meas, ok, _, _, stages = drive_path(frames, params, dev)
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
-          and launches["gn_solve"] > 0,
-          "kernel A (similarity, bilinear) and kernel B launched")
+          and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
+          "kernel A (similarity, bilinear), kernel B and kernel D launched")
     known_motion_checks(meas, ok, poses)
     log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
         "histogram mask (phase 9) | topk")
@@ -3075,8 +3328,9 @@ def timed_stream(host, poses, params, dev, eager=False):
     align success and TX/TY against the known motion (phase 9's bars) and
     the launches: kernel A once per output, kernel B once per level of
     every frame (the first included, as in the JAX package), kernel C
-    never. Prints the per-frame latency (and the stage table); returns its
-    figures, the stabilizer (to run on) and the recorded measurements."""
+    never, kernel D once per smoothed window. Prints the per-frame
+    latency (and the stage table); returns its figures, the stabilizer (to
+    run on) and the recorded measurements."""
     from video_stabilizer_tpu_torch.models import aligner
     from video_stabilizer_tpu_torch.models.stabilizer import VideoStabilizer
     from video_stabilizer_tpu_torch.utils import graphs
@@ -3126,13 +3380,17 @@ def timed_stream(host, poses, params, dev, eager=False):
           f"px, max {max_err:.4f} px")
     levels = len(aligner.level_specs(WIDTH, HEIGHT, params.aligner))
     want_b = levels * STREAM_FRAMES
+    # The smoother finalizes a frame once smoother_memory more have come.
+    want_d = STREAM_FRAMES - params.smoother_memory
     n_a = launches.get("warp_frames[similarity,bilinear]", 0)
     check(n_a == STREAM_FRAMES - lag and launches["gn_solve"] == want_b
           and launches["gn8_solve"] == 0
-          and sum(launches.values()) == n_a + want_b,
+          and launches["tvl1_smooth"] == want_d
+          and sum(launches.values()) == n_a + want_b + want_d,
           f"launches {launches}: kernel A {STREAM_FRAMES - lag} (one per "
           f"output), kernel B {want_b} (one per level of every frame, the "
-          "first included), kernel C 0")
+          f"first included), kernel C 0, kernel D {want_d} (one per "
+          "smoothed window)")
 
     steady = np.asarray(walls[STREAM_STEADY:])
     log(f"  {'un-captured (graphs.eager())' if eager else 'replayed'}: "
@@ -3192,9 +3450,11 @@ def streaming_path(frames, poses, params, dev):
     busy = sum(ms for ms, _ in by_name.values())
     if busy > 0:
         per_frame = busy / STREAM_PROFILED
+        events = sum(n for _, n in by_name.values())
         log(f"  {STREAM_PROFILED} replayed frames under torch.profiler: "
-            f"{span_ms:.1f} ms on the device timeline, "
-            f"{sum(n for _, n in by_name.values())} kernels and copies "
+            f"{span_ms:.1f} ms on the device timeline, {events} kernels "
+            f"and copies ({events / STREAM_PROFILED:.0f} a frame; about "
+            f"38k with the plain smoother) "
             f"{busy:.1f} ms: busy {busy / span_ms * 100:.1f} %, idle "
             f"{(1 - busy / span_ms) * 100:.1f} %; {per_frame:.1f} ms of "
             f"device events a frame, "
@@ -3490,7 +3750,8 @@ def json_line(lines, metric: str) -> dict:
 def kernels_launched(launches, a_form: str, b: bool, c: bool, what: str):
     check(launches.get(f"warp_frames[{a_form}]", 0) > 0
           and (launches["gn_solve"] > 0) == b
-          and (launches["gn8_solve"] > 0) == c,
+          and (launches["gn8_solve"] > 0) == c
+          and launches["tvl1_smooth"] > 0,
           f"{what}: launches {launches}")
 
 
@@ -3509,7 +3770,8 @@ def tool_bench(smi):
           f"{got.get('device')!r}")
     check(ok_rate >= 0.9, f"align success {ok_rate:.4f} (the last chunk)")
     kernels_launched(launches, "similarity,bilinear", True, False,
-                     "kernel A (similarity, bilinear) and B launched, C not")
+                     "kernel A (similarity, bilinear), B and D launched, C "
+                     "not")
 
 
 @phase("P2. apps/bench_configs.py --mode 4k: config 4, 2 streams x 16 "
@@ -3525,7 +3787,8 @@ def tool_bench_4k():
           f"align success {got['align_success']:.4f} on the frames after "
           "each stream's first")
     kernels_launched(launches, "homography,lanczos2", False, True,
-                     "kernel A (homography, Lanczos2) and C launched, B not")
+                     "kernel A (homography, Lanczos2), C and D launched, B "
+                     "not")
 
 
 LATENCY_MODES = (
@@ -3619,7 +3882,7 @@ def tool_profile():
         log(f"  run, trace and summary {time.perf_counter() - t0:.1f} s; "
             f"trace {size / 1e6:.1f} MB")
         names = list(totals)
-        for symbol in ("warp_kernel", "gn_solve_kernel"):
+        for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_reg_kernel"):
             hits = [n for n in names if symbol in n]
             check(bool(hits), f"the per-kernel table names {symbol}: "
                   f"{hits[:1]}")
@@ -3631,6 +3894,14 @@ def tool_profile():
         by_src, _, _ = run_tool(profile_chunk.main,
                                 args + ["--parse-only", "--by-source"])
     total = sum(us for us, _ in totals.values())
+    events = sum(n for _, n in totals.values())
+    smooth = [(us, n) for name, (us, n) in by_src.items()
+              if "/ops/tvl1.py" in name or "/models/smoother.py" in name]
+    log(f"  the smoother's device work in the chunk: "
+        f"{sum(n for _, n in smooth)} kernels, "
+        f"{sum(us for us, _ in smooth) / 1e3:.3f} ms, of {events} device "
+        f"events and {total / 1e3:.1f} ms in all (the plain loop: 30,316 "
+        "kernels)")
     mine = sum(us for name, (us, _) in by_src.items()
                if name.startswith(profile_chunk.PACKAGE))
     check(total > 0 and mine / total > 0.9,
@@ -3712,9 +3983,13 @@ def on_card(params, dev):
     with graphs.eager():
         want, eager_ms = timed(lambda: batch.stabilize_streams(clip, params,
                                                                dev))
+    reset_launch_counts()
     runs = [timed(lambda: parallel.stabilize_streams_sharded(clip, mesh,
                                                              params))
             for _ in range(2)]
+    n_d = launch_counts()["tvl1_smooth"]
+    check(n_d == 2, f"kernel D launched {n_d} times by the sharded clip "
+          "(want 2: the first call and the replay)")
     same = all(torch.equal(g.shards[0], w)
                for got, _ in runs for g, w in zip(got, want))
     check(same and prog.captures == 1 and prog.replays == 1,
@@ -3734,6 +4009,7 @@ def main() -> int:
         AlignerParams, StabilizerParams)
 
     dev = torch.device("cuda")
+    count_plain_smoother()
     smi = nvidia_smi()
     log(f"card: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -3753,12 +4029,14 @@ def main() -> int:
     crop = params.crop_pixels
     synth_on_card(dev)
     kernels = {}
+    smooth_calls = {}
     cap = capture(params, dev)
     if cap is not None:
         kernels["warp_frames[similarity,bilinear]"] = check_warp(cap, crop,
                                                                  dev)
         kernels["gn_solve"] = check_gn(cap)
         kernels[FIXED_NAME] = check_gn_fixed(cap)
+        smooth_calls["1080p"] = cap["tvl1_calls"]
         del cap
     cap = capture_4k(params_4k, dev)
     if cap is not None:
@@ -3766,7 +4044,12 @@ def main() -> int:
             cap, crop, dev)
         kernels["gn8_solve"] = check_gn8(cap)
         kernels[ITEM_NAME_C] = check_gn8_per_item(cap)
+        smooth_calls["4K"] = cap["tvl1_calls"]
         del cap
+    if len(smooth_calls) == 2:
+        kernels[TVL1_NAME] = check_tvl1(smooth_calls["1080p"],
+                                        smooth_calls["4K"], params, dev)
+    del smooth_calls
     torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
     torch.cuda.empty_cache()
@@ -3791,7 +4074,8 @@ def main() -> int:
         launches, states, last_chunk, stages = result
         for kname in kernels:
             if launches.get(kname, 0) > 0:
-                path_launches[kname] = launches[kname]
+                # Kernel D runs on both paths: its count is the 1080p one.
+                path_launches.setdefault(kname, launches[kname])
         if model == "similarity":
             # Right after phase 9, so that both runs meet the same host
             # pace: on an NVIDIA H100 80GB HBM3 (700.00 W) a run after the
@@ -3874,9 +4158,13 @@ def main() -> int:
     tool_profile()
     scale_out(params, dev)
 
+    check(PLAIN_SMOOTHER_ON_CARD[0] == 0,
+          f"the plain smoother ran {PLAIN_SMOOTHER_ON_CARD[0]} times on the "
+          "card over every path (each smoother call there went to kernel "
+          "D)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 9:
+    if failures or missing or len(kernels) != 10:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))
@@ -3885,9 +4173,11 @@ def main() -> int:
         k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels B and C also give their device time beside the wrapper's ms.
+    # Kernels B, C and D also give their device time beside the wrapper's
+    # ms; D its dependent-chain bound beside the roofline one.
+    extra = ("device_ms", "chain_bound_ms")
     print(json.dumps({"kernels": [
-        {k: kern[k] for k in keys + ("device_ms",) if k in keys or k in kern}
+        {k: kern[k] for k in keys + extra if k in keys or k in kern}
         for kern in kernels.values()]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Per transform parameter, 100 fixed iterations of (a) relaxation toward the
 data (alpha = 0.5) and (b) a sequential left-to-right sweep of pairwise
 difference shrinkage. Same expressions as
-``video_stabilizer_tpu.models.smoother.tvl1_smooth`` (smoother.py:30-80).
+``video_stabilizer_tpu.models.smoother.tvl1_smooth`` (smoother.py:30-80):
+on the card kernel D runs the whole loop (``ops/tvl1.py``).
 ``L1SmootherCenter`` is the streaming form (smoother.py:109-159): one
 measurement in, one finalized smoothed transform out, ``lag_ahead`` late.
 """
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from video_stabilizer_tpu_torch.device import resolve_device
+from video_stabilizer_tpu_torch.ops.tvl1 import (
+    tvl1_smooth_kernel, tvl1_smooth_plain)
 from video_stabilizer_tpu_torch.utils.graphs import Program
 
 
@@ -25,38 +28,13 @@ def tvl1_smooth(data, lam, iterations: int = 100, valid_len=None):
     under vmap). ``valid_len``: optional int or integer tensor
     broadcastable to ``data.shape[:-1]``; only the first ``valid_len``
     entries of a row are real and pair updates beyond them are inert.
+
+    On the card this is one launch of kernel D (``ops/tvl1.py``, float32);
+    on the CPU the plain version.
     """
-    n = data.shape[-1]
-    tiny = torch.finfo(data.dtype).tiny
-    # A Python float enters each op as a float32 scalar, as the JAX
-    # package's float32 ``lam`` does, without a host-to-device copy.
-    if isinstance(lam, torch.Tensor):
-        lam_t = lam.to(device=data.device, dtype=data.dtype)
-    else:
-        lam_t = float(lam)
-    if valid_len is None:
-        valid_len = n
-    if not isinstance(valid_len, torch.Tensor):
-        valid_len = torch.full(data.shape[:-1], int(valid_len),
-                               device=data.device)
-    valid_len = valid_len.expand(data.shape[:-1])
-    active = [(i + 1) < valid_len for i in range(n - 1)]
-    data_cols = list(data.unbind(-1))
-    cols = list(data_cols)
-    for _ in range(iterations):
-        cols = [0.5 * c + 0.5 * d for c, d in zip(cols, data_cols)]
-        for i in range(n - 1):
-            xi, xj = cols[i], cols[i + 1]
-            diff = xj - xi
-            mag = torch.abs(diff)
-            shrink = (mag - lam_t) / torch.clamp(mag, min=tiny) * 0.5
-            mid = 0.5 * (xi + xj)
-            take = mag > lam_t
-            new_i = torch.where(take, xi + diff * shrink, mid)
-            new_j = torch.where(take, xj - diff * shrink, mid)
-            cols[i] = torch.where(active[i], new_i, xi)
-            cols[i + 1] = torch.where(active[i], new_j, xj)
-    return torch.stack(cols, dim=-1)
+    if data.device.type == "cpu":
+        return tvl1_smooth_plain(data, lam, iterations, valid_len)
+    return tvl1_smooth_kernel(data, lam, iterations, valid_len)
 
 
 def tvl1_smooth_np(data, lam, iterations: int = 100):

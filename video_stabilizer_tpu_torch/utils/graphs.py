@@ -119,8 +119,9 @@ def _meta(x):
 def _kernel_wrappers():
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
-    return gn_solve, gn8_solve, warp_frames
+    return gn_solve, gn8_solve, warp_frames, tvl1_smooth_kernel
 
 
 def launch_counts() -> dict:
