@@ -8,9 +8,11 @@ Run from the root of the repository. Phases:
   1. Build the port's CUDA kernels from ``video_stabilizer_tpu_torch/csrc``
      (one nvcc per source, all at once) and print what ptxas reports for
      each kernel; all 16 instances of kernel A (2 models x 2 interps x 1-4
-     channels), every block-size instance of kernels B and C and all 33
-     of kernel D (window lengths 1-32 in registers, any length) must
-     report a 0-byte stack frame and no spills.
+     channels), every block-size instance of kernels B and C, all 33 of
+     kernel D (window lengths 1-32 in registers, any length) and both of
+     kernels E (n = 4, 8) and F (P = 4, 8) must report no spills and a
+     0-byte stack frame (kernel E: 32 bytes, the CUDA math library's sinf /
+     cosf argument-reduction buffer).
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
   3. Drive the 1080p similarity path over two chunks to capture real
@@ -81,6 +83,32 @@ Run from the root of the repository. Phases:
      cost drops out), so the time of the row's 100 x (N - 1) dependent
      pair updates run in order; the device time per dependent step. No
      library call computes this loop.
+ E.  Kernels E (the regularized Jacobi pseudo-inverse, one launch a call)
+     and F (the accumulator scan, one launch a chunk or clip) against their
+     plain versions on the card. Kernel E on the Hessians a spy recorded in
+     phases 3 and 6 ((a) the 1080p chunk's 6 levels, (b) the 4K chunk's 7),
+     (c) one streaming item (each 1080p level's first alone), (d) G1's
+     sweep (its align un-captured, 864 items a level) and (e) edge
+     matrices, n = 4 and 8: zero, diagonal, equal diagonal entries, SPD,
+     cond 1e7 and rank-deficient (both the Tikhonov branch), entries of
+     1e-30 and 1e30, a NaN. Bar: bit-equal (float32 bits, NaN positions
+     included), else every entry within 2 ulps (the phase says which held
+     and the largest gap). Kernel F on the accumulator calls a spy recorded
+     in phases 3 and 6 ((a), (b)), (c) 32-frame clips of both models (a
+     chunk's measurements twice over, smoothed by kernel D, through
+     ``batch.accumulate_corrections``), (d) the smoother sweep's 12
+     combos with one decay row each, (e) the clips with the smoother off,
+     (f) failures mid-chunk, (g) invalid leading steps, (h) a NaN and a
+     1e30 measurement. Bar: bit-equal, every step's accumulator and the
+     last, NaN positions included. Times as in phase D: the wrapper over
+     50 launches, the device time (50 launches replayed from a CUDA graph),
+     the plain version, the roofline bound and the dependent-chain bound,
+     measured: kernel E on one matrix alone, its device time at 66 sweeps
+     less that at 6, over 10 (6 sweeps' rotations in order, no launch);
+     kernel F on one sequence alone, its steps tiled 11 times less once,
+     over 10. Kernel E's library yardstick: ``torch.linalg.eigh`` and the
+     same regularized V diag(inv_w) V^T as a matmul, timed only. No library
+     call runs kernel F's scan.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -94,9 +122,10 @@ Run from the root of the repository. Phases:
      for the stage table, then through ``stabilize_chunk_streams``, which
      replays the captured chunk (its first call captures), with every
      launch count set to 0 before and read after. Checks the output
-     shape, the replays, the align success rate (>= 0.9) and the measured
-     motion against the clip's known motion. One more chunk, replayed,
-     runs under torch.profiler.
+     shape, the replays, the align success rate (>= 0.9), the measured
+     motion against the clip's known motion, and the launches: kernel E
+     once per level (as B), kernel F once per chunk. One more chunk,
+     replayed, runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
      selection): the same checks, its stage table beside phase 9's.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
@@ -240,7 +269,9 @@ J10. The chunk programs' memory, and long replay. (a)
      alignable frames, TX/TY against the known motion (phase 9's bars),
      and the launches: kernel A once per output, kernel B once per level
      of every frame (the first frame runs the level loop, as in the JAX
-     package), kernel C never, kernel D once per smoothed window.
+     package), kernel C never, kernel D once per smoothed window, kernel E
+     once per level of every frame, kernel F never (the host's
+     accumulator).
      Prints the per-frame latency (host clock up to each frame's sync;
      median and p90 of frames 12-47) and the
      per-frame stage table from the spans; then 8 more frames, replayed,
@@ -288,8 +319,9 @@ J10. The chunk programs' memory, and long replay. (a)
      issued one call each.
  P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
      graph has no Python frames): its per-kernel table
-     names kernel A's, B's and D's symbols, the smoother's kernels and
-     device time per chunk are printed, ``--parse-only`` reprints the same
+     names kernel A's, B's, D's, E's and F's symbols, the smoother's, the
+     pseudo-inverse's and the accumulator's kernels and device time per
+     chunk are printed, ``--parse-only`` reprints the same
      totals from the saved trace, and ``--by-source`` puts over 90 % of
      the device time on frames under ``video_stabilizer_tpu_torch/``.
  P5. The scale-out modules on the card: ``graft_entry.entry()``,
@@ -306,11 +338,12 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(ten entries: kernel A's two chunked forms and its one-frame form, B per
+(twelve entries: kernel A's two chunked forms and its one-frame form, B per
 chunk, at one item, in its fixed mode at K = 4 (S5's launches) and with
 per-item thresholds (G1's launches), C per chunk and with per-item
-thresholds (the G2 path's launches), D at the 1080p chunk's rows (the
-1080p path's launches)), the
+thresholds (the G2 path's launches), D at the 1080p chunk's rows, E at the
+1080p chunk's level 0 and F at the 1080p chunk (the 1080p path's
+launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -361,6 +394,43 @@ TVL1_REG_MAX = 32
 # the compare, diff * shrink, the add, the subtract and the two selects).
 TVL1_OPS_PER_COLUMN = 3
 TVL1_OPS_PER_PAIR = 14
+# Kernels E and F replace XLA computations, not Pallas kernels: the Jacobi
+# pseudo-inverse, Python loops that XLA unrolls (regularized_pinv_sym4 of
+# ops/linalg.py), and the accumulator's lax.scan (the chunk's, chunked.py;
+# the clip's twin is models/batch.py:284).
+PINV_REPLACES = "video_stabilizer_tpu/ops/linalg.py:177"
+PINV_NAME = "regularized_pinv_sym4"
+PINV_SWEEPS = 6
+PINV_CHAIN_SWEEPS = 66     # phase E's chain: 66 less 6 sweeps, over 10
+ACCUM_REPLACES = "video_stabilizer_tpu/models/chunked.py:180"
+ACCUM_NAME = "accum_scan"
+# Float32 operations of csrc/accum.cu per folded step, by (P, smoother on):
+# the inverse of the smoothed transform (similarity 17, homography 39: the
+# adjugate's 27, the H22 normalization's 10, to_matrix's 2), two composes
+# (17 or 59 each: the 3x3 products' 45), the four corners (18 or 27 each,
+# the square root and the maximum counted one each), the decay's 10, the
+# P multiplies by the factor and the 2P selects of the reset and the valid
+# mask. Without the smoother the inverse and one compose drop out.
+ACCUM_OPS_PER_FOLD = {(4, True): 145, (4, False): 111, (8, True): 299,
+                      (8, False): 201}
+
+
+# Stack frames a kernel may report beside its 0 spills: kernel E's 32 bytes
+# are the CUDA math library's sinf / cosf argument-reduction buffer (its
+# Payne-Hanek path, for |x| > 105615; the Jacobi angle is within pi/2),
+# which torch's float32 sin and cos kernels carry too.
+STACK_BYTES = {"jacobi": 32}
+
+
+def pinv_ops(n: int) -> int:
+    """Float32 operations of csrc/jacobi.cu per n x n matrix: per rotation
+    the angle's 4 and atan2, cos and sin (counted one each), and 6 (4
+    multiplies, 2 adds) per element of the 2 rows of A, the 2 columns of A
+    and the 2 columns of V it rotates; then the regularization's 2n, V
+    diag(inv_w)'s n^2 and per output element n products and 2n adds (the
+    tree adds the reduction's 0)."""
+    rotations = PINV_SWEEPS * n * (n - 1) // 2
+    return rotations * (7 + 18 * n) + 2 * n + n * n + 3 * n ** 3
 
 failures: list[str] = []
 
@@ -408,21 +478,29 @@ def release_graphs():
     graphs.reset([p for p in graphs.PROGRAMS if p not in streaming])
 
 
-PLAIN_SMOOTHER_ON_CARD = [0]
+PLAIN_ON_CARD = {TVL1_NAME: 0, PINV_NAME: 0, ACCUM_NAME: 0}
+PLAIN = {}
 
 
-def count_plain_smoother():
-    """Count the calls of the plain smoother on a card tensor made through
-    ``models.smoother.tvl1_smooth`` (every path's smoother): phase D calls
-    ``ops.tvl1.tvl1_smooth_plain`` itself, which is not counted."""
+def count_plain_on_card():
+    """Count the calls of kernel D's, E's and F's plain versions on a card
+    tensor made through their dispatchers (``models.smoother.tvl1_smooth``,
+    ``ops.linalg.regularized_pinv_sym4``, ``ops.accum.accum_scan``: every
+    path's). Phase E calls the plain versions kept in ``PLAIN``, which are
+    not counted (phase D calls ``ops.tvl1``'s own)."""
     from video_stabilizer_tpu_torch.models import smoother
-    plain = smoother.tvl1_smooth_plain
+    from video_stabilizer_tpu_torch.ops import accum, linalg
+    for name, module, attr in (
+            (TVL1_NAME, smoother, "tvl1_smooth_plain"),
+            (PINV_NAME, linalg, "regularized_pinv_sym4_plain"),
+            (ACCUM_NAME, accum, "accum_scan_plain")):
+        plain = PLAIN.setdefault(name, getattr(module, attr))
 
-    def counted(data, *args, **kw):
-        if data.device.type != "cpu":
-            PLAIN_SMOOTHER_ON_CARD[0] += 1
-        return plain(data, *args, **kw)
-    smoother.tvl1_smooth_plain = counted
+        def counted(x, *args, _plain=plain, _name=name, **kw):
+            if x.device.type != "cpu":
+                PLAIN_ON_CARD[_name] += 1
+            return _plain(x, *args, **kw)
+        setattr(module, attr, counted)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -511,25 +589,34 @@ def known_motion_error(shift, ok, poses):
 
 def reset_launch_counts():
     from video_stabilizer_tpu_torch.ops import warp_kernel
+    from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.linalg import (
+        regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     warp_kernel.reset_launches()
-    gn_solve.launches = 0
-    gn8_solve.launches = 0
-    tvl1_smooth_kernel.launches = 0
+    for fn in (gn_solve, gn8_solve, tvl1_smooth_kernel,
+               regularized_pinv_sym4_kernel, accum_scan_kernel):
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
     """Launches since the last reset, per kernel and form."""
+    from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.linalg import (
+        regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     counts = {f"warp_frames[{m},{i}]": n
               for (m, i), n in warp_frames.form_launches.items()}
-    counts.update(gn_solve=gn_solve.launches, gn8_solve=gn8_solve.launches,
-                  tvl1_smooth=tvl1_smooth_kernel.launches)
+    counts.update({"gn_solve": gn_solve.launches,
+                   "gn8_solve": gn8_solve.launches,
+                   TVL1_NAME: tvl1_smooth_kernel.launches,
+                   PINV_NAME: regularized_pinv_sym4_kernel.launches,
+                   ACCUM_NAME: accum_scan_kernel.launches})
     return counts
 
 
@@ -542,26 +629,29 @@ def build_kernels():
     from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
     # per block size; D: one per window length held in registers, and the
-    # any-length one.
+    # any-length one; E: n = 4 and 8; F: P = 4 and 8.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
-                     gn8_solve=len(gn8_solve.THREADS), tvl1=TVL1_REG_MAX + 1)
+                     gn8_solve=len(gn8_solve.THREADS), tvl1=TVL1_REG_MAX + 1,
+                     jacobi=2, accum=2)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
             if any(k in line for k in ("Function properties", "registers",
                                        "spill", "error")):
                 log(f"  {name}: {line.strip()}")
-        # Every kernel instance's arrays must live in registers.
+        # Every kernel instance's arrays must live in registers: no spills,
+        # and no stack but the math library's (STACK_BYTES).
         want = instances.get(name)
         if want is not None:
+            stack = STACK_BYTES.get(name, 0)
             stacks = [ln.strip() for ln in text.splitlines()
                       if "bytes stack frame" in ln]
-            clean = [ln for ln in stacks if ln == "0 bytes stack frame, 0 "
-                     "bytes spill stores, 0 bytes spill loads"]
+            clean = [ln for ln in stacks if ln == f"{stack} bytes stack "
+                     "frame, 0 bytes spill stores, 0 bytes spill loads"]
             check(len(stacks) == want and len(clean) == want,
                   f"{name}.cu: {len(clean)} of {len(stacks)} kernel "
-                  f"instances (of {want}) with a 0-byte stack frame and no "
-                  "spills")
+                  f"instances (of {want}) with a {stack}-byte stack frame "
+                  "and no spills")
     for name in cuda_build.SOURCES:
         check(cuda_build.library_path(name).exists(), f"built {name}.cu")
     return True
@@ -593,7 +683,11 @@ def capture(params, dev):
     chunk1 = torch.as_tensor(frames[:, CHUNK:2 * CHUNK]).to(dev)
     with mock.patch.object(aligner, "gn_solve", wraps=gn_solve) as spy, \
             mock.patch.object(chunked, "tvl1_smooth",
-                              wraps=chunked.tvl1_smooth) as smooth:
+                              wraps=chunked.tvl1_smooth) as smooth, \
+            mock.patch.object(aligner, "regularized_pinv_sym4",
+                              wraps=aligner.regularized_pinv_sym4) as pinv, \
+            mock.patch.object(chunked, "accum_scan",
+                              wraps=chunked.accum_scan) as scan:
         _, delayed, accums, *_ = chunked.stabilize_chunk_core(
             states, chunk1, params, WIDTH, HEIGHT)
     t_ul = T.center_to_ul(accums, WIDTH, HEIGHT, minus_one=True)
@@ -603,6 +697,9 @@ def capture(params, dev):
                 gn_calls=[(c.args, c.kwargs) for c in spy.call_args_list],
                 tvl1_calls=[(c.args, c.kwargs)
                             for c in smooth.call_args_list],
+                pinv_calls=[c.args[0] for c in pinv.call_args_list],
+                accum_calls=[(c.args, c.kwargs)
+                             for c in scan.call_args_list],
                 levels=len(aligner.level_specs(WIDTH, HEIGHT,
                                                params.aligner)))
 
@@ -1046,11 +1143,17 @@ def capture_4k(params, dev):
     chunk1 = torch.as_tensor(frames[:, CHUNK:]).to(dev)
     with mock.patch.object(ha, "gn8_solve", wraps=gn8_solve) as spy, \
             mock.patch.object(chunked, "tvl1_smooth",
-                              wraps=chunked.tvl1_smooth) as smooth:
+                              wraps=chunked.tvl1_smooth) as smooth, \
+            mock.patch.object(ha, "regularized_pinv_sym4",
+                              wraps=ha.regularized_pinv_sym4) as pinv, \
+            mock.patch.object(chunked, "accum_scan",
+                              wraps=chunked.accum_scan) as scan:
         _, delayed, accums, *_ = chunked.stabilize_chunk_core(
             states, chunk1, params, W4K, H4K, HOMOGRAPHY)
     calls = [(c.args, c.kwargs) for c in spy.call_args_list]
     tvl1_calls = [(c.args, c.kwargs) for c in smooth.call_args_list]
+    pinv_calls = [c.args[0] for c in pinv.call_args_list]
+    accum_calls = [(c.args, c.kwargs) for c in scan.call_args_list]
 
     # Pairs with perspective: each template is a frame of the clip warped
     # by a known homography through kernel A, so the aligner must find
@@ -1077,7 +1180,9 @@ def capture_4k(params, dev):
     torch.cuda.synchronize()
     return dict(warp_frames=delayed.reshape(-1, H4K, W4K, 3),
                 warp_ts=accums.reshape(-1, 8).contiguous(), gn8_calls=calls,
-                persp_calls=persp, tvl1_calls=tvl1_calls, levels=len(specs))
+                persp_calls=persp, tvl1_calls=tvl1_calls,
+                pinv_calls=pinv_calls, accum_calls=accum_calls,
+                levels=len(specs))
 
 
 @phase("kernel A: output warp vs its plain version (4K, homography)")
@@ -1532,6 +1637,342 @@ def check_tvl1(calls_1080p, calls_4k, params, dev):
     return entry
 
 
+def ulp_gap(got, want):
+    """(bits equal, NaN positions equal, the largest gap in float32 units
+    in the last place where neither is NaN, the largest |diff| where both
+    are finite) of two float32 tensors."""
+    a = got.contiguous().view(torch.int32).to(torch.int64)
+    b = want.contiguous().view(torch.int32).to(torch.int64)
+    nan_a, nan_b = torch.isnan(got), torch.isnan(want)
+    # Ordered integers: adjacent floats differ by one, -0 and +0 are 0.
+    gap = (torch.where(a < 0, -(a & 0x7FFFFFFF), a)
+           - torch.where(b < 0, -(b & 0x7FFFFFFF), b)).abs()
+    gap = gap[~(nan_a | nan_b)]
+    both = torch.isfinite(got) & torch.isfinite(want)
+    diff = (got - want).abs()[both]
+    return (torch.equal(a, b), torch.equal(nan_a, nan_b),
+            int(gap.max()) if gap.numel() else 0,
+            float(diff.max()) if diff.numel() else 0.0)
+
+
+def pinv_edge_calls(dev):
+    """Phase E's edge matrices, n = 4 and 8: zero; diagonal (every apq =
+    0); equal diagonal entries (app == aqq); a well-conditioned SPD; a
+    decoupled direction of 1e-4 beside 1e3 (cond 1e7: the Tikhonov
+    branch); a zero row and column (rank-deficient, w_min 0: the Tikhonov
+    branch); the SPD at 1e-30 and at 1e30; a NaN."""
+    g = torch.Generator().manual_seed(SEED + 9)
+    calls = []
+    for n in (4, 8):
+        q, _ = torch.linalg.qr(torch.randn((n, n), generator=g,
+                                           dtype=torch.float64))
+        spd = (q * torch.linspace(1.0, 50.0, n, dtype=torch.float64)) @ q.T
+        equal = torch.full((n, n), 0.5, dtype=torch.float64)
+        equal.fill_diagonal_(3.0)
+        ill = torch.zeros((n, n), dtype=torch.float64)
+        ill[0, 0] = 1e-4
+        ill[1:, 1:] = (q[1:, 1:] * torch.linspace(1.0, 1e3, n - 1,
+                                                  dtype=torch.float64)
+                       ) @ q[1:, 1:].T
+        deficient = spd.clone()
+        deficient[-1], deficient[:, -1] = 0.0, 0.0
+        nan = spd.clone()
+        nan[0, 1] = float("nan")
+        mats = torch.stack([
+            torch.zeros((n, n), dtype=torch.float64),
+            torch.diag(torch.arange(1.0, n + 1, dtype=torch.float64)),
+            equal, spd, ill, deficient, spd * 1e-30, spd * 1e30, nan])
+        calls.append((f"(e) {n}x{n} edge matrices (zero, diagonal, equal "
+                      "diagonal, SPD, cond 1e7, rank-deficient, 1e-30, "
+                      "1e30, NaN)", mats.to(torch.float32).to(dev)))
+    return calls
+
+
+def sweep_hessians(dev):
+    """The Hessians of G1's sweep (27 combos x 32 frames, 864 items a
+    level): its align, un-captured, with a spy on the pseudo-inverse."""
+    from video_stabilizer_tpu_torch.apps import grid_search_align as gsa
+    from video_stabilizer_tpu_torch.models import aligner
+    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+
+    frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
+    gray = torch.from_numpy(gsa.host_gray(frames)).to(dev)
+    base, _ = gsa.widened_aligner()
+    dyn = gsa.dyn_params(gsa.combo_grid(), dev)
+    with mock.patch.object(aligner, "regularized_pinv_sym4",
+                           wraps=aligner.regularized_pinv_sym4) as spy:
+        align_clip_impl(gray, base, WIDTH, HEIGHT, dyn=dyn)
+    return [c.args[0] for c in spy.call_args_list]
+
+
+def pinv_library(h):
+    """The library yardstick of kernel E: ``torch.linalg.eigh`` and the
+    same regularized V diag(inv_w) V^T as a batched matmul (timed only)."""
+    w, v = torch.linalg.eigh(h)
+    w_max = torch.amax(w, dim=-1, keepdim=True)
+    w_min = torch.amin(w, dim=-1, keepdim=True)
+    lam = torch.where(w_max / (w_min + 1e-10) > 1e6, 1e-6 * w_max,
+                      torch.zeros_like(w_max))
+    w2 = w + lam
+    cutoff = torch.clamp(w_max + lam, min=0.0) * 1e-7
+    inv_w = torch.where(w2 > cutoff, 1.0 / w2, torch.zeros_like(w2))
+    return (v * inv_w[..., None, :]) @ v.mT
+
+
+def accum_call_args(call):
+    """(accum0, meas, smoothed, succ, valid, params, width, height, model,
+    decay) of a recorded ``accum_scan`` call."""
+    import inspect
+
+    from video_stabilizer_tpu_torch.ops.accum import accum_scan
+    args, kw = call
+    bound = inspect.signature(accum_scan).bind(*args, **kw)
+    bound.apply_defaults()
+    return tuple(bound.arguments.values())
+
+
+def accum_clip_call(chunk_call, enable_smoother=True):
+    """The clip layout's call (``batch.accumulate_corrections``, recorded
+    by a spy) on a 32-frame clip made of a recorded chunk's measurements
+    and flags twice over, smoothed by kernel D as the clip path does."""
+    from video_stabilizer_tpu_torch.models import batch
+
+    _, meas, _, succ, _, params, width, height, model, _ = chunk_call
+    meas = torch.cat([meas, meas], dim=1)
+    succ = torch.cat([succ, succ], dim=1)
+    params = dataclasses.replace(params, enable_smoother=enable_smoother)
+    smoothed = (batch.smooth_trajectory(meas, params) if enable_smoother
+                else meas)
+    with mock.patch.object(batch, "accum_scan",
+                           wraps=batch.accum_scan) as spy:
+        batch.accumulate_corrections(meas, succ, smoothed, params, width,
+                                     height, model)
+    return accum_call_args((spy.call_args.args, spy.call_args.kwargs))
+
+
+def accum_sweep_call(dev):
+    """The smoother sweep's call: ``eval_combos``' 12 combos (one lam and
+    one decay row each) over 60 frames of measurements (a seeded random
+    walk with failures) at its app's 360x640, through
+    ``batch.accumulate_corrections``, recorded by a spy."""
+    from video_stabilizer_tpu_torch.apps import grid_search_smoother as gss
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+    from video_stabilizer_tpu_torch.models import batch
+
+    rng = np.random.default_rng(SEED + 6)
+    t = 60
+    meas = torch.from_numpy(np.stack(
+        [rng.normal(0, 2e-3, t), rng.normal(0, 2e-3, t),
+         rng.normal(0.3, 6.0, t), rng.normal(0, 6.0, t)], -1).astype(
+        np.float32)).to(dev)
+    ok = torch.from_numpy(rng.random(t) > 0.1).to(dev)
+    combos = list(itertools.product(gss.LAMBDAS, gss.DECAYS))
+    lams = torch.tensor([c[0] for c in combos], device=dev)
+    decays = torch.tensor([c[1] for c in combos], device=dev)
+    params = StabilizerParams(lag=10, smoother_memory=5)
+    meas_c = meas.expand((len(combos),) + meas.shape)
+    ok_c = ok.expand((len(combos),) + ok.shape)
+    smoothed = batch.smooth_trajectory(meas_c, params, lam=lams)
+    with mock.patch.object(batch, "accum_scan",
+                           wraps=batch.accum_scan) as spy:
+        batch.accumulate_corrections(meas_c, ok_c, smoothed, params, 640,
+                                     360, decay=decays)
+    return accum_call_args((spy.call_args.args, spy.call_args.kwargs))
+
+
+def accum_variants(call):
+    """Phase E's edge calls of kernel F from a chunk's call: failures in
+    the middle of the chunk; invalid leading steps (a fresh stream, and
+    streams 6 and 0 steps in); a NaN measurement and a 1e30 one."""
+    accum0, meas, smoothed, succ, valid, *rest = call
+    steps = meas.shape[1]
+    fail = succ.clone()
+    fail[:, steps // 3:steps // 3 + 3] = False
+    fail[::2, steps - 4] = False
+    seen = torch.tensor([0, 6] * meas.shape[0], device=meas.device)[
+        :meas.shape[0], None]
+    lead = seen + torch.arange(steps, device=meas.device) - rest[0].lag >= 0
+    odd = meas.clone()
+    odd[0, 3, 2] = float("nan")
+    odd[-1, 5, 0] = 1e30
+    return [("(f) failures mid-chunk", (accum0, meas, smoothed, fail, valid,
+                                        *rest)),
+            ("(g) invalid leading steps", (accum0, meas, smoothed, succ,
+                                           lead, *rest)),
+            ("(h) a NaN and a 1e30 measurement", (accum0, odd, smoothed,
+                                                  succ, valid, *rest))]
+
+
+def accum_bound(call):
+    """(roofline ms, what bounds it, dependent-chain ms) of one kernel F
+    call. Roofline: measurements, smoothed rows, flags, decay rows and the
+    starting accumulator read once, every step's accumulator and the last
+    one written once; the operations of the steps this call folds
+    (ACCUM_OPS_PER_FOLD), the reset's selects on the rest. Dependent chain,
+    measured: sequence 0 alone, its device time at 11 x its steps (the
+    call's steps tiled) less that at 1 x, over 10, so the time of its
+    steps' folds in order without the launch."""
+    from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
+    accum0, meas, smoothed, succ, valid, params, w, h, model, decay = call
+    b, steps, p = meas.shape
+    on = params.enable_smoother
+    folds = b * steps if valid is None else int(valid.sum())
+    bytes_moved = (b * steps * p * 4 * (3 if on else 2)
+                   + b * steps * (1 if valid is None else 2)
+                   + b * p * 8 + (0 if decay is None else b * 16))
+    ops = folds * ACCUM_OPS_PER_FOLD[(p, on)] + (b * steps - folds) * p
+    bound_ms, bound_by = roofline(bytes_moved, ops)
+
+    def one(reps):
+        def tile(x):
+            return None if x is None else x[:1].repeat(
+                (1, reps) + (1,) * (x.dim() - 2))
+        return (accum0[:1], tile(meas), tile(smoothed), tile(succ),
+                tile(valid), params, w, h, model,
+                None if decay is None else decay[:1])
+
+    def seq_ms(reps):
+        args = one(reps)
+        return graph_ms(lambda: accum_scan_kernel(*args), 10)
+
+    chain_ms = (seq_ms(11) - seq_ms(1)) / 10
+    return bound_ms, bound_by, chain_ms
+
+
+@phase("E. kernels E and F: the Jacobi pseudo-inverse and the accumulator "
+       "scan vs their plain versions (the chunks, a streaming item, G1's "
+       "sweep, clips, the smoother sweep, edge cases)")
+def check_pinv_accum(pinv_1080p, pinv_4k, accum_1080p, accum_4k, dev):
+    """See E in the module's docstring. Returns the kernels line's entries
+    of kernels E and F."""
+    from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
+    from video_stabilizer_tpu_torch.ops.linalg import (
+        regularized_pinv_sym4_kernel)
+
+    plain_e, plain_f = PLAIN[PINV_NAME], PLAIN[ACCUM_NAME]
+    check(len(pinv_1080p) == 6 and len(pinv_4k) == 7
+          and len(accum_1080p) == 1 and len(accum_4k) == 1,
+          f"the chunks' calls: {len(pinv_1080p)} (1080p) and {len(pinv_4k)} "
+          f"(4K) pseudo-inverses, one per level; {len(accum_1080p)} and "
+          f"{len(accum_4k)} accumulator scans, one per chunk")
+    g1 = sweep_hessians(dev)
+    check(len(g1) == 6 and all(h.shape[0] == 864 for h in g1),
+          f"G1's sweep: {len(g1)} calls of {[h.shape[0] for h in g1]} items")
+
+    # Kernel E.
+    e_calls = ([(f"(a) 1080p chunk, level {k}", h)
+                for k, h in enumerate(pinv_1080p)]
+               + [(f"(b) 4K chunk, level {k}", h)
+                  for k, h in enumerate(pinv_4k)]
+               + [(f"(c) one streaming item, level {k}", h[:1])
+                  for k, h in enumerate(pinv_1080p)]
+               + [(f"(d) G1's sweep, level {k}", h) for k, h in enumerate(g1)]
+               + pinv_edge_calls(dev))
+    bit_equal, nan_same, worst_ulps, worst_e = True, True, 0, 0.0
+    for what, h in e_calls:
+        got = regularized_pinv_sym4_kernel(h)
+        same, nans, ulps, err = ulp_gap(got, plain_e(h))
+        bit_equal &= same
+        nan_same &= nans
+        worst_ulps, worst_e = max(worst_ulps, ulps), max(worst_e, err)
+        if not same:
+            log(f"    {what}: bits differ; NaN positions equal {nans}, "
+                f"largest gap {ulps} ulps, max |diff| {err:.3e}")
+    if bit_equal:
+        check(True, f"kernel E bit-equal to its plain version on all "
+              f"{len(e_calls)} calls ((a)-(e), NaN positions included)")
+    else:
+        check(nan_same and worst_ulps <= 2,
+              f"kernel E NOT bit-equal to its plain version; the 2-ulp bar: "
+              f"NaN positions equal {nan_same}, largest gap {worst_ulps} "
+              f"ulps (max |diff| {worst_e:.3e}) over {len(e_calls)} calls")
+
+    log("  kernel E | shape | kernel ms | device ms | plain ms | library ms "
+        "(eigh) | roofline ms | chain ms (6 sweeps of one matrix)")
+    timed_e = [("(a) 1080p chunk, level 0", pinv_1080p[0]),
+               ("(b) 4K chunk, level 0", pinv_4k[0]),
+               ("(c) one streaming item", pinv_1080p[0][:1]),
+               ("(d) G1's sweep, level 0", g1[0])]
+    entry_e = None
+    for what, h in timed_e:
+        b, n = h.shape[0], h.shape[-1]
+        ms = cuda_ms(lambda: regularized_pinv_sym4_kernel(h), 50)
+        device_ms = graph_ms(lambda: regularized_pinv_sym4_kernel(h), 50)
+        plain_ms = cuda_ms(lambda: plain_e(h), 1)
+        library_ms = cuda_ms(lambda: pinv_library(h), 5)
+        bound_ms, bound_by = roofline(2 * b * n * n * 4, b * pinv_ops(n))
+        one = h[:1].contiguous()
+
+        def sweeps_ms(sweeps):
+            return graph_ms(lambda: regularized_pinv_sym4_kernel(
+                one, sweeps=sweeps), 10)
+        chain_ms = ((sweeps_ms(PINV_CHAIN_SWEEPS) - sweeps_ms(PINV_SWEEPS))
+                    * PINV_SWEEPS / (PINV_CHAIN_SWEEPS - PINV_SWEEPS))
+        log(f"  {what} | {b} x {n}x{n} | {ms:.4f} | {device_ms:.4f} | "
+            f"{plain_ms:.2f} | {library_ms:.4f} | {bound_ms:.6f} "
+            f"({bound_by}) | {chain_ms:.4f}; device / chain "
+            f"{device_ms / chain_ms:.2f}")
+        if entry_e is None:
+            entry_e = dict(name=PINV_NAME, route="cuda",
+                           source="video_stabilizer_tpu_torch/csrc/jacobi.cu",
+                           replaces=PINV_REPLACES, max_abs_err=worst_e,
+                           ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           chain_bound_ms=chain_ms, library_ms=library_ms)
+
+    # Kernel F.
+    chunk = accum_call_args(accum_1080p[0])
+    chunk_4k = accum_call_args(accum_4k[0])
+    clip = accum_clip_call(chunk)
+    sweep = accum_sweep_call(dev)
+    f_calls = ([("(a) 1080p chunk", chunk), ("(b) 4K chunk", chunk_4k),
+                ("(c) 1080p clip of 32 frames", clip),
+                ("(c) 4K clip of 32 frames", accum_clip_call(chunk_4k)),
+                ("(d) the smoother sweep, a decay row per combo", sweep),
+                ("(e) smoother off, 1080p clip",
+                 accum_clip_call(chunk, enable_smoother=False)),
+                ("(e) smoother off, 4K clip",
+                 accum_clip_call(chunk_4k, enable_smoother=False))]
+               + accum_variants(chunk) + accum_variants(chunk_4k))
+    all_same, worst_f = True, 0.0
+    for what, call in f_calls:
+        got = accum_scan_kernel(*call)
+        want = plain_f(*call)
+        for g, w in zip(got, want):
+            same, nans, ulps, err = ulp_gap(g, w)
+            all_same &= same
+            worst_f = max(worst_f, err)
+            if not same:
+                log(f"    {what}: bits differ; NaN positions equal {nans}, "
+                    f"largest gap {ulps} ulps, max |diff| {err:.3e}")
+    check(all_same, f"kernel F bit-equal to its plain version on all "
+          f"{len(f_calls)} calls ((a)-(h): every step's accumulator and the "
+          f"last, NaN positions included); max |diff| where both finite "
+          f"{worst_f:.3e}")
+
+    log("  kernel F | sequences x steps x P | kernel ms | device ms | plain "
+        "ms | roofline ms | chain ms (one sequence's folds)")
+    entry_f = None
+    for what, call in f_calls[:3] + f_calls[4:5]:
+        b, steps, p = call[1].shape
+        ms = cuda_ms(lambda: accum_scan_kernel(*call), 50)
+        device_ms = graph_ms(lambda: accum_scan_kernel(*call), 50)
+        plain_ms = cuda_ms(lambda: plain_f(*call), 1)
+        bound_ms, bound_by, chain_ms = accum_bound(call)
+        log(f"  {what} | {b} x {steps} x {p} | {ms:.4f} | {device_ms:.4f} | "
+            f"{plain_ms:.2f} | {bound_ms:.6f} ({bound_by}) | {chain_ms:.4f}; "
+            f"device / chain {device_ms / chain_ms:.2f}")
+        if entry_f is None:
+            entry_f = dict(name=ACCUM_NAME, route="cuda",
+                           source="video_stabilizer_tpu_torch/csrc/accum.cu",
+                           replaces=ACCUM_REPLACES, max_abs_err=worst_f,
+                           ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           chain_bound_ms=chain_ms, library_ms=None)
+    log("  kernel F's library: none (no PyTorch call runs this scan)")
+    return entry_e, entry_f
+
+
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
     from a fresh state, twice: un-captured (``graphs.eager()``) under a
@@ -1644,8 +2085,19 @@ def main_path(frames, poses, params, dev):
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
+    path_checks_e_f(launches, "gn_solve", CHUNKS)
     known_motion_checks(meas, ok, poses)
     return launches, states, last, stages
+
+
+def path_checks_e_f(launches, gn: str, chunks: int):
+    """Kernel E once per level (as the GN kernel ``gn``) and kernel F once
+    per chunk on a chunked path."""
+    check(launches[PINV_NAME] == launches[gn] > 0
+          and launches[ACCUM_NAME] == chunks,
+          f"kernel E launched {launches[PINV_NAME]} times (once per level: "
+          f"{gn} {launches[gn]}), kernel F {launches[ACCUM_NAME]} (once per "
+          f"chunk: {chunks})")
 
 
 def known_motion_checks(meas, ok, poses):
@@ -1673,6 +2125,7 @@ def main_path_4k(frames, poses, params, dev):
           and launches["tvl1_smooth"] > 0 and launches["gn_solve"] == 0,
           "kernel C, kernel A (homography, Lanczos2) and kernel D launched, "
           "kernel B not")
+    path_checks_e_f(launches, "gn8_solve", CHUNKS_4K)
     # The normalized translation (p2, p5) times W is the motion in px at
     # the frame centre. On such a clip (270x480, jitter 1 px, pan 0.3,
     # seeds 5 and 6, 12 frames, on the CPU) the JAX package's 8-DOF aligner
@@ -1854,8 +2307,14 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
     per_replay = {(f"{k[0]}[{','.join(k[1])}]" if k[1] else k[0]): n
                   for k, n in stats["launches_per_replay"].items()}
     log(f"  launches per replay {per_replay}; this run's counts {launches}")
-    check(per_replay.get("tvl1_smooth_kernel", 0) == 1,
-          "kernel D launched once in every replay (the chunk's smoother)")
+    gn = "gn_solve" if model == "similarity" else "gn8_solve"
+    check(per_replay.get("tvl1_smooth_kernel", 0) == 1
+          and per_replay.get("regularized_pinv_sym4_kernel", 0)
+          == per_replay.get(gn, -1)
+          and per_replay.get("accum_scan_kernel", 0) == 1,
+          "kernel D launched once in every replay (the chunk's smoother), "
+          f"kernel E once per level (as {gn}), kernel F once (the chunk's "
+          "accumulator)")
 
     n = J_STEADY[model]
     walls = []
@@ -2032,9 +2491,13 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
     per = stats["launches_per_replay"]
     check(any(k[0] == "warp_frames" and k[1] is None for k in per)
           and per.get((need, None), 0) > 0
-          and per.get(("tvl1_smooth_kernel", None), 0) == 1,
+          and per.get(("tvl1_smooth_kernel", None), 0) == 1
+          and per.get(("regularized_pinv_sym4_kernel", None), 0)
+          == per[(need, None)]
+          and per.get(("accum_scan_kernel", None), 0) == 1,
           f"kernel A and kernel {'B' if need == 'gn_solve' else 'C'} "
-          "launched in every replay, kernel D once")
+          "launched in every replay, kernel D once, kernel E once per "
+          "level, kernel F once")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
     return walls
 
@@ -2386,6 +2849,7 @@ def topk_path(frames, poses, params, dev, mask_stages):
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
+    path_checks_e_f(launches, "gn_solve", CHUNKS)
     known_motion_checks(meas, ok, poses)
     log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
         "histogram mask (phase 9) | topk")
@@ -3386,11 +3850,13 @@ def timed_stream(host, poses, params, dev, eager=False):
     check(n_a == STREAM_FRAMES - lag and launches["gn_solve"] == want_b
           and launches["gn8_solve"] == 0
           and launches["tvl1_smooth"] == want_d
-          and sum(launches.values()) == n_a + want_b + want_d,
+          and launches[PINV_NAME] == want_b and launches[ACCUM_NAME] == 0
+          and sum(launches.values()) == n_a + 2 * want_b + want_d,
           f"launches {launches}: kernel A {STREAM_FRAMES - lag} (one per "
-          f"output), kernel B {want_b} (one per level of every frame, the "
-          f"first included), kernel C 0, kernel D {want_d} (one per "
-          "smoothed window)")
+          f"output), kernels B and E {want_b} each (one per level of every "
+          f"frame, the first included), kernel C 0, kernel D {want_d} (one "
+          "per smoothed window), kernel F 0 (the streaming accumulator is "
+          "the host's)")
 
     steady = np.asarray(walls[STREAM_STEADY:])
     log(f"  {'un-captured (graphs.eager())' if eager else 'replayed'}: "
@@ -3882,7 +4348,8 @@ def tool_profile():
         log(f"  run, trace and summary {time.perf_counter() - t0:.1f} s; "
             f"trace {size / 1e6:.1f} MB")
         names = list(totals)
-        for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_reg_kernel"):
+        for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_reg_kernel",
+                       "pinv_kernel", "accum_kernel"):
             hits = [n for n in names if symbol in n]
             check(bool(hits), f"the per-kernel table names {symbol}: "
                   f"{hits[:1]}")
@@ -3902,6 +4369,14 @@ def tool_profile():
         f"{sum(us for us, _ in smooth) / 1e3:.3f} ms, of {events} device "
         f"events and {total / 1e3:.1f} ms in all (the plain loop: 30,316 "
         "kernels)")
+    for what, source, plain in (
+            ("Jacobi pseudo-inverse's (kernel E)", "/ops/linalg.py", "6,828"),
+            ("accumulator's (kernel F)", "/ops/accum.py", "2,272")):
+        rows = [(us, n) for name, (us, n) in by_src.items() if source in name]
+        log(f"  the {what} device work in the chunk: "
+            f"{sum(n for _, n in rows)} kernels, "
+            f"{sum(us for us, _ in rows) / 1e3:.3f} ms (the plain version: "
+            f"{plain} kernels)")
     mine = sum(us for name, (us, _) in by_src.items()
                if name.startswith(profile_chunk.PACKAGE))
     check(total > 0 and mine / total > 0.9,
@@ -4009,7 +4484,7 @@ def main() -> int:
         AlignerParams, StabilizerParams)
 
     dev = torch.device("cuda")
-    count_plain_smoother()
+    count_plain_on_card()
     smi = nvidia_smi()
     log(f"card: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -4029,7 +4504,7 @@ def main() -> int:
     crop = params.crop_pixels
     synth_on_card(dev)
     kernels = {}
-    smooth_calls = {}
+    smooth_calls, pinv_calls, accum_calls = {}, {}, {}
     cap = capture(params, dev)
     if cap is not None:
         kernels["warp_frames[similarity,bilinear]"] = check_warp(cap, crop,
@@ -4037,6 +4512,8 @@ def main() -> int:
         kernels["gn_solve"] = check_gn(cap)
         kernels[FIXED_NAME] = check_gn_fixed(cap)
         smooth_calls["1080p"] = cap["tvl1_calls"]
+        pinv_calls["1080p"] = cap["pinv_calls"]
+        accum_calls["1080p"] = cap["accum_calls"]
         del cap
     cap = capture_4k(params_4k, dev)
     if cap is not None:
@@ -4045,11 +4522,20 @@ def main() -> int:
         kernels["gn8_solve"] = check_gn8(cap)
         kernels[ITEM_NAME_C] = check_gn8_per_item(cap)
         smooth_calls["4K"] = cap["tvl1_calls"]
+        pinv_calls["4K"] = cap["pinv_calls"]
+        accum_calls["4K"] = cap["accum_calls"]
         del cap
     if len(smooth_calls) == 2:
         kernels[TVL1_NAME] = check_tvl1(smooth_calls["1080p"],
                                         smooth_calls["4K"], params, dev)
     del smooth_calls
+    if len(pinv_calls) == 2:
+        entries = check_pinv_accum(pinv_calls["1080p"], pinv_calls["4K"],
+                                   accum_calls["1080p"], accum_calls["4K"],
+                                   dev)
+        if entries is not None:
+            kernels[PINV_NAME], kernels[ACCUM_NAME] = entries
+    del pinv_calls, accum_calls
     torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
     torch.cuda.empty_cache()
@@ -4074,7 +4560,8 @@ def main() -> int:
         launches, states, last_chunk, stages = result
         for kname in kernels:
             if launches.get(kname, 0) > 0:
-                # Kernel D runs on both paths: its count is the 1080p one.
+                # Kernels D, E and F run on both paths: their counts are
+                # the 1080p ones.
                 path_launches.setdefault(kname, launches[kname])
         if model == "similarity":
             # Right after phase 9, so that both runs meet the same host
@@ -4158,13 +4645,13 @@ def main() -> int:
     tool_profile()
     scale_out(params, dev)
 
-    check(PLAIN_SMOOTHER_ON_CARD[0] == 0,
-          f"the plain smoother ran {PLAIN_SMOOTHER_ON_CARD[0]} times on the "
-          "card over every path (each smoother call there went to kernel "
-          "D)")
+    check(not any(PLAIN_ON_CARD.values()),
+          f"plain versions run on the card over every path: {PLAIN_ON_CARD} "
+          "(each smoother, pseudo-inverse and accumulator call there went to "
+          "kernel D, E or F)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 10:
+    if failures or missing or len(kernels) != 12:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))
@@ -4173,8 +4660,8 @@ def main() -> int:
         k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels B, C and D also give their device time beside the wrapper's
-    # ms; D its dependent-chain bound beside the roofline one.
+    # Kernels B-F also give their device time beside the wrapper's ms; D,
+    # E and F their dependent-chain bound beside the roofline one.
     extra = ("device_ms", "chain_bound_ms")
     print(json.dumps({"kernels": [
         {k: kern[k] for k in keys + extra if k in keys or k in kern}

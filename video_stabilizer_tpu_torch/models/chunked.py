@@ -38,7 +38,7 @@ from video_stabilizer_tpu_torch.config import (  # noqa: F401 (re-export)
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import LevelKeyData, level_specs
 from video_stabilizer_tpu_torch.models.batch import (
-    STATICS, PairCarry, align_pairs, fold_jitter, init_pair_carry, model_ops,
+    STATICS, PairCarry, accum_scan, align_pairs, init_pair_carry, model_ops,
     warp_delayed)
 from video_stabilizer_tpu_torch.models.smoother import tvl1_smooth
 from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray_batched
@@ -130,23 +130,17 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
             smoothed = _chunk_smoothed(full_meas, state.steps_seen, tc,
                                        params)
         else:
-            smoothed = torch.zeros_like(meas_c)
+            smoothed = None
 
     # The accumulator scan (stabilizer.cpp:32-88): reset on the CURRENT
     # step's alignment failure, then fold measurement m = i - lag if any.
+    # On the card one launch of kernel F (ops/accum.py).
     with span("accumulate"):
         meas_m = full_meas[:, memory:memory + tc]
         js = torch.arange(tc, device=dev)[None, :]
         m_valid = state.steps_seen.to(torch.int64)[:, None] + js - lag >= 0
-        accum = state.accum
-        accums = []
-        for j in range(tc):
-            accum = torch.where(succ_c[:, j, None], accum,
-                                torch.zeros_like(accum))
-            folded = fold_jitter(accum, meas_m[:, j], smoothed[:, j], params,
-                                 width, height, model)
-            accum = torch.where(m_valid[:, j, None], folded, accum)
-            accums.append(accum)
+        accums, accum = accum_scan(state.accum, meas_m, smoothed, succ_c,
+                                   m_valid, params, width, height, model)
 
     # Output j warps the frame lag steps behind: position j of
     # [carried frame tail | chunk frames].
@@ -159,8 +153,7 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
         frame_tail=all_frames[:, tc:],
         steps_seen=state.steps_seen + tc,
     )
-    return (new_state, all_frames[:, :tc], torch.stack(accums, dim=1),
-            meas_c, succ_c, m_valid)
+    return (new_state, all_frames[:, :tc], accums, meas_c, succ_c, m_valid)
 
 
 def _chunk_streams(states: StreamState, frames, params: StabilizerParams,

@@ -13,13 +13,24 @@ two rotation orders of ``video_stabilizer_tpu.ops.linalg`` (linalg.py:
 ``torch.linalg.eigh`` is a substitute for neither. Every product is a
 broadcast multiply and sum, so the card's TF32 matmul setting cannot touch
 it.
+
+On the card ``regularized_pinv_sym4`` is one launch of kernel E
+(``regularized_pinv_sym4_kernel`` -> ``csrc/jacobi.cu``, float32, n = 4 or
+8): all 6 sweeps, the regularization and V diag(inv_w) V^T of every matrix
+of the call. ``regularized_pinv_sym4_plain`` is the same computation in
+plain PyTorch, one torch operation per expression (about 1,140 kernels a
+4x4 call, 1,870 an 8x8 one): the CPU path and the card's reference, never
+the main path on a card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
+
+from video_stabilizer_tpu_torch.ops import cuda_build
 
 
 def _rot_rows(m, p: int, q: int, c, s):
@@ -145,7 +156,21 @@ def regularized_pinv_sym4(h, cond_threshold: float = 1e6,
     """cond = w_max / (w_min + 1e-10); above 1e6 add 1e-6 * w_max to the
     diagonal; invert with near-null eigenvalues zeroed (DECOMP_SVD). Takes
     the 4x4 similarity Hessian (cyclic Jacobi) or the 8x8 homography one
-    (round-robin Jacobi), as the JAX function does."""
+    (round-robin Jacobi), as the JAX function does, batched over leading
+    axes.
+
+    On the card this is one launch of kernel E (float32); on the CPU the
+    plain version."""
+    if h.device.type == "cpu":
+        return regularized_pinv_sym4_plain(h, cond_threshold, tikhonov_scale)
+    return regularized_pinv_sym4_kernel(h, cond_threshold, tikhonov_scale)
+
+
+def regularized_pinv_sym4_plain(h, cond_threshold: float = 1e6,
+                                tikhonov_scale: float = 1e-6):
+    """``regularized_pinv_sym4`` in plain PyTorch: the Jacobi rotations of
+    ``eigh_sym``, then the regularized inverse, one torch operation per
+    expression."""
     w, v = eigh_sym(h)
     w_max = torch.amax(w, dim=-1, keepdim=True)
     w_min = torch.amin(w, dim=-1, keepdim=True)
@@ -159,3 +184,48 @@ def regularized_pinv_sym4(h, cond_threshold: float = 1e6,
     # card's TF32 matmul setting.
     vs = v * inv_w[..., None, :]
     return (vs[..., :, :, None] * v.transpose(-1, -2)[..., None, :, :]).sum(-2)
+
+
+def regularized_pinv_sym4_kernel(h, cond_threshold: float = 1e6,
+                                 tikhonov_scale: float = 1e-6,
+                                 sweeps: int = 6):
+    """``regularized_pinv_sym4_plain``'s function as one launch of kernel E
+    on the CUDA card: float32 (..., n, n), n = 4 (cyclic order) or 8
+    (round-robin order). ``sweeps`` is the plain version's 6 on every path
+    (chip_smoke.py runs more to measure the dependent chain). Raises on any
+    other device, dtype or n, and if the launch is refused. Each launch
+    adds one to ``regularized_pinv_sym4_kernel.launches``."""
+    if h.dtype != torch.float32:
+        raise ValueError(f"kernel E takes float32 matrices, not {h.dtype}")
+    n = h.shape[-1] if h.dim() >= 2 else 0
+    if n not in (4, 8) or h.shape[-2] != n:
+        raise ValueError(f"kernel E takes (..., 4, 4) or (..., 8, 8) "
+                         f"matrices, got {tuple(h.shape)}")
+    if h.device.type != "cuda":
+        raise ValueError(f"kernel E runs on cuda, not {h.device}")
+    mats = h.reshape(-1, n, n).contiguous()
+    out = torch.empty_like(mats)
+    b = mats.shape[0]
+    if b == 0:
+        return out.reshape(h.shape)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = _kernel()(mats.data_ptr(), out.data_ptr(), b, n, sweeps,
+                    float(cond_threshold), float(tikhonov_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"jacobi kernel launch failed ({b} matrices of "
+                           f"{n}x{n}): CUDA error {err}")
+    regularized_pinv_sym4_kernel.launches += 1
+    return out.reshape(h.shape)
+
+
+@functools.cache
+def _kernel():
+    """``vs_regularized_pinv`` of the built ``csrc/jacobi.cu``, typed."""
+    fn = cuda_build.load("jacobi").vs_regularized_pinv
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_float] * 2 + [ctypes.c_void_p]
+    return fn
+
+
+regularized_pinv_sym4_kernel.launches = 0
