@@ -7,12 +7,13 @@ Run from the root of the repository. Phases:
 
   1. Build the port's CUDA kernels from ``video_stabilizer_tpu_torch/csrc``
      (one nvcc per source, all at once) and print what ptxas reports for
-     each kernel; all 16 instances of kernel A (2 models x 2 interps x 1-4
-     channels), every block-size instance of kernels B and C, all 33 of
-     kernel D (window lengths 1-32 in registers, any length) and both of
-     kernels E (n = 4, 8) and F (P = 4, 8) must report no spills and a
-     0-byte stack frame (kernel E: 32 bytes, the CUDA math library's sinf /
-     cosf argument-reduction buffer).
+     each kernel (registers, shared memory); all 16 instances of kernel A
+     (2 models x 2 interps x 1-4 channels), every block-size instance of
+     kernels B and C, both of kernel D (the wavefront for windows of up
+     to 32, one thread a row beyond) and both of kernels E (n = 4 one
+     thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8) must
+     report no spills and a 0-byte stack frame (kernel E: 32 bytes, the
+     CUDA math library's sinf / cosf argument-reduction buffer).
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
   3. Drive the 1080p similarity path over two chunks to capture real
@@ -78,11 +79,12 @@ Run from the root of the repository. Phases:
      lam in float32 (as JAX does). Times (a)-(d): the wrapper between CUDA
      events over 50 launches, the device time (50 launches replayed from a
      CUDA graph), the plain version, the roofline bound and the
-     dependent-chain bound, measured: one row of the shape alone, its
-     device time at 1,100 iterations less that at 100, over 10 (the launch
-     cost drops out), so the time of the row's 100 x (N - 1) dependent
-     pair updates run in order; the device time per dependent step. No
-     library call computes this loop.
+     dependence-depth bound: the row's 2 x (100 - 1) + N - 1 wavefront
+     steps times one step, measured on one row of the shape alone (its
+     device time at 1,100 iterations less that at 100, over the 2,000
+     steps between them: the launch cost drops out), beside that row's
+     own 100 iterations less none; the device time per step of the depth.
+     No library call computes this loop.
  E.  Kernels E (the regularized Jacobi pseudo-inverse, one launch a call)
      and F (the accumulator scan, one launch a chunk or clip) against their
      plain versions on the card. Kernel E on the Hessians a spy recorded in
@@ -103,10 +105,14 @@ Run from the root of the repository. Phases:
      last, NaN positions included. Times as in phase D: the wrapper over
      50 launches, the device time (50 launches replayed from a CUDA graph),
      the plain version, the roofline bound and the dependent-chain bound,
-     measured: kernel E on one matrix alone, its device time at 66 sweeps
-     less that at 6, over 10 (6 sweeps' rotations in order, no launch);
-     kernel F on one sequence alone, its steps tiled 11 times less once,
-     over 10. Kernel E's library yardstick: ``torch.linalg.eigh`` and the
+     measured: kernel E's 4x4 form on one matrix alone, its device time at
+     66 sweeps less that at 6, over 10 (6 sweeps' 36 rotations in order,
+     no launch); its 8x8 form 6 x 7 rounds of 4 independent rotations, so
+     42 of those 4x4 rotations (the 8x8 form's own time a round, one
+     matrix at 66 less 6 sweeps, is printed beside it); and for every
+     shape one matrix's own 6 sweeps less none; kernel F on one
+     sequence alone, its steps tiled 11 times less once, over 10. Kernel
+     E's library yardstick: ``torch.linalg.eigh`` and the
      same regularized V diag(inv_w) V^T as a matmul, timed only. No library
      call runs kernel F's scan.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
@@ -338,11 +344,12 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(twelve entries: kernel A's two chunked forms and its one-frame form, B per
-chunk, at one item, in its fixed mode at K = 4 (S5's launches) and with
-per-item thresholds (G1's launches), C per chunk and with per-item
+(thirteen entries: kernel A's two chunked forms and its one-frame form, B
+per chunk, at one item, in its fixed mode at K = 4 (S5's launches) and
+with per-item thresholds (G1's launches), C per chunk and with per-item
 thresholds (the G2 path's launches), D at the 1080p chunk's rows, E at the
 1080p chunk's level 0 and F at the 1080p chunk (the 1080p path's
+launches), and E's 8x8 form at the 4K chunk's level 0 (the 4K path's
 launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
@@ -384,10 +391,9 @@ GN8_REPLACES = "video_stabilizer_tpu/ops/pallas_gn.py:383"
 TVL1_REPLACES = "video_stabilizer_tpu/models/smoother.py:30"
 TVL1_NAME = "tvl1_smooth"
 TVL1_ITERS = 100
-# csrc/tvl1.cu's REG_MAX: rows of up to this many values are held in
-# registers, one template instance per length; longer ones take its
-# any-length kernel.
-TVL1_REG_MAX = 32
+# csrc/tvl1.cu's LANES: rows of up to this many values take its wavefront
+# kernel (one lane a column), longer ones its one-thread-a-row kernel.
+TVL1_LANES = 32
 # Float32 operations of csrc/tvl1.cu per column and iteration (the
 # relaxation's two multiplies and add) and per live pair update (the
 # difference, abs, mag - lam, the clamp, the divide, * 0.5, xi + xj, * 0.5,
@@ -400,8 +406,11 @@ TVL1_OPS_PER_PAIR = 14
 # the clip's twin is models/batch.py:284).
 PINV_REPLACES = "video_stabilizer_tpu/ops/linalg.py:177"
 PINV_NAME = "regularized_pinv_sym4"
+PINV8_NAME = "regularized_pinv_sym4[8x8]"   # the kernels line's 8x8 entry
 PINV_SWEEPS = 6
 PINV_CHAIN_SWEEPS = 66     # phase E's chain: 66 less 6 sweeps, over 10
+PINV_ROUNDS8 = PINV_SWEEPS * 7     # the 8x8 form's depth in rotations
+PINV_ROTATIONS4 = PINV_SWEEPS * 6  # the 4x4 form's
 ACCUM_REPLACES = "video_stabilizer_tpu/models/chunked.py:180"
 ACCUM_NAME = "accum_scan"
 # Float32 operations of csrc/accum.cu per folded step, by (P, smoother on):
@@ -628,11 +637,11 @@ def launch_counts() -> dict:
 def build_kernels():
     from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
-    # per block size; D: one per window length held in registers, and the
-    # any-length one; E: n = 4 and 8; F: P = 4 and 8.
+    # per block size; D: the wavefront and the any-length one; E: n = 4
+    # and 8; F: P = 4 and 8.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
-                     gn8_solve=len(gn8_solve.THREADS), tvl1=TVL1_REG_MAX + 1,
-                     jacobi=2, accum=2)
+                     gn8_solve=len(gn8_solve.THREADS), tvl1=2, jacobi=2,
+                     accum=2)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -1488,14 +1497,24 @@ def tvl1_compare(data, lam, valid):
     return same, nan_same, err
 
 
+def tvl1_depth(n: int, iterations: int) -> int:
+    """Dependent steps of one row in kernel D: the wavefront's 2 x
+    (iterations - 1) + N - 1 for N <= TVL1_LANES (one relaxation step
+    when N is 1), the iterations x (N - 1) pair updates in order beyond."""
+    if n <= TVL1_LANES:
+        return 2 * (iterations - 1) + max(n - 1, 1)
+    return iterations * (n - 1)
+
+
 def tvl1_bound(data, lam, valid):
-    """(roofline ms, what bounds it, dependent-chain ms, rows, N) of one
-    kernel D call. Roofline: each row, lam and valid_len read once, each
-    output written once; the operations of the live pairs only. Dependent
-    chain, measured: the call's row with the most live pairs (the first
-    such) alone, its device time at 11 x TVL1_ITERS iterations less that at
-    TVL1_ITERS, over 10, so the time of one row's TVL1_ITERS x (N - 1) pair
-    updates in order without the launch."""
+    """(roofline ms, what bounds it, dependence-depth ms, one step's ms,
+    the row's own TVL1_ITERS iterations less none, rows, N) of one kernel D
+    call. Roofline: each row, lam and valid_len read once, each output
+    written once; the operations of the live pairs only. Dependence depth:
+    ``tvl1_depth`` steps of one row times one step, measured: the call's
+    row with the most live pairs (the first such) alone, its device time at
+    11 x TVL1_ITERS iterations less that at TVL1_ITERS, over the steps
+    between the two depths (the launch cost drops out)."""
     from video_stabilizer_tpu_torch.ops.tvl1 import (
         pack_rows, tvl1_smooth_kernel)
     rows_t, lam_r, valid_r = pack_rows(data, lam, valid)
@@ -1512,8 +1531,11 @@ def tvl1_bound(data, lam, valid):
         return graph_ms(lambda: tvl1_smooth_kernel(row, lam_k, iters,
                                                    valid_k), 10)
 
-    chain_ms = (one_row_ms(11 * TVL1_ITERS) - one_row_ms(TVL1_ITERS)) / 10
-    return bound_ms, bound_by, chain_ms, rows, n
+    long, at_iters = 11 * TVL1_ITERS, one_row_ms(TVL1_ITERS)
+    step_ms = ((one_row_ms(long) - at_iters)
+               / (tvl1_depth(n, long) - tvl1_depth(n, TVL1_ITERS)))
+    return (bound_ms, bound_by, tvl1_depth(n, TVL1_ITERS) * step_ms, step_ms,
+            at_iters - one_row_ms(0), rows, n)
 
 
 def tvl1_edge_calls(dev):
@@ -1610,7 +1632,8 @@ def check_tvl1(calls_1080p, calls_4k, params, dev):
           f"where both finite {worst:.3e}")
 
     log("  shape | rows x N | kernel ms | device ms | plain ms | roofline "
-        "ms | chain ms | device ns per dependent step")
+        "ms | depth bound ms (steps x one step's ns) | device ns per step "
+        "of the depth")
     entry = None
     for what, (data, lam, valid) in timed_calls:
         ms = cuda_ms(lambda: tvl1_smooth_kernel(data, lam, TVL1_ITERS,
@@ -1619,13 +1642,15 @@ def check_tvl1(calls_1080p, calls_4k, params, dev):
             data, lam, TVL1_ITERS, valid), 50)
         plain_ms = cuda_ms(lambda: tvl1_smooth_plain(data, lam, TVL1_ITERS,
                                                      valid), 1)
-        bound_ms, bound_by, chain_ms, rows, n = tvl1_bound(data, lam, valid)
-        step_ns = device_ms * 1e6 / (TVL1_ITERS * max(n - 1, 1))
-        chain_step_ns = chain_ms * 1e6 / (TVL1_ITERS * max(n - 1, 1))
+        bound_ms, bound_by, chain_ms, step_ms, row_ms, rows, n = tvl1_bound(
+            data, lam, valid)
+        depth = tvl1_depth(n, TVL1_ITERS)
         log(f"  {what} | {rows} x {n} | {ms:.4f} | {device_ms:.4f} | "
             f"{plain_ms:.2f} | {bound_ms:.6f} ({bound_by}) | {chain_ms:.4f} "
-            f"({chain_step_ns:.1f} ns a step) | {step_ns:.1f} ns; kernel / "
-            f"chain {device_ms / chain_ms:.2f}")
+            f"({depth} x {step_ms * 1e6:.1f}) | "
+            f"{device_ms * 1e6 / depth:.1f}; device / depth bound "
+            f"{device_ms / chain_ms:.2f}; the bound's row alone, "
+            f"{TVL1_ITERS} iterations less none: {row_ms:.4f}")
         if entry is None:
             entry = dict(name=TVL1_NAME, route="cuda",
                          source="video_stabilizer_tpu_torch/csrc/tvl1.cu",
@@ -1844,7 +1869,7 @@ def accum_bound(call):
        "sweep, clips, the smoother sweep, edge cases)")
 def check_pinv_accum(pinv_1080p, pinv_4k, accum_1080p, accum_4k, dev):
     """See E in the module's docstring. Returns the kernels line's entries
-    of kernels E and F."""
+    of kernel E's two forms (4x4, 8x8) and of kernel F."""
     from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
@@ -1888,12 +1913,13 @@ def check_pinv_accum(pinv_1080p, pinv_4k, accum_1080p, accum_4k, dev):
               f"ulps (max |diff| {worst_e:.3e}) over {len(e_calls)} calls")
 
     log("  kernel E | shape | kernel ms | device ms | plain ms | library ms "
-        "(eigh) | roofline ms | chain ms (6 sweeps of one matrix)")
+        "(eigh) | roofline ms | chain ms (4x4: 6 sweeps of one matrix; "
+        "8x8: 42 of those rotations)")
     timed_e = [("(a) 1080p chunk, level 0", pinv_1080p[0]),
                ("(b) 4K chunk, level 0", pinv_4k[0]),
                ("(c) one streaming item", pinv_1080p[0][:1]),
                ("(d) G1's sweep, level 0", g1[0])]
-    entry_e = None
+    entries_e, rotation_ms = {}, None
     for what, h in timed_e:
         b, n = h.shape[0], h.shape[-1]
         ms = cuda_ms(lambda: regularized_pinv_sym4_kernel(h), 50)
@@ -1906,19 +1932,32 @@ def check_pinv_accum(pinv_1080p, pinv_4k, accum_1080p, accum_4k, dev):
         def sweeps_ms(sweeps):
             return graph_ms(lambda: regularized_pinv_sym4_kernel(
                 one, sweeps=sweeps), 10)
-        chain_ms = ((sweeps_ms(PINV_CHAIN_SWEEPS) - sweeps_ms(PINV_SWEEPS))
-                    * PINV_SWEEPS / (PINV_CHAIN_SWEEPS - PINV_SWEEPS))
+        own_ms = ((sweeps_ms(PINV_CHAIN_SWEEPS) - sweeps_ms(PINV_SWEEPS))
+                  * PINV_SWEEPS / (PINV_CHAIN_SWEEPS - PINV_SWEEPS))
+        run_ms = sweeps_ms(PINV_SWEEPS) - sweeps_ms(0)
+        if n == 4:
+            chain_ms, note = own_ms, ""
+            if rotation_ms is None:
+                rotation_ms = own_ms / PINV_ROTATIONS4
+        else:
+            # The 8x8 form's 4 rotations a round are independent: its
+            # depth is 42 rotations of the 4x4 chain's (shape (a)'s).
+            chain_ms = PINV_ROUNDS8 * rotation_ms
+            note = (f"; one matrix's 6 sweeps alone {own_ms:.4f} ms, "
+                    f"{own_ms * 1e3 / PINV_ROUNDS8:.3f} us a round against "
+                    f"{rotation_ms * 1e3:.3f} us a 4x4 rotation")
         log(f"  {what} | {b} x {n}x{n} | {ms:.4f} | {device_ms:.4f} | "
             f"{plain_ms:.2f} | {library_ms:.4f} | {bound_ms:.6f} "
             f"({bound_by}) | {chain_ms:.4f}; device / chain "
-            f"{device_ms / chain_ms:.2f}")
-        if entry_e is None:
-            entry_e = dict(name=PINV_NAME, route="cuda",
-                           source="video_stabilizer_tpu_torch/csrc/jacobi.cu",
-                           replaces=PINV_REPLACES, max_abs_err=worst_e,
-                           ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           chain_bound_ms=chain_ms, library_ms=library_ms)
+            f"{device_ms / chain_ms:.2f}{note}; one matrix alone, "
+            f"{PINV_SWEEPS} sweeps less none: {run_ms:.4f}")
+        entries_e.setdefault(n, dict(
+            name=PINV_NAME if n == 4 else PINV8_NAME, route="cuda",
+            source="video_stabilizer_tpu_torch/csrc/jacobi.cu",
+            replaces=PINV_REPLACES, max_abs_err=worst_e, ms=ms,
+            device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, chain_bound_ms=chain_ms,
+            library_ms=library_ms))
 
     # Kernel F.
     chunk = accum_call_args(accum_1080p[0])
@@ -1970,7 +2009,7 @@ def check_pinv_accum(pinv_1080p, pinv_4k, accum_1080p, accum_4k, dev):
                            bound_ms=bound_ms, bound_by=bound_by,
                            chain_bound_ms=chain_ms, library_ms=None)
     log("  kernel F's library: none (no PyTorch call runs this scan)")
-    return entry_e, entry_f
+    return entries_e[4], entries_e[8], entry_f
 
 
 def drive_path(frames, params, dev, model="similarity"):
@@ -4348,8 +4387,8 @@ def tool_profile():
         log(f"  run, trace and summary {time.perf_counter() - t0:.1f} s; "
             f"trace {size / 1e6:.1f} MB")
         names = list(totals)
-        for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_reg_kernel",
-                       "pinv_kernel", "accum_kernel"):
+        for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_wave_kernel",
+                       "pinv4_kernel", "accum_kernel"):
             hits = [n for n in names if symbol in n]
             check(bool(hits), f"the per-kernel table names {symbol}: "
                   f"{hits[:1]}")
@@ -4534,7 +4573,8 @@ def main() -> int:
                                    accum_calls["1080p"], accum_calls["4K"],
                                    dev)
         if entries is not None:
-            kernels[PINV_NAME], kernels[ACCUM_NAME] = entries
+            (kernels[PINV_NAME], kernels[PINV8_NAME],
+             kernels[ACCUM_NAME]) = entries
     del pinv_calls, accum_calls
     torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
@@ -4563,6 +4603,9 @@ def main() -> int:
                 # Kernels D, E and F run on both paths: their counts are
                 # the 1080p ones.
                 path_launches.setdefault(kname, launches[kname])
+        if model == HOMOGRAPHY and launches.get(PINV_NAME, 0) > 0:
+            # Kernel E's 8x8 form: the 4K path's pseudo-inverses.
+            path_launches[PINV8_NAME] = launches[PINV_NAME]
         if model == "similarity":
             # Right after phase 9, so that both runs meet the same host
             # pace: on an NVIDIA H100 80GB HBM3 (700.00 W) a run after the
@@ -4651,7 +4694,7 @@ def main() -> int:
           "kernel D, E or F)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 12:
+    if failures or missing or len(kernels) != 13:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))

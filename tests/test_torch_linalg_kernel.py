@@ -62,3 +62,73 @@ def test_dispatch_by_device(n):
     with pytest.raises(ValueError, match="kernel E runs on cuda"):
         linalg.regularized_pinv_sym4(h.to("meta"))
     assert linalg.regularized_pinv_sym4_kernel.launches == before
+
+
+def _kernel_rounds():
+    """The source's RR8 table as 7 rounds of 4 (p, q) pairs."""
+    text = SOURCE.read_text()
+    body = text[text.index("RR8[7][4][2] = {"):]
+    body = body[:body.index("};")]
+    pairs = [(int(p), int(q)) for p, q in re.findall(r"\{(\d), (\d)\}",
+                                                     body)]
+    return [pairs[4 * r:4 * r + 4] for r in range(7)]
+
+
+def _units(pairs):
+    """Kernel E's 8x8 lane units in a round: lane l owns (pair l // 8,
+    index l % 8), as (p, q, j) per lane."""
+    return [(*pairs[lane // 8], lane % 8) for lane in range(32)]
+
+
+def test_lane_units_write_each_element_once():
+    """In every round the 32 lane units write each element of A once in the
+    row phase (a[p][j], a[q][j]) and each element of A and of V once in the
+    column phase (a[j][p], a[j][q]): no two lanes write one element."""
+    every = sorted((i, j) for i in range(8) for j in range(8))
+    for pairs in _kernel_rounds():
+        units = _units(pairs)
+        rows = [e for p, q, j in units for e in ((p, j), (q, j))]
+        cols = [e for p, q, j in units for e in ((j, p), (j, q))]
+        assert sorted(rows) == every and sorted(cols) == every
+
+
+def _lane_sweeps(a, sweeps):
+    """Kernel E's 8x8 rounds with the lane units above, in torch on the
+    CPU: every lane takes its own pair's angle from the round's A, then the
+    row phase, then the column phase of A and of V, each element written by
+    its one lane from the old values. Returns (diag(A), V)."""
+    b = a.shape[0]
+    m = a.reshape(b, 64).clone()
+    v = torch.eye(8).expand(b, 8, 8).reshape(b, 64).clone()
+    eps = torch.finfo(a.dtype).tiny
+    rounds = [torch.tensor(_units(pairs)).T for pairs in _kernel_rounds()]
+
+    def rotate(x, ip, iq, c, s):
+        xp, xq = x[:, ip], x[:, iq]
+        x = x.clone()
+        x[:, ip] = c * xp + s * xq
+        x[:, iq] = -s * xp + c * xq
+        return x
+
+    for _ in range(sweeps):
+        for p, q, j in rounds:
+            app, aqq, apq = m[:, p * 9], m[:, q * 9], m[:, p * 8 + q]
+            phi = 0.5 * torch.atan2(2.0 * apq, app - aqq + eps)
+            c, s = torch.cos(phi), torch.sin(phi)
+            m = rotate(m, p * 8 + j, q * 8 + j, c, s)
+            m = rotate(m, j * 8 + p, j * 8 + q, c, s)
+            v = rotate(v, j * 8 + p, j * 8 + q, c, s)
+    return m[:, ::9], v.reshape(b, 8, 8)
+
+
+@pytest.mark.parametrize("sweeps", [1, 6])
+def test_lane_units_are_the_round_robin_order(sweeps):
+    """The lane units' sweeps equal ``eigh_sym_round_robin``'s bit for bit.
+    16 matrices, so that torch's CPU atan2, cos and sin see 64 elements a
+    call in the plain version and 512 here, both whole vector loops (their
+    scalar tail rounds otherwise)."""
+    h = _hessians(8, 16, 32)
+    w, v = _lane_sweeps(h, sweeps)
+    w_want, v_want = linalg.eigh_sym_round_robin(h, sweeps)
+    assert torch.equal(w.view(torch.int32), w_want.view(torch.int32))
+    assert torch.equal(v.view(torch.int32), v_want.view(torch.int32))

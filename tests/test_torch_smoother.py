@@ -150,3 +150,60 @@ def test_dispatch_by_device():
         with pytest.raises((RuntimeError, AssertionError)):
             smoother.tvl1_smooth(torch.zeros((2, N), device="cuda"), 0.1)
     assert tvl1_smooth_kernel.launches == before
+
+
+def wavefront(data, lam, iterations, valid):
+    """Kernel D's order for rows of N <= 32 (``csrc/tvl1.cu``,
+    ``tvl1_wave_kernel``) emulated in torch on the CPU: column j is lane j,
+    and at step t lane j, with u = t - j, is the left side of pair j of
+    iteration u / 2 (u even) or the right side of pair j - 1 of iteration
+    (u + 1) / 2 (u odd). Column j relaxes as the right side just before its
+    pair j - 1, column 0 as the left side before its pair 0. Both lanes of
+    a pair run the plain version's update on the same two values and keep
+    their own side. Returns (rows, steps)."""
+    n = data.shape[-1]
+    j = torch.arange(n)
+    tiny = torch.finfo(data.dtype).tiny
+    lam, valid = lam[:, None], valid[:, None]
+    x = data.clone()
+    steps = 2 * (iterations - 1) + max(n - 2, 0) + 1
+    for t in range(steps):
+        u = t - j
+        left = u % 2 == 0
+        k = torch.where(left, u // 2, (u + 1) // 2)
+        now = (k >= 0) & (k < iterations)
+        relax = now & torch.where(left, j == 0, j > 0)
+        x = torch.where(relax, 0.5 * x + 0.5 * data, x)
+        y = x[:, torch.where(left, j + 1, j - 1).clamp(0, n - 1)]
+        xi, xj = torch.where(left, x, y), torch.where(left, y, x)
+        diff = xj - xi
+        mag = torch.abs(diff)
+        shrink = (mag - lam) / torch.clamp(mag, min=tiny) * 0.5
+        mid = 0.5 * (xi + xj)
+        take = mag > lam
+        new = torch.where(left, torch.where(take, xi + diff * shrink, mid),
+                          torch.where(take, xj - diff * shrink, mid))
+        pair = now & torch.where(left, j + 1 < n, j > 0)
+        active = torch.where(left, j + 1, j) < valid
+        x = torch.where(pair & active, new, x)
+    return x, steps
+
+
+@pytest.mark.parametrize("lam", [0.0, 5.0])
+@pytest.mark.parametrize("n", [2, 3, 16, 32])
+def test_wavefront_order_is_the_plain_loop(n, lam):
+    """The wavefront's order gives the plain version's rows bit for bit
+    (NaN positions included) in 2 x (100 - 1) + N - 1 steps: one row for
+    every valid_len from 0 to N and a row with a NaN."""
+    rng = np.random.default_rng(40 + n)
+    data = (np.cumsum(rng.normal(size=(n + 2, n)), -1) * 3).astype(
+        np.float32)
+    data[-1, n // 2] = np.nan
+    rows = torch.from_numpy(data)
+    lam_r = torch.full((n + 2,), lam)
+    valid = torch.tensor(list(range(n + 1)) + [n], dtype=torch.int32)
+    got, steps = wavefront(rows, lam_r, 100, valid)
+    want = tvl1_smooth_plain(rows, lam_r, 100, valid)
+    assert steps == 2 * 99 + n - 1
+    assert torch.isnan(want).any()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -27,33 +27,43 @@
 //
 // Bound on an H100. Bytes and operations are tiny: at the 1080p chunk's
 // 512 rows of 16, 66 KB and about 12 MFLOP, under 1 us over 3.35 TB/s and
-// 67 TFLOP/s (the roofline bound). What bounds the kernel is latency: one
-// row's pair sweep is a chain of iterations x (N-1) dependent steps, each
-// about 10 float operations with one IEEE divide on the path. chip_smoke.py
-// phase D measures that chain on the card (one row's device time at 11 x
-// and 1 x the iterations, the difference over 10: the launch cost drops
-// out) and prints it beside the kernel's time at each shape (the
-// dependent-chain figure). The design:
-//   - One thread owns one row, blocks of 32 threads, so rows spread over
-//     as many SMs as there are warps; nothing is shared between threads.
-//   - N <= REG_MAX: the row's N data and N working values live in
-//     registers (one template instance per N, the pair loop unrolled).
-//   - Larger N: the working values live in the output row itself (L1
-//     cached), the data is read from global memory. Every N runs.
-// The true dependence graph is shallower than the chain the thread runs:
-// pair i of iteration k needs pair i-1 of iteration k and pair i+1 of
-// iteration k-1, a wavefront of about 2 x iterations + N steps. Overlapping
-// iterations (or splitting a row across lanes) is later work.
+// 67 TFLOP/s (the roofline bound). What bounds the kernel is latency: the
+// dependent steps of one row, each about 10 float operations with one
+// IEEE divide on the path. Run in order, a row's pair sweep is iterations
+// x (N-1) steps; but pair i of iteration k needs only pair i-1 of
+// iteration k and pair i+1 of iteration k-1, so it can run at step
+// 2k + i, and a row needs 2 x (iterations - 1) + N - 1 steps (213 at the
+// default 100 iterations and N = 16, against 1,500). The design:
+//   - N <= LANES (every serving window): the wavefront. One lane owns one
+//     column, a warp holds 32 / N rows, blocks of WAVE_THREADS. At step t
+//     lane j, with u = t - j, is the left side of pair j of iteration
+//     u / 2 if u is even and the right side of pair j - 1 of iteration
+//     (u + 1) / 2 if u is odd. The two lanes of a pair swap their values
+//     with one __shfl_sync, both run the same pair_update on the same
+//     operands, and each keeps its own side; every lane runs the update at
+//     every step (on dummy operands where it has no live pair), so the
+//     warp never branches. Pairs of one step are 2 apart or more, so no
+//     two touch one column. Column j relaxes as the right side just before
+//     its pair j - 1 (column 0 as the left side before its pair 0):
+//     nothing touches column j between pair j of iteration k - 1 and pair
+//     j - 1 of iteration k, so that is the value the in-order loop
+//     relaxes. Each value comes from the same operations on the same
+//     operands as in the in-order loop: only the lane and the step change.
+//   - Larger N: one thread owns one row, in order, the working values in
+//     the output row itself (L1 cached), the data read from global memory.
+//     Every N runs.
+// chip_smoke.py phase D measures one step on the card (one row's device
+// time at 1,100 and 100 iterations: the depth differs by 2,000 steps and
+// the launch cost drops out) and prints the dependence depth times that
+// step beside the kernel's time at each shape.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <utility>
-
 namespace {
 
-constexpr int THREADS = 32;
-constexpr int REG_MAX = 32;
+constexpr int WAVE_THREADS = 128;
+constexpr int LANES = 32;
+constexpr int ANY_THREADS = 32;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float TINY = 1.17549435e-38f;  // FLT_MIN, finfo(float32).tiny
 
 __device__ __forceinline__ float relax(float x, float d) {
@@ -78,39 +88,56 @@ __device__ __forceinline__ void pair_update(float& xi, float& xj, float lam,
   }
 }
 
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-tvl1_reg_kernel(const float* __restrict__ data, const float* __restrict__ lam,
-                const int* __restrict__ valid_len, float* __restrict__ out,
-                int rows, int iterations) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= rows) return;
-  const float* src = data + (size_t)r * N;
-  float d[N], x[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    d[i] = src[i];
-    x[i] = d[i];
+// N <= LANES: the wavefront (see the top).
+__global__ void __launch_bounds__(WAVE_THREADS)
+tvl1_wave_kernel(const float* __restrict__ data, const float* __restrict__ lam,
+                 const int* __restrict__ valid_len, float* __restrict__ out,
+                 int rows, int n, int iterations) {
+  const int per_warp = LANES / n;
+  const int warp = (blockIdx.x * WAVE_THREADS + threadIdx.x) / LANES;
+  if (warp * per_warp >= rows) return;  // the whole warp
+  const int lane = threadIdx.x % LANES;
+  const int seg = lane / n, j = lane - seg * n;
+  const int r = warp * per_warp + seg;
+  const bool live = seg < per_warp && r < rows;
+  float d = 0.0f, l = 0.0f;
+  int v = 0;
+  if (live) {
+    d = data[(size_t)r * n + j];
+    l = lam[r];
+    v = valid_len[r];
   }
-  const float l = lam[r];
-  const int v = valid_len[r];
-  for (int it = 0; it < iterations; ++it) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) x[i] = relax(x[i], d[i]);
-#pragma unroll
-    for (int i = 0; i + 1 < N; ++i) pair_update(x[i], x[i + 1], l, i + 1 < v);
+  float x = d;
+  const int last = 2 * (iterations - 1) + (n > 2 ? n - 2 : 0);
+  for (int t = 0; t <= last; ++t) {
+    const int u = t - j;
+    const bool left = (u & 1) == 0;
+    const int k = left ? u >> 1 : (u + 1) >> 1;
+    const bool now = k >= 0 && k < iterations;
+    if (now && (left ? j == 0 : j > 0)) x = relax(x, d);
+    const int src = (left ? lane + 1 : lane - 1) & (LANES - 1);
+    const float y = __shfl_sync(FULL, x, src);
+    // Every lane runs the update, so the warp does not branch and
+    // reconverge at every step. A lane without a live pair (no pair this
+    // step, its right column at or past valid_len, or a lane past the last
+    // row) runs it on 0 and 1, which keep the divide on its fast path (the
+    // zeros of an unused lane would not), and keeps its value.
+    const int right = left ? j + 1 : j;
+    const bool live_pair = now && right > 0 && right < n && right < v;
+    float xi = live_pair ? (left ? x : y) : 0.0f;
+    float xj = live_pair ? (left ? y : x) : 1.0f;
+    pair_update(xi, xj, l, true);
+    if (live_pair) x = left ? xi : xj;
   }
-  float* dst = out + (size_t)r * N;
-#pragma unroll
-  for (int i = 0; i < N; ++i) dst[i] = x[i];
+  if (live) out[(size_t)r * n + j] = x;
 }
 
-// Any N: the working values in the output row.
-__global__ void __launch_bounds__(THREADS)
+// Any N: one thread a row, the working values in the output row.
+__global__ void __launch_bounds__(ANY_THREADS)
 tvl1_any_kernel(const float* __restrict__ data, const float* __restrict__ lam,
                 const int* __restrict__ valid_len, float* __restrict__ out,
                 int rows, int n, int iterations) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
+  const int r = blockIdx.x * ANY_THREADS + threadIdx.x;
   if (r >= rows) return;
   const float* d = data + (size_t)r * n;
   float* x = out + (size_t)r * n;
@@ -131,33 +158,6 @@ tvl1_any_kernel(const float* __restrict__ data, const float* __restrict__ lam,
   }
 }
 
-template <int N>
-void launch_reg(int blocks, cudaStream_t st, const float* data,
-                const float* lam, const int* valid_len, float* out, int rows,
-                int iterations) {
-  tvl1_reg_kernel<N><<<blocks, THREADS, 0, st>>>(data, lam, valid_len, out,
-                                                 rows, iterations);
-}
-
-template <int... Ns>
-bool dispatch_reg(int n, int blocks, cudaStream_t st, const float* data,
-                  const float* lam, const int* valid_len, float* out,
-                  int rows, int iterations) {
-  return ((n == Ns ? (launch_reg<Ns>(blocks, st, data, lam, valid_len, out,
-                                     rows, iterations),
-                      true)
-                   : false) || ...);
-}
-
-template <int... Ns>
-bool dispatch_seq(int n, int blocks, cudaStream_t st, const float* data,
-                  const float* lam, const int* valid_len, float* out,
-                  int rows, int iterations,
-                  std::integer_sequence<int, Ns...>) {
-  return dispatch_reg<(Ns + 1)...>(n, blocks, st, data, lam, valid_len, out,
-                                   rows, iterations);
-}
-
 }  // namespace
 
 extern "C" int vs_tvl1_smooth(const void* data, const void* lam,
@@ -165,18 +165,21 @@ extern "C" int vs_tvl1_smooth(const void* data, const void* lam,
                               int n, int iterations, void* stream) {
   if (rows < 1 || n < 1 || iterations < 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + THREADS - 1) / THREADS;
   const cudaStream_t st = (cudaStream_t)stream;
   const float* d = (const float*)data;
   const float* l = (const float*)lam;
   const int* v = (const int*)valid_len;
   float* o = (float*)out;
-  if (n <= REG_MAX) {
-    dispatch_seq(n, blocks, st, d, l, v, o, rows, iterations,
-                 std::make_integer_sequence<int, REG_MAX>{});
+  if (n <= LANES) {
+    const int per_warp = LANES / n;
+    const long long warps = (rows + per_warp - 1) / per_warp;
+    const int blocks = (int)((warps * LANES + WAVE_THREADS - 1)
+                             / WAVE_THREADS);
+    tvl1_wave_kernel<<<blocks, WAVE_THREADS, 0, st>>>(d, l, v, o, rows, n,
+                                                      iterations);
   } else {
-    tvl1_any_kernel<<<blocks, THREADS, 0, st>>>(d, l, v, o, rows, n,
-                                               iterations);
+    tvl1_any_kernel<<<(rows + ANY_THREADS - 1) / ANY_THREADS, ANY_THREADS, 0,
+                      st>>>(d, l, v, o, rows, n, iterations);
   }
   return (int)cudaGetLastError();
 }
