@@ -10,10 +10,11 @@ Run from the root of the repository. Phases:
      each kernel (registers, shared memory); all 16 instances of kernel A
      (2 models x 2 interps x 1-4 channels), every block-size instance of
      kernels B and C, both of kernel D (the wavefront for windows of up
-     to 32, one thread a row beyond) and both of kernels E (n = 4 one
-     thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8) must
-     report no spills and a 0-byte stack frame (kernel E: 32 bytes, the
-     CUDA math library's sinf / cosf argument-reduction buffer).
+     to 32, one thread a row beyond), both of kernels E (n = 4 one
+     thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8), and
+     kernels G's and H's one each must report no spills and a 0-byte
+     stack frame (kernel E: 32 bytes, the CUDA math
+     library's sinf / cosf argument-reduction buffer).
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
   3. Drive the 1080p similarity path over two chunks to capture real
@@ -115,6 +116,22 @@ Run from the root of the repository. Phases:
      E's library yardstick: ``torch.linalg.eigh`` and the
      same regularized V diag(inv_w) V^T as a matmul, timed only. No library
      call runs kernel F's scan.
+ G.  Kernels G (BGR to gray, one launch a call) and H (a pyramid level's
+     downsample, one launch a level over all frames) against their plain
+     versions on the card, bit for bit. Kernel G on (a) a 1080p chunk of
+     bench.py's content (8 x 16 frames), (b) a 4K chunk (config 4's
+     content, 2 x 16), (c) one 1080p frame, (d) one ragged 437x1033 frame
+     and 3 of them at an odd address (the byte-at-a-time path) and (e)
+     all 2^24 BGR triples as one 4096x4096 image. Kernel H at every level
+     of (a)'s and (b)'s pyramids (5 and 6 levels below the first, on their
+     gray frames; level 1 also from one frame at an odd address) and on
+     (c) a ragged chain of 3 frames from 437x1033 down to 3x8 (7 levels).
+     Per shape: the wrapper between CUDA events over 50 launches, the
+     device time (50 launches replayed from a CUDA graph), the plain
+     version, the byte bound; for H also ``F.conv2d`` alone (stride 2,
+     TF32 off, on the replicate-padded float32 input: it leaves out the
+     pad, both casts and the shift; whether its floor equals the kernel
+     is printed). No single PyTorch call rounds as kernel G does.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -130,8 +147,9 @@ Run from the root of the repository. Phases:
      launch count set to 0 before and read after. Checks the output
      shape, the replays, the align success rate (>= 0.9), the measured
      motion against the clip's known motion, and the launches: kernel E
-     once per level (as B), kernel F once per chunk. One more chunk,
-     replayed, runs under torch.profiler.
+     once per level (as B), kernel F once per chunk, kernel G once per
+     chunk and kernel H once per level below the first (5 a chunk; 6 at
+     4K in phase 10). One more chunk, replayed, runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
      selection): the same checks, its stage table beside phase 9's.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
@@ -150,7 +168,8 @@ Run from the root of the repository. Phases:
      peak memory, the replayed chunk's host-clock time over 20 chunks
      (median, min, max, spread) beside the un-captured chunks' of the
      phase, the device-busy share and the copies of 3 replays under
-     torch.profiler, and the launches per replay.
+     torch.profiler, and the launches per replay (kernels D, F and G once,
+     E once per level, H once per level below the first).
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
@@ -169,7 +188,8 @@ Run from the root of the repository. Phases:
      instead), then the first call (eager run and capture) and 5 replays:
      outputs, meas and success byte-equal to the un-captured call, the
      first call's values unchanged after the replays; kernels A and B
-     launched in every replay. Prints the first call's, the capture's and
+     launched in every replay, G once and H once per level below the
+     first. Prints the first call's, the capture's and
      the instantiation's time, the graph pool, the peak memory, the
      launches per replay and the replays' median and spread beside the
      un-captured time.
@@ -277,7 +297,8 @@ J10. The chunk programs' memory, and long replay. (a)
      of every frame (the first frame runs the level loop, as in the JAX
      package), kernel C never, kernel D once per smoothed window, kernel E
      once per level of every frame, kernel F never (the host's
-     accumulator).
+     accumulator), kernel G once per frame and kernel H once per level
+     below the first of every frame.
      Prints the per-frame latency (host clock up to each frame's sync;
      median and p90 of frames 12-47) and the
      per-frame stage table from the spans; then 8 more frames, replayed,
@@ -308,11 +329,11 @@ J10. The chunk programs' memory, and long replay. (a)
  P1. ``python -m video_stabilizer_tpu_torch.bench`` at its defaults (8
      streams x 16 1080p frames, 4 reps x 4 chunks), in this process: its
      JSON line parses with its metric string and the card's name, the
-     align success >= 0.9, and the launch counts show kernels A, B and D
-     launched, C not.
+     align success >= 0.9, and the launch counts show kernels A, B, D and
+     G launched, H 5 times for each G, C not.
  P2. ``apps/bench_configs.py``'s ``bench_4k`` at 2 streams, 3 reps:
-     kernels A, C and D launched, B not; success >= 0.9 on the frames after
-     each stream's first.
+     kernels A, C, D and G launched, H 6 times for each G, B not; success
+     >= 0.9 on the frames after each stream's first.
  P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps;
      the chain replayed as one captured graph),
      ``bench_latency_chunk2`` (chain 8, 3 reps) and
@@ -320,14 +341,15 @@ J10. The chunk programs' memory, and long replay. (a)
      positive and finite.
  J4. ``apps/bench_configs.py --mode latency`` at chain 32, 5 reps: the
      JAX tool's ``run_chain``, 32 align steps captured as one graph
-     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's
-     launches counted through them); prints its p50 beside the same steps
-     issued one call each.
+     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's and
+     H's launches counted through them; G none: the chain's frames are
+     gray); prints its p50 beside the same steps issued one call each.
  P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
      graph has no Python frames): its per-kernel table
-     names kernel A's, B's, D's, E's and F's symbols, the smoother's, the
-     pseudo-inverse's and the accumulator's kernels and device time per
-     chunk are printed, ``--parse-only`` reprints the same
+     names kernel A's, B's, D's, E's, F's, G's and H's symbols, the
+     smoother's, the pseudo-inverse's, the accumulator's, the gray
+     conversion's and the pyramid's kernels and device time per chunk are
+     printed, ``--parse-only`` reprints the same
      totals from the saved trace, and ``--by-source`` puts over 90 % of
      the device time on frames under ``video_stabilizer_tpu_torch/``.
  P5. The scale-out modules on the card: ``graft_entry.entry()``,
@@ -344,13 +366,13 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(thirteen entries: kernel A's two chunked forms and its one-frame form, B
+(fifteen entries: kernel A's two chunked forms and its one-frame form, B
 per chunk, at one item, in its fixed mode at K = 4 (S5's launches) and
 with per-item thresholds (G1's launches), C per chunk and with per-item
 thresholds (the G2 path's launches), D at the 1080p chunk's rows, E at the
-1080p chunk's level 0 and F at the 1080p chunk (the 1080p path's
-launches), and E's 8x8 form at the 4K chunk's level 0 (the 4K path's
-launches)), the
+1080p chunk's level 0, F, G and H (summed over its 5 levels) at the
+1080p chunk (the 1080p path's launches), and E's 8x8 form at the 4K
+chunk's level 0 (the 4K path's launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -422,6 +444,20 @@ ACCUM_NAME = "accum_scan"
 # mask. Without the smoother the inverse and one compose drop out.
 ACCUM_OPS_PER_FOLD = {(4, True): 145, (4, False): 111, (8, True): 299,
                       (8, False): 201}
+# Kernels G and H replace XLA stages, not Pallas kernels: the colour
+# conversion and a pyramid level's downsample (build_pyramid's step).
+GRAY_REPLACES = "video_stabilizer_tpu/models/stabilizer.py:86"
+GRAY_NAME = "bgr_to_gray"
+PYR_REPLACES = "video_stabilizer_tpu/ops/pyr_down.py:50"
+PYR_NAME = "pyr_down"
+RAGGED_LEVELS = 8          # phase G's chain: 437x1033 down to 3x8
+# Operations of csrc/gray.cu per pixel (3 converts, 3 multiplies, 2 adds,
+# the round) and of csrc/pyr_down.cu per output (per 4 outputs: two source
+# rows' row sums, 17 each, and the column sums and the pack, 10). The
+# integer ones count at the float32 rate (the table has no int32 rate);
+# both kernels stay byte-bound at half that rate.
+GRAY_OPS_PER_PIXEL = 9
+PYR_OPS_PER_OUTPUT = 11
 
 
 # Stack frames a kernel may report beside its 0 spills: kernel E's 32 bytes
@@ -487,22 +523,30 @@ def release_graphs():
     graphs.reset([p for p in graphs.PROGRAMS if p not in streaming])
 
 
-PLAIN_ON_CARD = {TVL1_NAME: 0, PINV_NAME: 0, ACCUM_NAME: 0}
+PLAIN_ON_CARD = {TVL1_NAME: 0, PINV_NAME: 0, ACCUM_NAME: 0, GRAY_NAME: 0,
+                 PYR_NAME: 0}
 PLAIN = {}
 
 
 def count_plain_on_card():
-    """Count the calls of kernel D's, E's and F's plain versions on a card
-    tensor made through their dispatchers (``models.smoother.tvl1_smooth``,
-    ``ops.linalg.regularized_pinv_sym4``, ``ops.accum.accum_scan``: every
-    path's). Phase E calls the plain versions kept in ``PLAIN``, which are
-    not counted (phase D calls ``ops.tvl1``'s own)."""
+    """Count the calls of kernel D's, E's, F's, G's and H's plain versions
+    on a card tensor made through their dispatchers
+    (``models.smoother.tvl1_smooth``, ``ops.linalg.regularized_pinv_sym4``,
+    ``ops.accum.accum_scan``, ``ops.gray.bgr_to_gray``,
+    ``ops.pyr_down.pyr_down``: every path's). Phases E and G call the plain
+    versions kept in ``PLAIN``, which are not counted (phase D calls
+    ``ops.tvl1``'s own)."""
     from video_stabilizer_tpu_torch.models import smoother
-    from video_stabilizer_tpu_torch.ops import accum, linalg
+    from video_stabilizer_tpu_torch.ops import accum, gray, linalg
+    # ``ops.pyr_down`` is the function (ops/__init__ exports it): the
+    # module comes from sys.modules.
+    pyr = sys.modules["video_stabilizer_tpu_torch.ops.pyr_down"]
     for name, module, attr in (
             (TVL1_NAME, smoother, "tvl1_smooth_plain"),
             (PINV_NAME, linalg, "regularized_pinv_sym4_plain"),
-            (ACCUM_NAME, accum, "accum_scan_plain")):
+            (ACCUM_NAME, accum, "accum_scan_plain"),
+            (GRAY_NAME, gray, "bgr_to_gray_plain"),
+            (PYR_NAME, pyr, "pyr_down_plain")):
         plain = PLAIN.setdefault(name, getattr(module, attr))
 
         def counted(x, *args, _plain=plain, _name=name, **kw):
@@ -601,12 +645,15 @@ def reset_launch_counts():
     from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
+    from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     warp_kernel.reset_launches()
     for fn in (gn_solve, gn8_solve, tvl1_smooth_kernel,
-               regularized_pinv_sym4_kernel, accum_scan_kernel):
+               regularized_pinv_sym4_kernel, accum_scan_kernel,
+               bgr_to_gray_kernel, pyr_down_kernel):
         fn.launches = 0
 
 
@@ -615,8 +662,10 @@ def launch_counts() -> dict:
     from video_stabilizer_tpu_torch.ops.accum import accum_scan_kernel
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
+    from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
+    from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     counts = {f"warp_frames[{m},{i}]": n
@@ -625,7 +674,9 @@ def launch_counts() -> dict:
                    "gn8_solve": gn8_solve.launches,
                    TVL1_NAME: tvl1_smooth_kernel.launches,
                    PINV_NAME: regularized_pinv_sym4_kernel.launches,
-                   ACCUM_NAME: accum_scan_kernel.launches})
+                   ACCUM_NAME: accum_scan_kernel.launches,
+                   GRAY_NAME: bgr_to_gray_kernel.launches,
+                   PYR_NAME: pyr_down_kernel.launches})
     return counts
 
 
@@ -638,10 +689,10 @@ def build_kernels():
     from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
     # per block size; D: the wavefront and the any-length one; E: n = 4
-    # and 8; F: P = 4 and 8.
+    # and 8; F: P = 4 and 8; G and H: one each.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
                      gn8_solve=len(gn8_solve.THREADS), tvl1=2, jacobi=2,
-                     accum=2)
+                     accum=2, gray=1, pyr_down=1)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -2012,6 +2063,182 @@ def check_pinv_accum(pinv_1080p, pinv_4k, accum_1080p, accum_4k, dev):
     return entries_e[4], entries_e[8], entry_f
 
 
+def gray_bound(pixels):
+    """Kernel G's roofline bound: 3 bytes read and 1 written a pixel."""
+    return roofline(4 * pixels, GRAY_OPS_PER_PIXEL * pixels)
+
+
+def pyr_bound(x):
+    """Kernel H's roofline bound on (..., H, W) input ``x``: each source
+    byte read once, each output byte written once."""
+    h, w = x.shape[-2], x.shape[-1]
+    frames = x.numel() // (h * w)
+    outputs = frames * (h // 2) * (w // 2)
+    return roofline(x.numel() + outputs, PYR_OPS_PER_OUTPUT * outputs)
+
+
+def bgr_cube(dev):
+    """Every BGR triple once: a (4096, 4096, 3) u8 image on the card."""
+    v = torch.arange(1 << 24, dtype=torch.int32, device=dev)
+    return torch.stack([v >> 16, (v >> 8) & 255, v & 255], -1).to(
+        torch.uint8).reshape(4096, 4096, 3)
+
+
+def odd_address(x):
+    """A contiguous copy of ``x`` at an odd byte address (the kernels'
+    byte-at-a-time paths)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def conv_yardstick(x):
+    """(F.conv2d's ms, whether floor(conv) equals kernel H): the pyramid's
+    5x5 stencil as one float32 convolution, stride 2, TF32 off, on the
+    replicate-padded float32 input. The timed call leaves out the pad,
+    both casts and the shift."""
+    import torch.nn.functional as F
+
+    h, w = x.shape[-2], x.shape[-1]
+    taps = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=x.device)
+    weight = (torch.outer(taps, taps) / 256.0).reshape(1, 1, 5, 5)
+    padded = F.pad(x.reshape(-1, 1, h, w).float(), (2, 2, 2, 2),
+                   mode="replicate")
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ms = cuda_ms(lambda: F.conv2d(padded, weight, stride=2), 10)
+        out = F.conv2d(padded, weight, stride=2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    return ms, out
+
+
+@phase("G. kernels G and H: BGR to gray and the pyramid's downsample vs "
+       "their plain versions (the 1080p and 4K chunks, one frame, ragged "
+       "frames, every BGR triple)")
+def check_gray_pyr(params, params_4k, dev):
+    """See G in the module's docstring. Returns the kernels line's entries
+    of kernels G and H at the 1080p chunk."""
+    from video_stabilizer_tpu_torch.models.aligner import level_specs
+    from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
+    from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
+
+    plain_g, plain_h = PLAIN[GRAY_NAME], PLAIN[PYR_NAME]
+    chunk = torch.from_numpy(synth_streams(dev, CHUNK, MAIN_CONTENT)[0]).to(
+        dev)
+    chunk_4k = torch.from_numpy(synth_streams(
+        dev, CHUNK, MAIN_CONTENT, H4K, W4K, seeds=list(SEEDS_4K))[0]).to(dev)
+    ragged = chunk[0, :RAGGED[0], :RAGGED[1], :RAGGED[2]].contiguous()
+
+    # Kernel G.
+    g_calls = [("(a) 1080p chunk", chunk), ("(b) 4K chunk", chunk_4k),
+               ("(c) one 1080p frame", chunk[0, 0]),
+               ("(d) one ragged frame", ragged[0]),
+               ("(d) ragged frames at an odd address", odd_address(ragged)),
+               ("(e) every BGR triple", bgr_cube(dev))]
+    log("  kernel G | shape | equal | kernel ms | device ms | plain ms | "
+        "bound ms (bytes) | device / bound")
+    entry_g, grays = None, {}
+    for what, x in g_calls:
+        got, want = bgr_to_gray_kernel(x), plain_g(x)
+        same = torch.equal(got, want)
+        err = int((got.int() - want.int()).abs().max())
+        check(same, f"kernel G {what} {tuple(x.shape)}: bit-equal to its "
+              f"plain version (max |diff| {err})")
+        grays[what] = want
+        ms = cuda_ms(lambda: bgr_to_gray_kernel(x), 50)
+        device_ms = graph_ms(lambda: bgr_to_gray_kernel(x), 50)
+        plain_ms = cuda_ms(lambda: plain_g(x), 5)
+        bound_ms, bound_by = gray_bound(got.numel())
+        log(f"  {what} | {tuple(x.shape)} | {same} | {ms:.4f} | "
+            f"{device_ms:.4f} | {plain_ms:.3f} | {bound_ms:.4f} "
+            f"({bound_by}) | {device_ms / bound_ms:.2f}")
+        if entry_g is None:
+            entry_g = dict(name=GRAY_NAME, route="cuda",
+                           source="video_stabilizer_tpu_torch/csrc/gray.cu",
+                           replaces=GRAY_REPLACES, max_abs_err=float(err),
+                           ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+        del got, want
+    log("  kernel G's library: none (no single PyTorch call rounds as "
+        "cvtColor's float form does)")
+
+    # Kernel H, level by level on the chunks' real gray frames: 5 levels
+    # below the 1080p chunk's first, 6 below the 4K chunk's, and a ragged
+    # chain of 8 levels from 437x1033 down to 3x8.
+    chains = [("(a) 1080p chunk",
+               grays["(a) 1080p chunk"].reshape(-1, HEIGHT, WIDTH),
+               len(level_specs(WIDTH, HEIGHT, params.aligner)), (33, 60)),
+              ("(b) 4K chunk", grays["(b) 4K chunk"].reshape(-1, H4K, W4K),
+               len(level_specs(W4K, H4K, params_4k.aligner)), (33, 60)),
+              ("(c) ragged chain",
+               grays["(d) ragged frames at an odd address"], RAGGED_LEVELS,
+               (3, 8))]
+    del grays, g_calls, chunk, chunk_4k
+    torch.cuda.empty_cache()
+    log("  kernel H | input | equal | kernel ms | device ms | plain ms | "
+        "conv2d ms | bound ms (bytes) | device / bound")
+    entry_h, all_same, worst = None, True, 0
+    for what, x, levels, end in chains:
+        totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      bound_ms=0.0)
+        for level in range(1, levels):
+            got, want = pyr_down_kernel(x), plain_h(x)
+            same = torch.equal(got, want)
+            all_same &= same
+            worst = max(worst, int((got.int() - want.int()).abs().max()))
+            if level == 1:
+                # The byte-at-a-time path on a word-wide source.
+                odd = odd_address(x[:1])
+                same_odd = torch.equal(pyr_down_kernel(odd), want[:1])
+                all_same &= same_odd
+                log(f"    {what}, level 1 from one frame at an odd "
+                    f"address: equal {same_odd}")
+            ms = cuda_ms(lambda: pyr_down_kernel(x), 50)
+            device_ms = graph_ms(lambda: pyr_down_kernel(x), 50)
+            plain_ms = cuda_ms(lambda: plain_h(x), 5)
+            conv_ms, conv = conv_yardstick(x)
+            # An odd side gives the convolution one more row or column.
+            conv = conv[..., :want.shape[-2], :want.shape[-1]]
+            conv_same = torch.equal(conv.floor().to(torch.uint8).reshape(
+                want.shape), want)
+            bound_ms, bound_by = pyr_bound(x)
+            log(f"  {what} {level - 1} -> {level} | {tuple(x.shape)} | "
+                f"{same} | {ms:.4f} | {device_ms:.4f} | {plain_ms:.3f} | "
+                f"{conv_ms:.4f} (floor equal {conv_same}) | {bound_ms:.4f} "
+                f"({bound_by}) | {device_ms / bound_ms:.2f}")
+            for k, v in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("library_ms", conv_ms),
+                         ("bound_ms", bound_ms)):
+                totals[k] += v
+            x = want
+            del got, conv
+        log(f"  {what}, all {levels - 1} levels | kernel "
+            f"{totals['ms']:.4f} ms | device {totals['device_ms']:.4f} | "
+            f"plain {totals['plain_ms']:.3f} | conv2d "
+            f"{totals['library_ms']:.4f} | bound {totals['bound_ms']:.4f} | "
+            f"device / bound {totals['device_ms'] / totals['bound_ms']:.2f}")
+        check(tuple(x.shape[-2:]) == end,
+              f"{what}: the chain ends at {tuple(x.shape[-2:])} (want {end})")
+        if entry_h is None:
+            entry_h = dict(name=PYR_NAME, route="cuda",
+                           source="video_stabilizer_tpu_torch/csrc/"
+                                  "pyr_down.cu",
+                           replaces=PYR_REPLACES, bound_by=bound_by,
+                           **totals)
+    check(all_same, f"kernel H bit-equal to its plain version at every level "
+          f"of both chunks' pyramids and the ragged chain (and from an odd "
+          f"address); max |diff| {worst}")
+    log("  kernel H's library yardstick: F.conv2d alone (stride 2, TF32 "
+        "off) on the replicate-padded float32 input; it leaves out the pad, "
+        "both casts and the shift")
+    entry_h["max_abs_err"] = float(worst)
+    return entry_g, entry_h
+
+
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
     from a fresh state, twice: un-captured (``graphs.eager()``) under a
@@ -2125,6 +2352,8 @@ def main_path(frames, poses, params, dev):
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
     path_checks_e_f(launches, "gn_solve", CHUNKS)
+    path_checks_g_h(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params),
+                    "one conversion and one pyramid a chunk")
     known_motion_checks(meas, ok, poses)
     return launches, states, last, stages
 
@@ -2137,6 +2366,22 @@ def path_checks_e_f(launches, gn: str, chunks: int):
           f"kernel E launched {launches[PINV_NAME]} times (once per level: "
           f"{gn} {launches[gn]}), kernel F {launches[ACCUM_NAME]} (once per "
           f"chunk: {chunks})")
+
+
+def path_levels(width, height, params) -> int:
+    """The aligner's pyramid levels at a frame size."""
+    from video_stabilizer_tpu_torch.models.aligner import level_specs
+    return len(level_specs(width, height, params.aligner))
+
+
+def path_checks_g_h(launches, calls: int, levels: int, what: str):
+    """Kernel G once per conversion and kernel H once per pyramid level
+    below the first, over ``calls`` conversions (``what``)."""
+    want_h = calls * (levels - 1)
+    check(launches[GRAY_NAME] == calls and launches[PYR_NAME] == want_h,
+          f"kernel G launched {launches[GRAY_NAME]} times and kernel H "
+          f"{launches[PYR_NAME]} (want {calls} and {want_h}: {what}, "
+          f"{levels - 1} levels below the first)")
 
 
 def known_motion_checks(meas, ok, poses):
@@ -2165,6 +2410,8 @@ def main_path_4k(frames, poses, params, dev):
           "kernel C, kernel A (homography, Lanczos2) and kernel D launched, "
           "kernel B not")
     path_checks_e_f(launches, "gn8_solve", CHUNKS_4K)
+    path_checks_g_h(launches, CHUNKS_4K, path_levels(W4K, H4K, params),
+                    "one conversion and one pyramid a chunk")
     # The normalized translation (p2, p5) times W is the motion in px at
     # the frame centre. On such a clip (270x480, jitter 1 px, pan 0.3,
     # seeds 5 and 6, 12 frames, on the CPU) the JAX package's 8-DOF aligner
@@ -2354,6 +2601,11 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
           "kernel D launched once in every replay (the chunk's smoother), "
           f"kernel E once per level (as {gn}), kernel F once (the chunk's "
           "accumulator)")
+    check(per_replay.get("bgr_to_gray_kernel", 0) == 1
+          and per_replay.get("pyr_down_kernel", 0)
+          == per_replay.get(gn, 0) - 1 > 0,
+          "kernel G launched once in every replay (the chunk's gray), "
+          f"kernel H once per level below the first ({gn} less one)")
 
     n = J_STEADY[model]
     walls = []
@@ -2537,6 +2789,11 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
           f"kernel A and kernel {'B' if need == 'gn_solve' else 'C'} "
           "launched in every replay, kernel D once, kernel E once per "
           "level, kernel F once")
+    check(per.get(("bgr_to_gray_kernel", None), 0) == 1
+          and per.get(("pyr_down_kernel", None), 0)
+          == per.get((need, None), 0) - 1 > 0,
+          "kernel G launched once in every replay (the clip's gray), kernel "
+          f"H once per level below the first ({need} less one)")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
     return walls
 
@@ -3885,17 +4142,22 @@ def timed_stream(host, poses, params, dev, eager=False):
     want_b = levels * STREAM_FRAMES
     # The smoother finalizes a frame once smoother_memory more have come.
     want_d = STREAM_FRAMES - params.smoother_memory
+    want_h = (levels - 1) * STREAM_FRAMES
     n_a = launches.get("warp_frames[similarity,bilinear]", 0)
     check(n_a == STREAM_FRAMES - lag and launches["gn_solve"] == want_b
           and launches["gn8_solve"] == 0
           and launches["tvl1_smooth"] == want_d
           and launches[PINV_NAME] == want_b and launches[ACCUM_NAME] == 0
-          and sum(launches.values()) == n_a + 2 * want_b + want_d,
+          and launches[GRAY_NAME] == STREAM_FRAMES
+          and launches[PYR_NAME] == want_h
+          and sum(launches.values())
+          == n_a + 2 * want_b + want_d + STREAM_FRAMES + want_h,
           f"launches {launches}: kernel A {STREAM_FRAMES - lag} (one per "
           f"output), kernels B and E {want_b} each (one per level of every "
           f"frame, the first included), kernel C 0, kernel D {want_d} (one "
           "per smoothed window), kernel F 0 (the streaming accumulator is "
-          "the host's)")
+          f"the host's), kernel G {STREAM_FRAMES} (one per frame), kernel H "
+          f"{want_h} (one per level below the first of every frame)")
 
     steady = np.asarray(walls[STREAM_STEADY:])
     log(f"  {'un-captured (graphs.eager())' if eager else 'replayed'}: "
@@ -4252,11 +4514,16 @@ def json_line(lines, metric: str) -> dict:
     return got
 
 
-def kernels_launched(launches, a_form: str, b: bool, c: bool, what: str):
+def kernels_launched(launches, a_form: str, b: bool, c: bool, levels: int,
+                     what: str):
+    """Kernel A's form ``a_form``, B and C as ``b`` and ``c`` say, D, and G
+    with ``levels`` - 1 launches of H for each of its."""
     check(launches.get(f"warp_frames[{a_form}]", 0) > 0
           and (launches["gn_solve"] > 0) == b
           and (launches["gn8_solve"] > 0) == c
-          and launches["tvl1_smooth"] > 0,
+          and launches["tvl1_smooth"] > 0
+          and launches[GRAY_NAME] > 0
+          and launches[PYR_NAME] == (levels - 1) * launches[GRAY_NAME],
           f"{what}: launches {launches}")
 
 
@@ -4274,9 +4541,9 @@ def tool_bench(smi):
           f"one JSON line of metric, value, unit and device "
           f"{got.get('device')!r}")
     check(ok_rate >= 0.9, f"align success {ok_rate:.4f} (the last chunk)")
-    kernels_launched(launches, "similarity,bilinear", True, False,
-                     "kernel A (similarity, bilinear), B and D launched, C "
-                     "not")
+    kernels_launched(launches, "similarity,bilinear", True, False, 6,
+                     "kernel A (similarity, bilinear), B, D, G and H (5 "
+                     "levels a conversion) launched, C not")
 
 
 @phase("P2. apps/bench_configs.py --mode 4k: config 4, 2 streams x 16 "
@@ -4291,9 +4558,9 @@ def tool_bench_4k():
     check(got["align_success"] >= 0.9,
           f"align success {got['align_success']:.4f} on the frames after "
           "each stream's first")
-    kernels_launched(launches, "homography,lanczos2", False, True,
-                     "kernel A (homography, Lanczos2), C and D launched, B "
-                     "not")
+    kernels_launched(launches, "homography,lanczos2", False, True, 7,
+                     "kernel A (homography, Lanczos2), C, D, G and H (6 "
+                     "levels a conversion) launched, B not")
 
 
 LATENCY_MODES = (
@@ -4339,6 +4606,11 @@ def latency_chain(dev):
           f"kernel B launched {launches['gn_solve']} times (want {want}: "
           f"{levels} levels x {chain} steps, in the first call, {reps} "
           f"replays of the chain and {reps} chains issued step by step)")
+    want_h = want // levels * (levels - 1)
+    check(launches[PYR_NAME] == want_h and launches[GRAY_NAME] == 0,
+          f"kernel H launched {launches[PYR_NAME]} times (want {want_h}: "
+          f"{levels - 1} levels below the first of every step), kernel G "
+          f"{launches[GRAY_NAME]} (the chain's frames are gray already)")
     stats = prog.stats()[0]
     issued = [ln for ln in run_tool.stderr.splitlines()
               if "issued one call each" in ln]
@@ -4388,7 +4660,8 @@ def tool_profile():
             f"trace {size / 1e6:.1f} MB")
         names = list(totals)
         for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_wave_kernel",
-                       "pinv4_kernel", "accum_kernel"):
+                       "pinv4_kernel", "accum_kernel", "gray_kernel",
+                       "pyr_down_kernel"):
             hits = [n for n in names if symbol in n]
             check(bool(hits), f"the per-kernel table names {symbol}: "
                   f"{hits[:1]}")
@@ -4410,12 +4683,16 @@ def tool_profile():
         "kernels)")
     for what, source, plain in (
             ("Jacobi pseudo-inverse's (kernel E)", "/ops/linalg.py", "6,828"),
-            ("accumulator's (kernel F)", "/ops/accum.py", "2,272")):
-        rows = [(us, n) for name, (us, n) in by_src.items() if source in name]
+            ("accumulator's (kernel F)", "/ops/accum.py", "2,272"),
+            ("gray conversion's (kernel G)", "/ops/gray.py", None),
+            ("pyramid's (kernel H)", "/ops/pyr_down.py", None)):
+        # pad_edge (ops/pyr_down.py) serves the gradients and the windows.
+        rows = [(us, n) for name, (us, n) in by_src.items()
+                if source in name and "pad_edge" not in name]
         log(f"  the {what} device work in the chunk: "
             f"{sum(n for _, n in rows)} kernels, "
-            f"{sum(us for us, _ in rows) / 1e3:.3f} ms (the plain version: "
-            f"{plain} kernels)")
+            f"{sum(us for us, _ in rows) / 1e3:.3f} ms"
+            + (f" (the plain version: {plain} kernels)" if plain else ""))
     mine = sum(us for name, (us, _) in by_src.items()
                if name.startswith(profile_chunk.PACKAGE))
     check(total > 0 and mine / total > 0.9,
@@ -4577,6 +4854,10 @@ def main() -> int:
              kernels[ACCUM_NAME]) = entries
     del pinv_calls, accum_calls
     torch.cuda.empty_cache()
+    entries = check_gray_pyr(params, params_4k, dev)
+    if entries is not None:
+        kernels[GRAY_NAME], kernels[PYR_NAME] = entries
+    torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
     torch.cuda.empty_cache()
 
@@ -4600,8 +4881,8 @@ def main() -> int:
         launches, states, last_chunk, stages = result
         for kname in kernels:
             if launches.get(kname, 0) > 0:
-                # Kernels D, E and F run on both paths: their counts are
-                # the 1080p ones.
+                # Kernels D-H run on both paths: their counts are the
+                # 1080p ones.
                 path_launches.setdefault(kname, launches[kname])
         if model == HOMOGRAPHY and launches.get(PINV_NAME, 0) > 0:
             # Kernel E's 8x8 form: the 4K path's pseudo-inverses.
@@ -4690,11 +4971,11 @@ def main() -> int:
 
     check(not any(PLAIN_ON_CARD.values()),
           f"plain versions run on the card over every path: {PLAIN_ON_CARD} "
-          "(each smoother, pseudo-inverse and accumulator call there went to "
-          "kernel D, E or F)")
+          "(each smoother, pseudo-inverse, accumulator, gray and pyramid "
+          "call there went to kernel D, E, F, G or H)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 13:
+    if failures or missing or len(kernels) != 15:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))
@@ -4703,7 +4984,7 @@ def main() -> int:
         k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels B-F also give their device time beside the wrapper's ms; D,
+    # Kernels B-H also give their device time beside the wrapper's ms; D,
     # E and F their dependent-chain bound beside the roofline one.
     extra = ("device_ms", "chain_bound_ms")
     print(json.dumps({"kernels": [

@@ -9,8 +9,9 @@ port (``--by-source``). The port of the JAX package's
         [--by-source] [--parse-only] [--device cuda|cpu]
 
 Two chunks run first (the kernels' build at first use, and the lag
-window); the third is traced with the CPU and CUDA activities and Python
-stacks, and written as a Chrome trace, ``<logdir>/trace.json``. Every
+window); the third runs once as the profiler's warm-up step, then again
+traced with the CPU and CUDA activities and Python stacks, and is written
+as a Chrome trace, ``<logdir>/trace.json``. Every
 chunk runs un-captured (``utils.graphs.eager()``: ``stabilize_chunk_core``
 and the warp, eager), since a replayed graph has no Python frames to
 attribute its kernels to; so the trace shows the eager chunk, not the
@@ -235,10 +236,19 @@ def main(argv=None):
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, with_stack=True) as prof:
+    # One warm-up step, then the traced one: the profiler starts recording
+    # device work some time after a session opens (on the H100, 55 ms
+    # after it in one run: the first 10 kernels of a chunk traced at once
+    # were missing), so the same chunk runs once untraced first.
+    once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=activities, with_stack=True,
+                 schedule=once) as prof:
+        run(states, inputs[2])
+        prof.step()
         t0 = time.perf_counter()
         states, _ = run(states, inputs[2])
         dt = time.perf_counter() - t0
+        prof.step()
     n = args.streams * args.frames
     print(f"traced call: {dt:.3f}s for {n} frames ({n / dt:.1f} fps, "
           f"{dt / n * 1e3:.2f} ms/frame, under the profiler)",

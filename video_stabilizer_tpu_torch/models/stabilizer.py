@@ -8,9 +8,10 @@ residual jitter ``meas o smoothed^-1`` (stabilizer.cpp:58-64), fold it into
 the running accumulator with displacement-based decay (stabilizer.cpp:
 69-87), and warp the delayed frame by it, cropped (stabilizer.cpp:96-109).
 
-On the device: the colour conversion, the aligner and the output warp
-(kernel A at one frame). On the host: the 4-vector bookkeeping and the
-decay algebra in float64, exactly as the JAX package (stabilizer.py:40-83).
+On the device: the colour conversion (kernel G, ``ops/gray.py``), the
+aligner and the output warp (kernel A at one frame). On the host: the
+4-vector bookkeeping and the decay algebra in float64, exactly as the JAX
+package (stabilizer.py:40-83).
 The measurement and its success flag come to the host once per frame, and
 the smoother's output once per finalized frame. On the card each device
 step is a replayed graph (utils/graphs.py): ``_to_gray``, the aligner's
@@ -30,19 +31,9 @@ from video_stabilizer_tpu_torch.config import StabilizerParams
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.aligner import VideoAligner
 from video_stabilizer_tpu_torch.models.smoother import L1SmootherCenter
+from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray
 from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
-
-
-def bgr_to_gray(frame_bgr):
-    """BGR u8 (..., 3) -> gray u8 (...): round(0.114*B + 0.587*G + 0.299*R)
-    in float32, half to even (``video_stabilizer_tpu.models.stabilizer.
-    bgr_to_gray``, stabilizer.py:86-99; torch.round is half to even like
-    jnp.round)."""
-    b = frame_bgr[..., 0].to(torch.float32)
-    g = frame_bgr[..., 1].to(torch.float32)
-    r = frame_bgr[..., 2].to(torch.float32)
-    return torch.round(0.114 * b + 0.587 * g + 0.299 * r).to(torch.uint8)
 
 
 # The JAX package's jitted colour conversion (stabilizer.py:102): a replayed
