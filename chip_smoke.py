@@ -122,16 +122,23 @@ Run from the root of the repository. Phases:
      bench.py's content (8 x 16 frames), (b) a 4K chunk (config 4's
      content, 2 x 16), (c) one 1080p frame, (d) one ragged 437x1033 frame
      and 3 of them at an odd address (the byte-at-a-time path) and (e)
-     all 2^24 BGR triples as one 4096x4096 image. Kernel H at every level
-     of (a)'s and (b)'s pyramids (5 and 6 levels below the first, on their
-     gray frames; level 1 also from one frame at an odd address) and on
-     (c) a ragged chain of 3 frames from 437x1033 down to 3x8 (7 levels).
-     Per shape: the wrapper between CUDA events over 50 launches, the
-     device time (50 launches replayed from a CUDA graph), the plain
-     version, the byte bound; for H also ``F.conv2d`` alone (stride 2,
-     TF32 off, on the replicate-padded float32 input: it leaves out the
-     pad, both casts and the shift; whether its floor equals the kernel
-     is printed). No single PyTorch call rounds as kernel G does.
+     all 2^24 BGR triples as one 4096x4096 image. Kernel H (its narrow
+     engine on small levels, its wide one on large) at every level of
+     (a)'s and (b)'s pyramids (5 and 6 levels below the first, on their
+     gray frames; levels 1 and 2 also from one frame and from every frame
+     at an odd address), (c) a ragged chain of 3 frames from 437x1033
+     down to 3x8 (7 levels), (d) one 1080p frame's pyramid (the streaming
+     step's), (e) the soak's 48x64 frame's, (f) 4 frames of 1080x1924
+     (rows 4 bytes apart) and (g) 70,000 8x8 frames (more than a grid
+     axis's 65,535), 2 levels below the first each. Per shape: the wrapper between CUDA
+     events over 50 launches, the device time (50 launches replayed from
+     a CUDA graph), the plain version, the byte bound; for H also
+     ``F.conv2d`` alone (stride 2, TF32 off, on the replicate-padded
+     float32 input: it leaves out the pad, both casts and the shift;
+     whether its floor equals the kernel is printed), and per chain the
+     sums and the whole pyramid's device time (50 ``build_pyramid`` calls
+     replayed from a CUDA graph, the gaps between its launches included).
+     No single PyTorch call rounds as kernel G does.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -451,6 +458,7 @@ GRAY_NAME = "bgr_to_gray"
 PYR_REPLACES = "video_stabilizer_tpu/ops/pyr_down.py:50"
 PYR_NAME = "pyr_down"
 RAGGED_LEVELS = 8          # phase G's chain: 437x1033 down to 3x8
+MANY_FRAMES = 70000        # phase G: more frames than a grid axis holds
 # Operations of csrc/gray.cu per pixel (3 converts, 3 multiplies, 2 adds,
 # the round) and of csrc/pyr_down.cu per output (per 4 outputs: two source
 # rows' row sums, 17 each, and the column sums and the pack, 10). The
@@ -689,10 +697,10 @@ def build_kernels():
     from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
     # per block size; D: the wavefront and the any-length one; E: n = 4
-    # and 8; F: P = 4 and 8; G and H: one each.
+    # and 8; F: P = 4 and 8; G: one; H: its narrow and wide engines.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
                      gn8_solve=len(gn8_solve.THREADS), tvl1=2, jacobi=2,
-                     accum=2, gray=1, pyr_down=1)
+                     accum=2, gray=1, pyr_down=2)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -2123,7 +2131,8 @@ def check_gray_pyr(params, params_4k, dev):
     of kernels G and H at the 1080p chunk."""
     from video_stabilizer_tpu_torch.models.aligner import level_specs
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
-    from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
+    from video_stabilizer_tpu_torch.ops.pyr_down import (build_pyramid,
+                                                         pyr_down_kernel)
 
     plain_g, plain_h = PLAIN[GRAY_NAME], PLAIN[PYR_NAME]
     chunk = torch.from_numpy(synth_streams(dev, CHUNK, MAIN_CONTENT)[0]).to(
@@ -2167,8 +2176,14 @@ def check_gray_pyr(params, params_4k, dev):
         "cvtColor's float form does)")
 
     # Kernel H, level by level on the chunks' real gray frames: 5 levels
-    # below the 1080p chunk's first, 6 below the 4K chunk's, and a ragged
-    # chain of 8 levels from 437x1033 down to 3x8.
+    # below the 1080p chunk's first, 6 below the 4K chunk's, a ragged chain
+    # of 8 levels from 437x1033 down to 3x8, one 1080p frame (the streaming
+    # step's pyramid), the soak's frame, rows 4 bytes apart (the wide
+    # engine's word loads) and more frames than a grid axis holds.
+    frame = grays["(c) one 1080p frame"]
+    soak = grays["(a) 1080p chunk"][0, 0, :SOAK_H, :SOAK_W].contiguous()
+    soak_levels = len(level_specs(SOAK_W, SOAK_H, params.aligner))
+    gen = torch.Generator(dev).manual_seed(SEED)
     chains = [("(a) 1080p chunk",
                grays["(a) 1080p chunk"].reshape(-1, HEIGHT, WIDTH),
                len(level_specs(WIDTH, HEIGHT, params.aligner)), (33, 60)),
@@ -2176,7 +2191,18 @@ def check_gray_pyr(params, params_4k, dev):
                len(level_specs(W4K, H4K, params_4k.aligner)), (33, 60)),
               ("(c) ragged chain",
                grays["(d) ragged frames at an odd address"], RAGGED_LEVELS,
-               (3, 8))]
+               (3, 8)),
+              ("(d) one 1080p frame", frame,
+               len(level_specs(WIDTH, HEIGHT, params.aligner)), (33, 60)),
+              ("(e) the soak's frame", soak, soak_levels,
+               (SOAK_H >> (soak_levels - 1), SOAK_W >> (soak_levels - 1))),
+              ("(f) 4 frames of 1080x1924",
+               torch.randint(0, 256, (4, HEIGHT, WIDTH + 4), device=dev,
+                             dtype=torch.uint8, generator=gen), 3,
+               (270, 481)),
+              (f"(g) {MANY_FRAMES} 8x8 frames",
+               torch.randint(0, 256, (MANY_FRAMES, 8, 8), device=dev,
+                             dtype=torch.uint8, generator=gen), 3, (2, 2))]
     del grays, g_calls, chunk, chunk_4k
     torch.cuda.empty_cache()
     log("  kernel H | input | equal | kernel ms | device ms | plain ms | "
@@ -2185,18 +2211,22 @@ def check_gray_pyr(params, params_4k, dev):
     for what, x, levels, end in chains:
         totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                       bound_ms=0.0)
+        top = x
         for level in range(1, levels):
             got, want = pyr_down_kernel(x), plain_h(x)
             same = torch.equal(got, want)
             all_same &= same
             worst = max(worst, int((got.int() - want.int()).abs().max()))
-            if level == 1:
-                # The byte-at-a-time path on a word-wide source.
-                odd = odd_address(x[:1])
-                same_odd = torch.equal(pyr_down_kernel(odd), want[:1])
-                all_same &= same_odd
-                log(f"    {what}, level 1 from one frame at an odd "
-                    f"address: equal {same_odd}")
+            if level <= 2 and x.dim() == 3 and x.shape[0] > 1:
+                # The byte-at-a-time paths on a word-wide source: one frame
+                # (the narrow engine) and every frame (the chunks' wide).
+                for part in (x[:1], x):
+                    same_odd = torch.equal(
+                        pyr_down_kernel(odd_address(part)),
+                        want[:part.shape[0]])
+                    all_same &= same_odd
+                    log(f"    {what}, level {level} from {part.shape[0]} "
+                        f"frames at an odd address: equal {same_odd}")
             ms = cuda_ms(lambda: pyr_down_kernel(x), 50)
             device_ms = graph_ms(lambda: pyr_down_kernel(x), 50)
             plain_ms = cuda_ms(lambda: plain_h(x), 5)
@@ -2216,11 +2246,16 @@ def check_gray_pyr(params, params_4k, dev):
                 totals[k] += v
             x = want
             del got, conv
+        # The whole pyramid as the paths build it: its levels - 1 launches,
+        # 50 pyramids replayed from a CUDA graph (the gaps between launches
+        # included).
+        pyramid_ms = graph_ms(lambda: build_pyramid(top, levels), 50)
         log(f"  {what}, all {levels - 1} levels | kernel "
             f"{totals['ms']:.4f} ms | device {totals['device_ms']:.4f} | "
-            f"plain {totals['plain_ms']:.3f} | conv2d "
-            f"{totals['library_ms']:.4f} | bound {totals['bound_ms']:.4f} | "
-            f"device / bound {totals['device_ms'] / totals['bound_ms']:.2f}")
+            f"whole pyramid from a graph {pyramid_ms:.4f} | plain "
+            f"{totals['plain_ms']:.3f} | conv2d {totals['library_ms']:.4f} | "
+            f"bound {totals['bound_ms']:.4f} | device / bound "
+            f"{totals['device_ms'] / totals['bound_ms']:.2f}")
         check(tuple(x.shape[-2:]) == end,
               f"{what}: the chain ends at {tuple(x.shape[-2:])} (want {end})")
         if entry_h is None:
@@ -2230,8 +2265,9 @@ def check_gray_pyr(params, params_4k, dev):
                            replaces=PYR_REPLACES, bound_by=bound_by,
                            **totals)
     check(all_same, f"kernel H bit-equal to its plain version at every level "
-          f"of both chunks' pyramids and the ragged chain (and from an odd "
-          f"address); max |diff| {worst}")
+          f"of every chain (both chunks, the ragged chain, one frame, the "
+          f"soak's frame, rows 4 bytes apart, {MANY_FRAMES} frames; and from "
+          f"an odd address); max |diff| {worst}")
     log("  kernel H's library yardstick: F.conv2d alone (stride 2, TF32 "
         "off) on the replicate-padded float32 input; it leaves out the pad, "
         "both casts and the shift")

@@ -7,7 +7,8 @@ c_i*c_j summing to 256, so ``out = floor(sum / 256)`` equals the reference's
 float blur followed by its truncating cast bit for bit.
 
 ``pyr_down_kernel`` launches ``csrc/pyr_down.cu`` for CUDA tensors: one
-launch a level over all frames. It replaces the JAX package's XLA stage
+launch a level over all frames, by its wide engine on a large level and
+its narrow one on a small level. It replaces the JAX package's XLA stage
 ``video_stabilizer_tpu/ops/pyr_down.py::pyr_down`` (not a Pallas kernel);
 see the source note in ``csrc/pyr_down.cu`` for the bound and the design.
 ``pyr_down_plain`` is the same stencil in plain PyTorch (about 29 kernels
