@@ -11,10 +11,10 @@ Run from the root of the repository. Phases:
      (2 models x 2 interps x 1-4 channels), every block-size instance of
      kernels B and C, both of kernel D (the wavefront for windows of up
      to 32, one thread a row beyond), both of kernels E (n = 4 one
-     thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8), and
-     kernels G's and H's one each must report no spills and a 0-byte
-     stack frame (kernel E: 32 bytes, the CUDA math
-     library's sinf / cosf argument-reduction buffer).
+     thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8), kernel
+     G's one, H's two (its narrow and wide engines) and I's one must
+     report no spills and a 0-byte stack frame (kernel E: 32 bytes, the
+     CUDA math library's sinf / cosf argument-reduction buffer).
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
   3. Drive the 1080p similarity path over two chunks to capture real
@@ -139,6 +139,21 @@ Run from the root of the repository. Phases:
      sums and the whole pyramid's device time (50 ``build_pyramid`` calls
      replayed from a CUDA graph, the gaps between its launches included).
      No single PyTorch call rounds as kernel G does.
+ I.  Kernel I (a pyramid level's keyframe precompute: gradients, tile
+     argmax, Jacobian rows, u8 windows; one launch a level over all
+     keyframes) against its plain version on the card, bit for bit in all
+     five fields (float32 as bits), in both models on every input: (a) the
+     6 levels of a 1080p chunk's 64 keyframes (the odd frames of bench.py's
+     content, 8 x 16, through kernels G and H), (b) the 7 levels of a 4K
+     chunk's 16 (config 4's content), (c) one 1080p frame (K = 1), (d) the
+     zero pyramid of 8 streams (the zero carry), (e) tie-heavy frames
+     (flat, stripes, a checkerboard), (f) the ragged chain from 437x1033,
+     (g) the soak's 64x48 and (h) 70,000 8x8 frames. Per level, in the
+     input's path model (homography for (b), similarity otherwise): the
+     wrapper between CUDA events over 50 launches, the device time (50
+     launches replayed from a CUDA graph), the plain version, the byte
+     bound; per input the sums and all levels' launches replayed from a
+     CUDA graph. No single PyTorch call computes this precompute.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -155,8 +170,10 @@ Run from the root of the repository. Phases:
      shape, the replays, the align success rate (>= 0.9), the measured
      motion against the clip's known motion, and the launches: kernel E
      once per level (as B), kernel F once per chunk, kernel G once per
-     chunk and kernel H once per level below the first (5 a chunk; 6 at
-     4K in phase 10). One more chunk, replayed, runs under torch.profiler.
+     chunk, kernel H once per level below the first (5 a chunk; 6 at 4K
+     in phase 10) and kernel I once per level a chunk (6; 7 at 4K: the
+     fresh state's zero carry runs before the counts are set to 0). One
+     more chunk, replayed, runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
      selection): the same checks, its stage table beside phase 9's.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
@@ -176,7 +193,7 @@ Run from the root of the repository. Phases:
      (median, min, max, spread) beside the un-captured chunks' of the
      phase, the device-busy share and the copies of 3 replays under
      torch.profiler, and the launches per replay (kernels D, F and G once,
-     E once per level, H once per level below the first).
+     E and I once per level, H once per level below the first).
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
@@ -195,8 +212,9 @@ Run from the root of the repository. Phases:
      instead), then the first call (eager run and capture) and 5 replays:
      outputs, meas and success byte-equal to the un-captured call, the
      first call's values unchanged after the replays; kernels A and B
-     launched in every replay, G once and H once per level below the
-     first. Prints the first call's, the capture's and
+     launched in every replay, G once, H once per level below the first
+     and I twice per level (the zero carry and the keyframes). Prints the
+     first call's, the capture's and
      the instantiation's time, the graph pool, the peak memory, the
      launches per replay and the replays' median and spread beside the
      un-captured time.
@@ -249,7 +267,8 @@ J10. The chunk programs' memory, and long replay. (a)
      max_displacement 5 / 10 / 20, window margin widened to 22) on 32
      frames of bench.py's content (seed 100) through ``align_clip_impl``
      with (27,) DynAlignParams, launch counts set to 0 before and read
-     after (kernel B once per level for all 27 x 32 items). (a) Kernel B
+     after (kernel B once per level for all 27 x 32 items, kernel I twice
+     per level: the zero carry and the keyframes). (a) Kernel B
      with per-item thresholds against its plain version at every level:
      converged equal; phase 5's bars on the items whose engines ran the
      same iterations (not the A/B >= 10x check: translation-only content);
@@ -276,8 +295,8 @@ J10. The chunk programs' memory, and long replay. (a)
  G2 path. 8 frames of config 4's content through ``align_clip_impl`` with
      model="homography" and the three thresholds as (3,) DynAlignParams,
      launch counts set to 0 before and read after: kernel C once per level,
-     kernel B never; the 0.02 px combo against the run without ``dyn``: ok
-     equal, >= 6 of 7 frames aligned.
+     kernel I twice, kernel B never; the 0.02 px combo against the run
+     without ``dyn``: ok equal, >= 6 of 7 frames aligned.
  G3. The apps' pipeline at 1080p without cv2: 32 frames of bench.py's
      content written as a .y4m, read back bit-equal through
      ``utils.io.read_video`` (the native Y4M reader, built by ``make -C
@@ -304,8 +323,9 @@ J10. The chunk programs' memory, and long replay. (a)
      of every frame (the first frame runs the level loop, as in the JAX
      package), kernel C never, kernel D once per smoothed window, kernel E
      once per level of every frame, kernel F never (the host's
-     accumulator), kernel G once per frame and kernel H once per level
-     below the first of every frame.
+     accumulator), kernel G once per frame, kernel H once per level
+     below the first of every frame and kernel I once per level of the 24
+     keyframe frames (the odd ones).
      Prints the per-frame latency (host clock up to each frame's sync;
      median and p90 of frames 12-47) and the
      per-frame stage table from the spans; then 8 more frames, replayed,
@@ -337,10 +357,11 @@ J10. The chunk programs' memory, and long replay. (a)
      streams x 16 1080p frames, 4 reps x 4 chunks), in this process: its
      JSON line parses with its metric string and the card's name, the
      align success >= 0.9, and the launch counts show kernels A, B, D and
-     G launched, H 5 times for each G, C not.
+     G launched, H 5 times for each G, I at least 6 times for each G (a
+     whole number of levels: each fresh state's zero carry adds 6), C not.
  P2. ``apps/bench_configs.py``'s ``bench_4k`` at 2 streams, 3 reps:
-     kernels A, C, D and G launched, H 6 times for each G, B not; success
-     >= 0.9 on the frames after each stream's first.
+     kernels A, C, D and G launched, H 6 times and I at least 7 for each
+     G, B not; success >= 0.9 on the frames after each stream's first.
  P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps;
      the chain replayed as one captured graph),
      ``bench_latency_chunk2`` (chain 8, 3 reps) and
@@ -348,15 +369,16 @@ J10. The chunk programs' memory, and long replay. (a)
      positive and finite.
  J4. ``apps/bench_configs.py --mode latency`` at chain 32, 5 reps: the
      JAX tool's ``run_chain``, 32 align steps captured as one graph
-     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's and
-     H's launches counted through them; G none: the chain's frames are
-     gray); prints its p50 beside the same steps issued one call each.
+     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's, H's
+     and I's launches counted through them, I once per level of each
+     chain's 16 keyframe steps; G none: the chain's frames are gray);
+     prints its p50 beside the same steps issued one call each.
  P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
      graph has no Python frames): its per-kernel table
-     names kernel A's, B's, D's, E's, F's, G's and H's symbols, the
+     names kernel A's, B's, D's, E's, F's, G's, H's and I's symbols, the
      smoother's, the pseudo-inverse's, the accumulator's, the gray
-     conversion's and the pyramid's kernels and device time per chunk are
-     printed, ``--parse-only`` reprints the same
+     conversion's, the pyramid's and the keyframe's kernels and device
+     time per chunk are printed, ``--parse-only`` reprints the same
      totals from the saved trace, and ``--by-source`` puts over 90 % of
      the device time on frames under ``video_stabilizer_tpu_torch/``.
  P5. The scale-out modules on the card: ``graft_entry.entry()``,
@@ -373,13 +395,15 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(fifteen entries: kernel A's two chunked forms and its one-frame form, B
-per chunk, at one item, in its fixed mode at K = 4 (S5's launches) and
+(seventeen entries: kernel A's two chunked forms and its one-frame form,
+B per chunk, at one item, in its fixed mode at K = 4 (S5's launches) and
 with per-item thresholds (G1's launches), C per chunk and with per-item
 thresholds (the G2 path's launches), D at the 1080p chunk's rows, E at the
-1080p chunk's level 0, F, G and H (summed over its 5 levels) at the
-1080p chunk (the 1080p path's launches), and E's 8x8 form at the 4K
-chunk's level 0 (the 4K path's launches)), the
+1080p chunk's level 0, F, G, H (summed over its 5 levels) and I's
+similarity form (summed over its 6 levels) at the 1080p chunk (the 1080p
+path's launches), and E's 8x8 form at the 4K chunk's level 0 and I's
+homography form summed over the 4K chunk's 7 levels (the 4K path's
+launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -458,7 +482,15 @@ GRAY_NAME = "bgr_to_gray"
 PYR_REPLACES = "video_stabilizer_tpu/ops/pyr_down.py:50"
 PYR_NAME = "pyr_down"
 RAGGED_LEVELS = 8          # phase G's chain: 437x1033 down to 3x8
-MANY_FRAMES = 70000        # phase G: more frames than a grid axis holds
+MANY_FRAMES = 70000        # phases G and I: more frames than a grid axis holds
+# Kernel I replaces two XLA stages, not Pallas kernels: the keyframe
+# precompute of each model, a level at a time. Its launch count and plain
+# version go by KEY_NAME; the kernels line has one entry per model.
+KEY_NAME = "keyframe"
+KEY_ENTRY = "compute_keyframe"
+KEY_H_ENTRY = "compute_keyframe[homography]"
+KEY_REPLACES = "video_stabilizer_tpu/models/aligner.py:163"
+KEY_H_REPLACES = "video_stabilizer_tpu/models/homography_aligner.py:74"
 # Operations of csrc/gray.cu per pixel (3 converts, 3 multiplies, 2 adds,
 # the round) and of csrc/pyr_down.cu per output (per 4 outputs: two source
 # rows' row sums, 17 each, and the column sums and the pack, 10). The
@@ -466,6 +498,14 @@ MANY_FRAMES = 70000        # phase G: more frames than a grid axis holds
 # both kernels stay byte-bound at half that rate.
 GRAY_OPS_PER_PIXEL = 9
 PYR_OPS_PER_OUTPUT = 11
+# Operations of csrc/keyframe.cu per tile pixel (two differences, two
+# absolute values, two compares) and per keypoint (the similarity's four
+# centring subtractions, eight products and four adds, two conversions; the
+# homography's four subtractions, four products for u and v, two for g,
+# four for the quadratic terms and sixteen rows times g, two conversions).
+# Either way the kernel is byte-bound by two orders of magnitude.
+KEY_OPS_PER_PIXEL = 6
+KEY_OPS_PER_POINT = {4: 18, 8: 32}
 
 
 # Stack frames a kernel may report beside its 0 spills: kernel E's 32 bytes
@@ -532,20 +572,20 @@ def release_graphs():
 
 
 PLAIN_ON_CARD = {TVL1_NAME: 0, PINV_NAME: 0, ACCUM_NAME: 0, GRAY_NAME: 0,
-                 PYR_NAME: 0}
+                 PYR_NAME: 0, KEY_NAME: 0}
 PLAIN = {}
 
 
 def count_plain_on_card():
-    """Count the calls of kernel D's, E's, F's, G's and H's plain versions
-    on a card tensor made through their dispatchers
+    """Count the calls of kernel D's, E's, F's, G's, H's and I's plain
+    versions on a card tensor made through their dispatchers
     (``models.smoother.tvl1_smooth``, ``ops.linalg.regularized_pinv_sym4``,
     ``ops.accum.accum_scan``, ``ops.gray.bgr_to_gray``,
-    ``ops.pyr_down.pyr_down``: every path's). Phases E and G call the plain
-    versions kept in ``PLAIN``, which are not counted (phase D calls
-    ``ops.tvl1``'s own)."""
+    ``ops.pyr_down.pyr_down``, ``ops.keyframe.keyframe_level``: every
+    path's). Phases E, G and I call the plain versions kept in ``PLAIN``,
+    which are not counted (phase D calls ``ops.tvl1``'s own)."""
     from video_stabilizer_tpu_torch.models import smoother
-    from video_stabilizer_tpu_torch.ops import accum, gray, linalg
+    from video_stabilizer_tpu_torch.ops import accum, gray, keyframe, linalg
     # ``ops.pyr_down`` is the function (ops/__init__ exports it): the
     # module comes from sys.modules.
     pyr = sys.modules["video_stabilizer_tpu_torch.ops.pyr_down"]
@@ -554,7 +594,8 @@ def count_plain_on_card():
             (PINV_NAME, linalg, "regularized_pinv_sym4_plain"),
             (ACCUM_NAME, accum, "accum_scan_plain"),
             (GRAY_NAME, gray, "bgr_to_gray_plain"),
-            (PYR_NAME, pyr, "pyr_down_plain")):
+            (PYR_NAME, pyr, "pyr_down_plain"),
+            (KEY_NAME, keyframe, "keyframe_level_plain")):
         plain = PLAIN.setdefault(name, getattr(module, attr))
 
         def counted(x, *args, _plain=plain, _name=name, **kw):
@@ -654,6 +695,7 @@ def reset_launch_counts():
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
@@ -661,7 +703,7 @@ def reset_launch_counts():
     warp_kernel.reset_launches()
     for fn in (gn_solve, gn8_solve, tvl1_smooth_kernel,
                regularized_pinv_sym4_kernel, accum_scan_kernel,
-               bgr_to_gray_kernel, pyr_down_kernel):
+               bgr_to_gray_kernel, pyr_down_kernel, keyframe_level_kernel):
         fn.launches = 0
 
 
@@ -671,6 +713,7 @@ def launch_counts() -> dict:
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
@@ -684,7 +727,8 @@ def launch_counts() -> dict:
                    PINV_NAME: regularized_pinv_sym4_kernel.launches,
                    ACCUM_NAME: accum_scan_kernel.launches,
                    GRAY_NAME: bgr_to_gray_kernel.launches,
-                   PYR_NAME: pyr_down_kernel.launches})
+                   PYR_NAME: pyr_down_kernel.launches,
+                   KEY_NAME: keyframe_level_kernel.launches})
     return counts
 
 
@@ -697,10 +741,11 @@ def build_kernels():
     from video_stabilizer_tpu_torch.ops import cuda_build, gn8_solve, gn_solve
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
     # per block size; D: the wavefront and the any-length one; E: n = 4
-    # and 8; F: P = 4 and 8; G: one; H: its narrow and wide engines.
+    # and 8; F: P = 4 and 8; G: one; H: its narrow and wide engines; I:
+    # one for both models.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
                      gn8_solve=len(gn8_solve.THREADS), tvl1=2, jacobi=2,
-                     accum=2, gray=1, pyr_down=2)
+                     accum=2, gray=1, pyr_down=2, keyframe=1)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -2275,6 +2320,164 @@ def check_gray_pyr(params, params_4k, dev):
     return entry_g, entry_h
 
 
+def key_bound(x, spec, rows):
+    """Kernel I's roofline bound on one level ``x`` (K, h, w): the level
+    read once; idx (2 int32), coords (4 float32), the Jacobian (2 x rows
+    float32) a keypoint and the P x P windows a tile written once."""
+    keys = x.shape[0]
+    n = spec.ht * spec.wt
+    p = spec.tile + 2 * spec.margin
+    out = keys * n * (8 + 16 + 8 * rows + p * p)
+    ops = keys * (n * spec.tile ** 2 * KEY_OPS_PER_PIXEL
+                  + n * KEY_OPS_PER_POINT[rows])
+    return roofline(x.numel() + out, ops)
+
+
+def key_fields_equal(got, want):
+    """(bit-equal in all five fields, max |diff| over them): float32
+    fields compared as bits, so a zero's sign and NaN positions count."""
+    same, err = True, 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            same &= g.shape == w.shape and torch.equal(
+                g.view(torch.int32), w.view(torch.int32))
+        else:
+            same &= torch.equal(g, w)
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return bool(same), err
+
+
+def tie_frames(dev):
+    """Three 1080p frames on which every tile ties: flat, vertical and
+    horizontal stripes 1 px apart in a 3 px period, a 1 px checkerboard."""
+    y = torch.arange(HEIGHT, device=dev)[:, None]
+    x = torch.arange(WIDTH, device=dev)[None, :]
+    flat = torch.full((HEIGHT, WIDTH), 128, device=dev)
+    stripes = (x % 3 == 0) * 90 + (y % 3 == 0) * 60 + 40
+    checker = ((x + y) % 2) * 255
+    return torch.stack([flat, stripes, checker]).to(torch.uint8)
+
+
+@phase("I. kernel I: the keyframe precompute vs its plain version, both "
+       "models, every level (the 1080p and 4K chunks, one frame, the zero "
+       "pyramid, ties, ragged levels, the soak's frame, 70,000 frames)")
+def check_keyframe(params, params_4k, dev):
+    """See I in the module's docstring. Returns the kernels line's entries
+    of kernel I at the 1080p chunk (similarity) and the 4K chunk
+    (homography)."""
+    from video_stabilizer_tpu_torch.models.aligner import level_specs
+    from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
+    from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
+
+    plain = PLAIN[KEY_NAME]
+
+    def keyframes(height, width, seeds):
+        """The odd frames of a chunk of bench.py's content, as gray
+        (K, h, w) through kernels G and H: a chunk's keyframes."""
+        bgr = torch.from_numpy(synth_streams(
+            dev, CHUNK, MAIN_CONTENT, height, width, seeds=seeds)[0]).to(dev)
+        gray = bgr_to_gray_kernel(bgr)[:, 1::2]
+        return gray.reshape((-1,) + gray.shape[2:]).contiguous()
+
+    specs = level_specs(WIDTH, HEIGHT, params.aligner)
+    specs_4k = level_specs(W4K, H4K, params_4k.aligner)
+    specs_soak = level_specs(SOAK_W, SOAK_H, params.aligner)
+    key_1080p = keyframes(HEIGHT, WIDTH, None)
+    ragged = key_1080p[:RAGGED[0], :RAGGED[1], :RAGGED[2]].contiguous()
+    gen = torch.Generator(dev).manual_seed(SEED)
+    # (name, pyramid levels, specs, the model timed: the path's)
+    inputs = [
+        ("(a) 1080p chunk", build_pyramid(key_1080p, len(specs)), specs,
+         "similarity"),
+        ("(b) 4K chunk", build_pyramid(keyframes(H4K, W4K, list(SEEDS_4K)),
+                                       len(specs_4k)), specs_4k, HOMOGRAPHY),
+        ("(c) one 1080p frame", build_pyramid(key_1080p[:1], len(specs)),
+         specs, "similarity"),
+        ("(d) the zero pyramid, 8 streams",
+         [torch.zeros((STREAMS, s.height, s.width), dtype=torch.uint8,
+                      device=dev) for s in specs], specs, "similarity"),
+        ("(e) ties: flat, stripes, checkerboard",
+         build_pyramid(tie_frames(dev), len(specs)), specs, "similarity"),
+        ("(f) ragged chain from 437x1033",
+         build_pyramid(ragged, len(level_specs(RAGGED[2], RAGGED[1],
+                                               params.aligner))),
+         level_specs(RAGGED[2], RAGGED[1], params.aligner), "similarity"),
+        ("(g) the soak's 64x48",
+         build_pyramid(key_1080p[:2, :SOAK_H, :SOAK_W].contiguous(),
+                       len(specs_soak)), specs_soak, "similarity"),
+        (f"(h) {MANY_FRAMES} 8x8 frames",
+         [torch.randint(0, 256, (MANY_FRAMES, 8, 8), device=dev,
+                        dtype=torch.uint8, generator=gen)],
+         level_specs(8, 8, params.aligner), "similarity")]
+    del key_1080p, ragged
+    log("  kernel I | input | level | K x h x w | model | equal (5 fields) | "
+        "kernel ms | device ms | plain ms | bound ms (bytes) | device / "
+        "bound")
+    entries, all_same, worst = {}, True, 0.0
+    for what, levels, lvl_specs, timed_model in inputs:
+        for model in ("similarity", HOMOGRAPHY):
+            rows = 4 if model == "similarity" else 8
+            totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+            for level, (x, s) in enumerate(zip(levels, lvl_specs)):
+                got = keyframe_level_kernel(x, s, model)
+                want = plain(x, s, model)
+                same, err = key_fields_equal(got, want)
+                all_same &= same
+                worst = max(worst, err)
+                del got, want
+                if model != timed_model:
+                    if not same:
+                        log(f"  {what} | {level} | {model}: NOT bit-equal "
+                            f"(max |diff| {err})")
+                    continue
+                ms = cuda_ms(lambda: keyframe_level_kernel(x, s, model), 50)
+                device_ms = graph_ms(
+                    lambda: keyframe_level_kernel(x, s, model), 50)
+                plain_ms = cuda_ms(lambda: plain(x, s, model), 5)
+                bound_ms, bound_by = key_bound(x, s, rows)
+                log(f"  {what} | {level} | {tuple(x.shape)} | {model} | "
+                    f"{same} | {ms:.4f} | {device_ms:.4f} | {plain_ms:.3f} | "
+                    f"{bound_ms:.4f} ({bound_by}) | "
+                    f"{device_ms / bound_ms:.2f}")
+                for k, v in (("ms", ms), ("device_ms", device_ms),
+                             ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                    totals[k] += v
+            if model != timed_model:
+                continue
+            # Every level as the paths run them, 50 keyframe computations
+            # replayed from a CUDA graph (the gaps between launches
+            # included).
+            whole_ms = graph_ms(lambda: [
+                keyframe_level_kernel(x, s, model)
+                for x, s in zip(levels, lvl_specs)], 50)
+            log(f"  {what}, all {len(levels)} levels, {model} | kernel "
+                f"{totals['ms']:.4f} ms | device {totals['device_ms']:.4f} | "
+                f"all levels from a graph {whole_ms:.4f} | plain "
+                f"{totals['plain_ms']:.3f} | bound {totals['bound_ms']:.4f} | "
+                f"device / bound "
+                f"{totals['device_ms'] / totals['bound_ms']:.2f}")
+            if what.startswith("(a)") or what.startswith("(b)"):
+                name = KEY_ENTRY if model == "similarity" else KEY_H_ENTRY
+                entries[name] = dict(
+                    name=name, route="cuda",
+                    source="video_stabilizer_tpu_torch/csrc/keyframe.cu",
+                    replaces=(KEY_REPLACES if model == "similarity"
+                              else KEY_H_REPLACES),
+                    bound_by="bytes", library_ms=None, **totals)
+        del levels
+        torch.cuda.empty_cache()
+    check(all_same, "kernel I bit-equal to its plain version in idx_x, "
+          "idx_y, coords, jac and windows at every level of every input, "
+          f"both models; max |diff| {worst}")
+    log("  kernel I's library: none (no single PyTorch call computes the "
+        "keyframe precompute)")
+    for entry in entries.values():
+        entry["max_abs_err"] = worst
+    return entries.get(KEY_ENTRY), entries.get(KEY_H_ENTRY)
+
+
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
     from a fresh state, twice: un-captured (``graphs.eager()``) under a
@@ -2390,6 +2593,7 @@ def main_path(frames, poses, params, dev):
     path_checks_e_f(launches, "gn_solve", CHUNKS)
     path_checks_g_h(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params),
                     "one conversion and one pyramid a chunk")
+    path_checks_i(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params))
     known_motion_checks(meas, ok, poses)
     return launches, states, last, stages
 
@@ -2420,6 +2624,18 @@ def path_checks_g_h(launches, calls: int, levels: int, what: str):
           f"{levels - 1} levels below the first)")
 
 
+def path_checks_i(launches, chunks: int, levels: int):
+    """Kernel I once per level of each chunk's keyframes (``align_pairs``:
+    all the chunk's keyframes in one call a level). ``drive_path`` builds
+    the fresh state, whose zero carry computes one more keyframe a level,
+    before it sets the counts to 0."""
+    want = chunks * levels
+    check(launches[KEY_NAME] == want,
+          f"kernel I launched {launches[KEY_NAME]} times (want {want}: once "
+          f"per level of each chunk's keyframes, {chunks} chunks x {levels} "
+          "levels; the zero carry's ran before the counts were set to 0)")
+
+
 def known_motion_checks(meas, ok, poses):
     """Phase 9's bars on a translation-only 1080p clip's measurements."""
     # Motion from frame t-1 to t of a translation-only clip is minus the
@@ -2448,6 +2664,7 @@ def main_path_4k(frames, poses, params, dev):
     path_checks_e_f(launches, "gn8_solve", CHUNKS_4K)
     path_checks_g_h(launches, CHUNKS_4K, path_levels(W4K, H4K, params),
                     "one conversion and one pyramid a chunk")
+    path_checks_i(launches, CHUNKS_4K, path_levels(W4K, H4K, params))
     # The normalized translation (p2, p5) times W is the motion in px at
     # the frame centre. On such a clip (270x480, jitter 1 px, pan 0.3,
     # seeds 5 and 6, 12 frames, on the CPU) the JAX package's 8-DOF aligner
@@ -2642,6 +2859,10 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
           == per_replay.get(gn, 0) - 1 > 0,
           "kernel G launched once in every replay (the chunk's gray), "
           f"kernel H once per level below the first ({gn} less one)")
+    check(per_replay.get("keyframe_level_kernel", 0)
+          == per_replay.get(gn, -1),
+          f"kernel I launched once per level in every replay (as {gn}: the "
+          "chunk's keyframes; the zero carry is the state's)")
 
     n = J_STEADY[model]
     walls = []
@@ -2830,6 +3051,10 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
           == per.get((need, None), 0) - 1 > 0,
           "kernel G launched once in every replay (the clip's gray), kernel "
           f"H once per level below the first ({need} less one)")
+    check(per.get(("keyframe_level_kernel", None), 0)
+          == 2 * per.get((need, None), -1),
+          "kernel I launched twice per level in every replay (the clip's "
+          f"zero carry and its keyframes; {need} once per level)")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
     return walls
 
@@ -3182,6 +3407,7 @@ def topk_path(frames, poses, params, dev, mask_stages):
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
     path_checks_e_f(launches, "gn_solve", CHUNKS)
+    path_checks_i(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params))
     known_motion_checks(meas, ok, poses)
     log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
         "histogram mask (phase 9) | topk")
@@ -3748,6 +3974,10 @@ def aligner_sweep(dev):
           f"kernel B launched once per level ({launches['gn_solve']} of "
           f"{levels}) for all {len(combos)} x {SWEEP_FRAMES} items, one "
           "threshold per item")
+    check(launches[KEY_NAME] == 2 * levels,
+          f"kernel I launched {launches[KEY_NAME]} times (want "
+          f"{2 * levels}: the clip's zero carry and its keyframes, once per "
+          "level each)")
 
     log("  (a) kernel B with per-item thresholds vs its plain version:")
     entry = per_item_b(calls)
@@ -3996,6 +4226,10 @@ def homography_sweep(params_4k, dev):
     check(launches["gn8_solve"] == levels and launches["gn_solve"] == 0,
           f"kernel C launched once per level ({launches['gn8_solve']} of "
           f"{levels}) for {c_n} x 8 items, kernel B not")
+    check(launches[KEY_NAME] == 2 * levels,
+          f"kernel I launched {launches[KEY_NAME]} times (want "
+          f"{2 * levels}: the clip's zero carry and its keyframes, once per "
+          "level each)")
     log(f"  sweep {ms:.1f} ms; align success per threshold "
         + ", ".join(f"{t} px {int(ok[c, 1:].sum())}/7"
                     for c, t in enumerate(ITEM_THRESHOLDS)))
@@ -4179,6 +4413,9 @@ def timed_stream(host, poses, params, dev, eager=False):
     # The smoother finalizes a frame once smoother_memory more have come.
     want_d = STREAM_FRAMES - params.smoother_memory
     want_h = (levels - 1) * STREAM_FRAMES
+    # From a fresh state frame 0 fills buffer 0 and the odd frames are the
+    # keyframe frames, each computing its keyframe a level at a time.
+    want_i = levels * (STREAM_FRAMES // 2)
     n_a = launches.get("warp_frames[similarity,bilinear]", 0)
     check(n_a == STREAM_FRAMES - lag and launches["gn_solve"] == want_b
           and launches["gn8_solve"] == 0
@@ -4186,14 +4423,17 @@ def timed_stream(host, poses, params, dev, eager=False):
           and launches[PINV_NAME] == want_b and launches[ACCUM_NAME] == 0
           and launches[GRAY_NAME] == STREAM_FRAMES
           and launches[PYR_NAME] == want_h
+          and launches[KEY_NAME] == want_i
           and sum(launches.values())
-          == n_a + 2 * want_b + want_d + STREAM_FRAMES + want_h,
+          == n_a + 2 * want_b + want_d + STREAM_FRAMES + want_h + want_i,
           f"launches {launches}: kernel A {STREAM_FRAMES - lag} (one per "
           f"output), kernels B and E {want_b} each (one per level of every "
           f"frame, the first included), kernel C 0, kernel D {want_d} (one "
           "per smoothed window), kernel F 0 (the streaming accumulator is "
           f"the host's), kernel G {STREAM_FRAMES} (one per frame), kernel H "
-          f"{want_h} (one per level below the first of every frame)")
+          f"{want_h} (one per level below the first of every frame), "
+          f"kernel I {want_i} (one per level of the {STREAM_FRAMES // 2} "
+          "keyframe frames)")
 
     steady = np.asarray(walls[STREAM_STEADY:])
     log(f"  {'un-captured (graphs.eager())' if eager else 'replayed'}: "
@@ -4552,14 +4792,18 @@ def json_line(lines, metric: str) -> dict:
 
 def kernels_launched(launches, a_form: str, b: bool, c: bool, levels: int,
                      what: str):
-    """Kernel A's form ``a_form``, B and C as ``b`` and ``c`` say, D, and G
-    with ``levels`` - 1 launches of H for each of its."""
+    """Kernel A's form ``a_form``, B and C as ``b`` and ``c`` say, D, G
+    with ``levels`` - 1 launches of H for each of its, and I at least
+    ``levels`` times for each G (each chunk's keyframes; each fresh
+    state's zero carry adds ``levels``)."""
     check(launches.get(f"warp_frames[{a_form}]", 0) > 0
           and (launches["gn_solve"] > 0) == b
           and (launches["gn8_solve"] > 0) == c
           and launches["tvl1_smooth"] > 0
           and launches[GRAY_NAME] > 0
-          and launches[PYR_NAME] == (levels - 1) * launches[GRAY_NAME],
+          and launches[PYR_NAME] == (levels - 1) * launches[GRAY_NAME]
+          and launches[KEY_NAME] >= levels * launches[GRAY_NAME]
+          and launches[KEY_NAME] % levels == 0,
           f"{what}: launches {launches}")
 
 
@@ -4647,6 +4891,14 @@ def latency_chain(dev):
           f"kernel H launched {launches[PYR_NAME]} times (want {want_h}: "
           f"{levels - 1} levels below the first of every step), kernel G "
           f"{launches[GRAY_NAME]} (the chain's frames are gray already)")
+    # Every chain starts from the same fresh state: its odd steps are the
+    # keyframe frames (the first step fills buffer 0).
+    want_i = levels * (chain // 2) * (1 + 2 * reps)
+    check(launches[KEY_NAME] == want_i,
+          f"kernel I launched {launches[KEY_NAME]} times (want {want_i}: "
+          f"{levels} levels x the {chain // 2} keyframe steps of each "
+          f"chain, in the first call, {reps} replays and {reps} chains "
+          "issued step by step)")
     stats = prog.stats()[0]
     issued = [ln for ln in run_tool.stderr.splitlines()
               if "issued one call each" in ln]
@@ -4697,7 +4949,7 @@ def tool_profile():
         names = list(totals)
         for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_wave_kernel",
                        "pinv4_kernel", "accum_kernel", "gray_kernel",
-                       "pyr_down_kernel"):
+                       "pyr_down_kernel", "keyframe_kernel"):
             hits = [n for n in names if symbol in n]
             check(bool(hits), f"the per-kernel table names {symbol}: "
                   f"{hits[:1]}")
@@ -4721,8 +4973,11 @@ def tool_profile():
             ("Jacobi pseudo-inverse's (kernel E)", "/ops/linalg.py", "6,828"),
             ("accumulator's (kernel F)", "/ops/accum.py", "2,272"),
             ("gray conversion's (kernel G)", "/ops/gray.py", None),
-            ("pyramid's (kernel H)", "/ops/pyr_down.py", None)):
-        # pad_edge (ops/pyr_down.py) serves the gradients and the windows.
+            ("pyramid's (kernel H)", "/ops/pyr_down.py", None),
+            ("keyframe precompute's (kernel I)", "/ops/keyframe.py",
+             "about 400")):
+        # pad_edge (ops/pyr_down.py) served the plain keyframe's gradients
+        # and windows.
         rows = [(us, n) for name, (us, n) in by_src.items()
                 if source in name and "pad_edge" not in name]
         log(f"  the {what} device work in the chunk: "
@@ -4894,6 +5149,10 @@ def main() -> int:
     if entries is not None:
         kernels[GRAY_NAME], kernels[PYR_NAME] = entries
     torch.cuda.empty_cache()
+    entries = check_keyframe(params, params_4k, dev)
+    if entries is not None:
+        kernels[KEY_ENTRY], kernels[KEY_H_ENTRY] = entries
+    torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
     torch.cuda.empty_cache()
 
@@ -4923,6 +5182,11 @@ def main() -> int:
         if model == HOMOGRAPHY and launches.get(PINV_NAME, 0) > 0:
             # Kernel E's 8x8 form: the 4K path's pseudo-inverses.
             path_launches[PINV8_NAME] = launches[PINV_NAME]
+        if launches.get(KEY_NAME, 0) > 0:
+            # Kernel I: the 1080p path's similarity keyframes, the 4K
+            # path's homography ones.
+            path_launches[KEY_ENTRY if model == "similarity"
+                          else KEY_H_ENTRY] = launches[KEY_NAME]
         if model == "similarity":
             # Right after phase 9, so that both runs meet the same host
             # pace: on an NVIDIA H100 80GB HBM3 (700.00 W) a run after the
@@ -5007,11 +5271,11 @@ def main() -> int:
 
     check(not any(PLAIN_ON_CARD.values()),
           f"plain versions run on the card over every path: {PLAIN_ON_CARD} "
-          "(each smoother, pseudo-inverse, accumulator, gray and pyramid "
-          "call there went to kernel D, E, F, G or H)")
+          "(each smoother, pseudo-inverse, accumulator, gray, pyramid and "
+          "keyframe call there went to kernel D, E, F, G, H or I)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 15:
+    if failures or missing or len(kernels) != 17:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))
@@ -5020,7 +5284,7 @@ def main() -> int:
         k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels B-H also give their device time beside the wrapper's ms; D,
+    # Kernels B-I also give their device time beside the wrapper's ms; D,
     # E and F their dependent-chain bound beside the roofline one.
     extra = ("device_ms", "chain_bound_ms")
     print(json.dumps({"kernels": [

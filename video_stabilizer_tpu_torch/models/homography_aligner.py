@@ -27,7 +27,6 @@ import functools
 
 import torch
 
-from video_stabilizer_tpu_torch import homography as Hm
 from video_stabilizer_tpu_torch.config import AlignerParams, StabilizerParams
 from video_stabilizer_tpu_torch.models.aligner import (
     LevelKeyData, LevelSpec, per_item_params, selection_mask,
@@ -35,14 +34,12 @@ from video_stabilizer_tpu_torch.models.aligner import (
 from video_stabilizer_tpu_torch.models.batch import (
     _align_clip_jit, _stabilize_clip_jit, _stabilize_streams_jit, align_clip,
     stabilize_clip, stabilize_clip_core, stabilize_streams, warp_delayed)
-from video_stabilizer_tpu_torch.ops.argmax import (
-    grad_argmax, take_at_tile_argmax)
 from video_stabilizer_tpu_torch.ops.gn8_solve import (
     gn8_solve, warp_rel_positions_h)
-from video_stabilizer_tpu_torch.ops.grad import grad_xy
+from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level
 from video_stabilizer_tpu_torch.ops.linalg import regularized_pinv_sym4
 from video_stabilizer_tpu_torch.ops.patches import (
-    extract_tile_windows_flat, sample_windows_flat, window_origins_flat)
+    sample_windows_flat, window_origins_flat)
 from video_stabilizer_tpu_torch.utils.spans import span
 
 # The homography keyframe carries the similarity one's fields; only ``jac``
@@ -53,31 +50,11 @@ LevelKeyDataH = LevelKeyData
 def _compute_keyframe_h(key_imgs, specs):
     """Per level: gradients, per-tile argmax, the (K, 8, 2, N) Jacobian
     rows in normalized coordinates and the u8 windows
-    (homography_aligner.py:74-113). ``key_imgs``: per level (K, h, w) u8."""
-    out = []
-    for img, s in zip(key_imgs, specs):
-        gx, gy = grad_xy(img)
-        idx_x, coords_x, idx_y, coords_y = grad_argmax(gx, gy, s.tile)
-        gval = take_at_tile_argmax(torch.stack([gx, gy], dim=1),
-                                   torch.stack([idx_x, idx_y], dim=1), s.tile)
-        k = img.shape[0]
-        n = s.ht * s.wt
-        w_l, h_l = float(s.width), float(s.height)
-        fx = torch.stack([coords_x[..., 0].reshape(k, n),
-                          coords_y[..., 0].reshape(k, n)], 1).to(torch.float32)
-        fy = torch.stack([coords_x[..., 1].reshape(k, n),
-                          coords_y[..., 1].reshape(k, n)], 1).to(torch.float32)
-        u = (fx - w_l * 0.5) / w_l                               # (K, 2, N)
-        v = (fy - h_l * 0.5) / w_l
-        # The X set takes grad_x on the u row, the Y set grad_y on the v row.
-        ju, jv = Hm.jacobian_rows(u, v)                          # (K, 2, N, 8)
-        g = gval.reshape(k, 2, n) * w_l
-        sel = torch.stack([ju[:, 0], jv[:, 1]], 1)
-        jac = (sel * g[..., None]).permute(0, 3, 1, 2).contiguous()
-        coords = torch.stack([fx, fy], 1)                        # (K, 2, 2, N)
-        windows = extract_tile_windows_flat(img, s.tile, s.margin)
-        out.append(LevelKeyDataH(idx_x, idx_y, coords, jac, windows))
-    return tuple(out)
+    (homography_aligner.py:74-113): ``ops.keyframe.keyframe_level`` on each
+    level (kernel I on the card, one launch a level). ``key_imgs``: per
+    level (K, h, w) u8."""
+    return tuple(keyframe_level(img, s, "homography")
+                 for img, s in zip(key_imgs, specs))
 
 
 def normalized_keypoints(key: LevelKeyData, spec: LevelSpec):

@@ -1,6 +1,7 @@
 """Compute ops of the PyTorch port: plain PyTorch, and the hand-written
-CUDA kernels A-H (``warp_kernel``, ``gn_solve``, ``gn8_solve``, ``tvl1``,
-``linalg``'s pseudo-inverse, ``accum``, ``gray``, ``pyr_down``) built from
+CUDA kernels A-I (``warp_kernel``, ``gn_solve``, ``gn8_solve``, ``tvl1``,
+``linalg``'s pseudo-inverse, ``accum``, ``gray``, ``pyr_down``,
+``keyframe``) built from
 ``csrc/`` at first use. The names exported here are those of
 ``video_stabilizer_tpu.ops``."""
 

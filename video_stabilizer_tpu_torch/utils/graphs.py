@@ -121,6 +121,7 @@ def _kernel_wrappers():
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
@@ -128,7 +129,7 @@ def _kernel_wrappers():
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     return (gn_solve, gn8_solve, warp_frames, tvl1_smooth_kernel,
             regularized_pinv_sym4_kernel, accum_scan_kernel,
-            bgr_to_gray_kernel, pyr_down_kernel)
+            bgr_to_gray_kernel, pyr_down_kernel, keyframe_level_kernel)
 
 
 def launch_counts() -> dict:
@@ -438,14 +439,7 @@ class Program:
     def _first_call(self, key, arguments, dyn_names, spec, leaves, dev,
                     backend):
         t0 = time.perf_counter()
-        static_in = []
-        for x in leaves:
-            if isinstance(x, torch.Tensor):
-                buf = torch.empty(x.shape, dtype=x.dtype, device=dev)
-                buf.copy_(x, non_blocking=True)
-                static_in.append(buf)
-            else:
-                static_in.append(None)
+        static_in = _static_inputs(leaves, dev)
         dyn_values = _unflatten(spec, iter(
             [b if b is not None else x for b, x in zip(static_in, leaves)]))
 
@@ -489,6 +483,38 @@ class Program:
             [y.clone() if isinstance(y, torch.Tensor)
              and y.untyped_storage().data_ptr() in in_ptrs else y
              for y in out_leaves]))
+
+
+def _static_inputs(leaves, dev):
+    """A copy on ``dev`` of each tensor leaf (None for the other leaves),
+    all views of one allocation. Static inputs live as long as their key:
+    allocated one by one, a small one could take the tail of a segment that
+    a caller's tensor of the moment fills, and hold the whole segment once
+    that tensor is freed (on the card a 1.5 MB input held a 499 MB segment
+    that way). On the card the cache is emptied first, so that the one
+    allocation gets a segment of its own size, not a larger free one."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    align = 512
+    offsets, total = [], 0
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            offsets.append(total)
+            total += -(-x.numel() * x.element_size() // align) * align
+        else:
+            offsets.append(None)
+    block = torch.empty(total, dtype=torch.uint8, device=dev)
+    bufs = []
+    for x, at in zip(leaves, offsets):
+        if at is None:
+            bufs.append(None)
+            continue
+        size = x.numel() * x.element_size()
+        buf = block[at:at + size].view(x.dtype).view(x.shape)
+        buf.copy_(x, non_blocking=True)
+        bufs.append(buf)
+    return bufs
 
 
 def reset(programs=None):
