@@ -139,21 +139,25 @@ Run from the root of the repository. Phases:
      sums and the whole pyramid's device time (50 ``build_pyramid`` calls
      replayed from a CUDA graph, the gaps between its launches included).
      No single PyTorch call rounds as kernel G does.
- I.  Kernel I (a pyramid level's keyframe precompute: gradients, tile
-     argmax, Jacobian rows, u8 windows; one launch a level over all
+ I.  Kernel I (a keyframe set's precompute: gradients, tile argmax,
+     Jacobian rows, u8 windows; one launch for every level of all the
      keyframes) against its plain version on the card, bit for bit in all
-     five fields (float32 as bits), in both models on every input: (a) the
+     five fields (float32 as bits), in both models on every input, in one
+     launch for all levels and with each level's work list alone: (a) the
      6 levels of a 1080p chunk's 64 keyframes (the odd frames of bench.py's
      content, 8 x 16, through kernels G and H), (b) the 7 levels of a 4K
      chunk's 16 (config 4's content), (c) one 1080p frame (K = 1), (d) the
      zero pyramid of 8 streams (the zero carry), (e) tie-heavy frames
      (flat, stripes, a checkerboard), (f) the ragged chain from 437x1033,
-     (g) the soak's 64x48 and (h) 70,000 8x8 frames. Per level, in the
-     input's path model (homography for (b), similarity otherwise): the
-     wrapper between CUDA events over 50 launches, the device time (50
-     launches replayed from a CUDA graph), the plain version, the byte
-     bound; per input the sums and all levels' launches replayed from a
-     CUDA graph. No single PyTorch call computes this precompute.
+     (g) the soak's 64x48 and (h) 70,000 8x8 frames; and from every other
+     frame of a buffer at an odd address (``align_pairs``' strided view)
+     into rows [8, 8 + K) of a set whose 8 rows before and 2 after stay
+     unchanged. Per level alone, in the input's path model (homography for
+     (b), similarity otherwise): the wrapper between CUDA events over 50
+     launches, the device time (50 launches replayed from a CUDA graph),
+     the plain version, the byte bound; per input the one launch's wrapper
+     and device time beside the levels' sums and the summed bound. No
+     single PyTorch call computes this precompute.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -171,9 +175,10 @@ Run from the root of the repository. Phases:
      motion against the clip's known motion, and the launches: kernel E
      once per level (as B), kernel F once per chunk, kernel G once per
      chunk, kernel H once per level below the first (5 a chunk; 6 at 4K
-     in phase 10) and kernel I once per level a chunk (6; 7 at 4K: the
-     fresh state's zero carry runs before the counts are set to 0). One
-     more chunk, replayed, runs under torch.profiler.
+     in phase 10) and kernel I once a chunk (every level in one launch;
+     the fresh state's zero carry runs before the counts are set to 0).
+     Prints the un-captured keyframe span beside kernel I's first
+     design's. One more chunk, replayed, runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
      selection): the same checks, its stage table beside phase 9's.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
@@ -193,7 +198,7 @@ Run from the root of the repository. Phases:
      (median, min, max, spread) beside the un-captured chunks' of the
      phase, the device-busy share and the copies of 3 replays under
      torch.profiler, and the launches per replay (kernels D, F and G once,
-     E and I once per level, H once per level below the first).
+     E once per level, I once, H once per level below the first).
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
@@ -213,7 +218,7 @@ Run from the root of the repository. Phases:
      outputs, meas and success byte-equal to the un-captured call, the
      first call's values unchanged after the replays; kernels A and B
      launched in every replay, G once, H once per level below the first
-     and I twice per level (the zero carry and the keyframes). Prints the
+     and I twice (the zero carry and the keyframes). Prints the
      first call's, the capture's and
      the instantiation's time, the graph pool, the peak memory, the
      launches per replay and the replays' median and spread beside the
@@ -267,8 +272,8 @@ J10. The chunk programs' memory, and long replay. (a)
      max_displacement 5 / 10 / 20, window margin widened to 22) on 32
      frames of bench.py's content (seed 100) through ``align_clip_impl``
      with (27,) DynAlignParams, launch counts set to 0 before and read
-     after (kernel B once per level for all 27 x 32 items, kernel I twice
-     per level: the zero carry and the keyframes). (a) Kernel B
+     after (kernel B once per level for all 27 x 32 items, kernel I twice:
+     the zero carry and the keyframes). (a) Kernel B
      with per-item thresholds against its plain version at every level:
      converged equal; phase 5's bars on the items whose engines ran the
      same iterations (not the A/B >= 10x check: translation-only content);
@@ -324,8 +329,10 @@ J10. The chunk programs' memory, and long replay. (a)
      package), kernel C never, kernel D once per smoothed window, kernel E
      once per level of every frame, kernel F never (the host's
      accumulator), kernel G once per frame, kernel H once per level
-     below the first of every frame and kernel I once per level of the 24
-     keyframe frames (the odd ones).
+     below the first of every frame and kernel I once for each of the 24
+     keyframe frames (the odd ones; every level in one launch). Prints the
+     un-captured keyframe span, the steady frames' mean beside kernel I's
+     first design's, and a keyframe frame's.
      Prints the per-frame latency (host clock up to each frame's sync;
      median and p90 of frames 12-47) and the
      per-frame stage table from the spans; then 8 more frames, replayed,
@@ -370,8 +377,8 @@ J10. The chunk programs' memory, and long replay. (a)
  J4. ``apps/bench_configs.py --mode latency`` at chain 32, 5 reps: the
      JAX tool's ``run_chain``, 32 align steps captured as one graph
      (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's, H's
-     and I's launches counted through them, I once per level of each
-     chain's 16 keyframe steps; G none: the chain's frames are gray);
+     and I's launches counted through them, I once for each
+     of the chain's 16 keyframe steps; G none: the chain's frames are gray);
      prints its p50 beside the same steps issued one call each.
  P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
      graph has no Python frames): its per-kernel table
@@ -489,6 +496,11 @@ MANY_FRAMES = 70000        # phases G and I: more frames than a grid axis holds
 KEY_NAME = "keyframe"
 KEY_ENTRY = "compute_keyframe"
 KEY_H_ENTRY = "compute_keyframe[homography]"
+# The un-captured keyframe span (ms) of kernel I's first design, a launch a
+# level with the carried keyframes concatenated to the new ones, in the
+# same script on an NVIDIA H100 80GB HBM3 at 700 W: phase 9, phase 10, and
+# S1's mean over its steady frames (0 on the frames without a keyframe).
+KEY_SPAN_BEFORE = {"similarity": 1.74, HOMOGRAPHY: 1.73, "stream": 0.29}
 KEY_REPLACES = "video_stabilizer_tpu/models/aligner.py:163"
 KEY_H_REPLACES = "video_stabilizer_tpu/models/homography_aligner.py:74"
 # Operations of csrc/gray.cu per pixel (3 converts, 3 multiplies, 2 adds,
@@ -695,7 +707,7 @@ def reset_launch_counts():
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
-    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
@@ -703,7 +715,7 @@ def reset_launch_counts():
     warp_kernel.reset_launches()
     for fn in (gn_solve, gn8_solve, tvl1_smooth_kernel,
                regularized_pinv_sym4_kernel, accum_scan_kernel,
-               bgr_to_gray_kernel, pyr_down_kernel, keyframe_level_kernel):
+               bgr_to_gray_kernel, pyr_down_kernel, keyframe_levels_kernel):
         fn.launches = 0
 
 
@@ -713,7 +725,7 @@ def launch_counts() -> dict:
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
-    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
@@ -728,7 +740,7 @@ def launch_counts() -> dict:
                    ACCUM_NAME: accum_scan_kernel.launches,
                    GRAY_NAME: bgr_to_gray_kernel.launches,
                    PYR_NAME: pyr_down_kernel.launches,
-                   KEY_NAME: keyframe_level_kernel.launches})
+                   KEY_NAME: keyframe_levels_kernel.launches})
     return counts
 
 
@@ -2359,16 +2371,67 @@ def tie_frames(dev):
     return torch.stack([flat, stripes, checker]).to(torch.uint8)
 
 
+def strided_odd(levels):
+    """Each level's keyframes as every other frame of a buffer of 2 K + 1
+    frames, starting one byte past an aligned address: ``align_pairs``'
+    view of its odd frames, at an odd address."""
+    out = []
+    for x in levels:
+        keys, h, w = x.shape
+        buf = torch.empty((2 * keys + 1) * h * w + 1, dtype=torch.uint8,
+                          device=x.device)
+        view = buf.as_strided((keys, h, w), (2 * h * w, w, 1), h * w + 1)
+        view.copy_(x)
+        out.append(view)
+    return out
+
+
+# The in-place check's rows: the carried keyframes before the new ones
+# (align_pairs' offset at the 1080p chunk) and guard rows after them.
+KEY_OFFSET, KEY_GUARD = 8, 2
+
+
+def keyframes_in_place(levels, lvl_specs, model, wants):
+    """Kernel I from ``strided_odd(levels)`` into a set whose rows before
+    KEY_OFFSET and after the keyframes hold a byte pattern: (rows [offset,
+    offset + K) bit-equal to ``wants`` in all five fields, the other rows
+    unchanged)."""
+    from video_stabilizer_tpu_torch.ops.keyframe import (
+        LevelKeyData, keyframe_levels_kernel)
+    keys = levels[0].shape[0]
+    out = tuple(LevelKeyData(*(
+        torch.full((KEY_OFFSET + keys + KEY_GUARD,) + f.shape[1:], 0x5A,
+                   dtype=torch.uint8, device=f.device).view(f.dtype)
+        if f.dtype == torch.uint8 else
+        torch.full((KEY_OFFSET + keys + KEY_GUARD,) + f.shape[1:],
+                   0x5A5A5A5A, dtype=torch.int32, device=f.device)
+        .view(f.dtype) for f in w)) for w in wants)
+    before = [[f.clone() for f in o] for o in out]
+    got = keyframe_levels_kernel(strided_odd(levels), lvl_specs, model,
+                                 out=out, offset=KEY_OFFSET)
+    same, untouched = got is out, True
+    for o, b, w in zip(out, before, wants):
+        inside = LevelKeyData(*(f[KEY_OFFSET:KEY_OFFSET + keys] for f in o))
+        same &= key_fields_equal(inside, w)[0]
+        for f, fb in zip(o, b):
+            untouched &= torch.equal(f[:KEY_OFFSET], fb[:KEY_OFFSET])
+            untouched &= torch.equal(f[KEY_OFFSET + keys:],
+                                     fb[KEY_OFFSET + keys:])
+    return same, untouched
+
+
 @phase("I. kernel I: the keyframe precompute vs its plain version, both "
-       "models, every level (the 1080p and 4K chunks, one frame, the zero "
-       "pyramid, ties, ragged levels, the soak's frame, 70,000 frames)")
+       "models, every level in one launch and each level alone (the 1080p "
+       "and 4K chunks, one frame, the zero pyramid, ties, ragged levels, "
+       "the soak's frame, 70,000 frames; strided, in place)")
 def check_keyframe(params, params_4k, dev):
     """See I in the module's docstring. Returns the kernels line's entries
     of kernel I at the 1080p chunk (similarity) and the 4K chunk
     (homography)."""
     from video_stabilizer_tpu_torch.models.aligner import level_specs
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
-    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import (
+        keyframe_level_kernel, keyframe_levels_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 
     plain = PLAIN[KEY_NAME]
@@ -2412,25 +2475,29 @@ def check_keyframe(params, params_4k, dev):
                         dtype=torch.uint8, generator=gen)],
          level_specs(8, 8, params.aligner), "similarity")]
     del key_1080p, ragged
-    log("  kernel I | input | level | K x h x w | model | equal (5 fields) | "
-        "kernel ms | device ms | plain ms | bound ms (bytes) | device / "
-        "bound")
-    entries, all_same, worst = {}, True, 0.0
+    log("  kernel I | input | level | K x h x w | model | equal, one launch "
+        "/ level alone (5 fields) | kernel ms | device ms | plain ms | "
+        "bound ms (bytes) | device / bound   (per level: that level's work "
+        "list alone)")
+    entries, all_same, worst, in_place, untouched = {}, True, 0.0, True, True
     for what, levels, lvl_specs, timed_model in inputs:
         for model in ("similarity", HOMOGRAPHY):
             rows = 4 if model == "similarity" else 8
+            wants = [plain(x, s, model) for x, s in zip(levels, lvl_specs)]
+            got_all = keyframe_levels_kernel(levels, lvl_specs, model)
             totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
-            for level, (x, s) in enumerate(zip(levels, lvl_specs)):
-                got = keyframe_level_kernel(x, s, model)
-                want = plain(x, s, model)
+            for level, (x, s, want, got) in enumerate(
+                    zip(levels, lvl_specs, wants, got_all)):
                 same, err = key_fields_equal(got, want)
-                all_same &= same
-                worst = max(worst, err)
-                del got, want
+                alone, err_alone = key_fields_equal(
+                    keyframe_level_kernel(x, s, model), want)
+                all_same &= same and alone
+                worst = max(worst, err, err_alone)
                 if model != timed_model:
-                    if not same:
+                    if not (same and alone):
                         log(f"  {what} | {level} | {model}: NOT bit-equal "
-                            f"(max |diff| {err})")
+                            f"(one launch {same}, alone {alone}; max |diff| "
+                            f"{max(err, err_alone)})")
                     continue
                 ms = cuda_ms(lambda: keyframe_level_kernel(x, s, model), 50)
                 device_ms = graph_ms(
@@ -2438,26 +2505,33 @@ def check_keyframe(params, params_4k, dev):
                 plain_ms = cuda_ms(lambda: plain(x, s, model), 5)
                 bound_ms, bound_by = key_bound(x, s, rows)
                 log(f"  {what} | {level} | {tuple(x.shape)} | {model} | "
-                    f"{same} | {ms:.4f} | {device_ms:.4f} | {plain_ms:.3f} | "
-                    f"{bound_ms:.4f} ({bound_by}) | "
+                    f"{same} / {alone} | {ms:.4f} | {device_ms:.4f} | "
+                    f"{plain_ms:.3f} | {bound_ms:.4f} ({bound_by}) | "
                     f"{device_ms / bound_ms:.2f}")
                 for k, v in (("ms", ms), ("device_ms", device_ms),
                              ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
                     totals[k] += v
+            del got_all
+            ok_in, ok_out = keyframes_in_place(levels, lvl_specs, model,
+                                               wants)
+            in_place &= ok_in
+            untouched &= ok_out
+            del wants
             if model != timed_model:
                 continue
-            # Every level as the paths run them, 50 keyframe computations
-            # replayed from a CUDA graph (the gaps between launches
-            # included).
-            whole_ms = graph_ms(lambda: [
-                keyframe_level_kernel(x, s, model)
-                for x, s in zip(levels, lvl_specs)], 50)
-            log(f"  {what}, all {len(levels)} levels, {model} | kernel "
-                f"{totals['ms']:.4f} ms | device {totals['device_ms']:.4f} | "
-                f"all levels from a graph {whole_ms:.4f} | plain "
-                f"{totals['plain_ms']:.3f} | bound {totals['bound_ms']:.4f} | "
-                f"device / bound "
-                f"{totals['device_ms'] / totals['bound_ms']:.2f}")
+            # Every level in the one launch the paths run: its wrapper
+            # between CUDA events over 50 launches, and 50 launches
+            # replayed from a CUDA graph.
+            set_ms = cuda_ms(lambda: keyframe_levels_kernel(
+                levels, lvl_specs, model), 50)
+            set_device_ms = graph_ms(lambda: keyframe_levels_kernel(
+                levels, lvl_specs, model), 50)
+            log(f"  {what}, all {len(levels)} levels, {model} | one launch: "
+                f"kernel {set_ms:.4f} ms, device {set_device_ms:.4f} | "
+                f"levels alone: kernel {totals['ms']:.4f}, device "
+                f"{totals['device_ms']:.4f} | plain {totals['plain_ms']:.3f} "
+                f"| bound {totals['bound_ms']:.4f} | one launch's device / "
+                f"bound {set_device_ms / totals['bound_ms']:.2f}")
             if what.startswith("(a)") or what.startswith("(b)"):
                 name = KEY_ENTRY if model == "similarity" else KEY_H_ENTRY
                 entries[name] = dict(
@@ -2465,12 +2539,19 @@ def check_keyframe(params, params_4k, dev):
                     source="video_stabilizer_tpu_torch/csrc/keyframe.cu",
                     replaces=(KEY_REPLACES if model == "similarity"
                               else KEY_H_REPLACES),
-                    bound_by="bytes", library_ms=None, **totals)
+                    bound_by="bytes", library_ms=None, ms=set_ms,
+                    device_ms=set_device_ms, plain_ms=totals["plain_ms"],
+                    bound_ms=totals["bound_ms"])
         del levels
         torch.cuda.empty_cache()
     check(all_same, "kernel I bit-equal to its plain version in idx_x, "
           "idx_y, coords, jac and windows at every level of every input, "
-          f"both models; max |diff| {worst}")
+          "both models, in one launch for all levels and with each level's "
+          f"work list alone; max |diff| {worst}")
+    check(in_place and untouched, "kernel I from every other frame of a "
+          "buffer at an odd address into rows [8, 8 + K) of a set: "
+          f"bit-equal there ({in_place}) at every input, both models, and "
+          f"the 8 rows before and 2 after unchanged ({untouched})")
     log("  kernel I's library: none (no single PyTorch call computes the "
         "keyframe precompute)")
     for entry in entries.values():
@@ -2570,6 +2651,9 @@ def drive_path(frames, params, dev, model="similarity"):
     for k in names:
         log(f"    {k:<22} {mean[k]:9.3f} ms")
     log(f"    {'sum of stages':<22} {sum(mean.values()):9.3f} ms")
+    log(f"  the un-captured keyframe span {mean.get('keyframe', 0.0):.3f} ms "
+        f"(kernel I a launch a level, the carried keyframes concatenated: "
+        f"{KEY_SPAN_BEFORE[model]} ms)")
     log(f"  launches: {launches}")
     ok = np.concatenate(succs, axis=1)
     rate = float(ok.mean())
@@ -2593,7 +2677,7 @@ def main_path(frames, poses, params, dev):
     path_checks_e_f(launches, "gn_solve", CHUNKS)
     path_checks_g_h(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params),
                     "one conversion and one pyramid a chunk")
-    path_checks_i(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params))
+    path_checks_i(launches, CHUNKS)
     known_motion_checks(meas, ok, poses)
     return launches, states, last, stages
 
@@ -2624,16 +2708,15 @@ def path_checks_g_h(launches, calls: int, levels: int, what: str):
           f"{levels - 1} levels below the first)")
 
 
-def path_checks_i(launches, chunks: int, levels: int):
-    """Kernel I once per level of each chunk's keyframes (``align_pairs``:
-    all the chunk's keyframes in one call a level). ``drive_path`` builds
-    the fresh state, whose zero carry computes one more keyframe a level,
-    before it sets the counts to 0."""
-    want = chunks * levels
-    check(launches[KEY_NAME] == want,
-          f"kernel I launched {launches[KEY_NAME]} times (want {want}: once "
-          f"per level of each chunk's keyframes, {chunks} chunks x {levels} "
-          "levels; the zero carry's ran before the counts were set to 0)")
+def path_checks_i(launches, chunks: int):
+    """Kernel I once per chunk (``align_pairs``: all the chunk's keyframes
+    at every level in one launch). ``drive_path`` builds the fresh state,
+    whose zero carry takes one more launch, before it sets the counts to
+    0."""
+    check(launches[KEY_NAME] == chunks,
+          f"kernel I launched {launches[KEY_NAME]} times (want {chunks}: "
+          "once per chunk, every level of its keyframes in one launch; the "
+          "zero carry's ran before the counts were set to 0)")
 
 
 def known_motion_checks(meas, ok, poses):
@@ -2664,7 +2747,7 @@ def main_path_4k(frames, poses, params, dev):
     path_checks_e_f(launches, "gn8_solve", CHUNKS_4K)
     path_checks_g_h(launches, CHUNKS_4K, path_levels(W4K, H4K, params),
                     "one conversion and one pyramid a chunk")
-    path_checks_i(launches, CHUNKS_4K, path_levels(W4K, H4K, params))
+    path_checks_i(launches, CHUNKS_4K)
     # The normalized translation (p2, p5) times W is the motion in px at
     # the frame centre. On such a clip (270x480, jitter 1 px, pan 0.3,
     # seeds 5 and 6, 12 frames, on the CPU) the JAX package's 8-DOF aligner
@@ -2859,10 +2942,9 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
           == per_replay.get(gn, 0) - 1 > 0,
           "kernel G launched once in every replay (the chunk's gray), "
           f"kernel H once per level below the first ({gn} less one)")
-    check(per_replay.get("keyframe_level_kernel", 0)
-          == per_replay.get(gn, -1),
-          f"kernel I launched once per level in every replay (as {gn}: the "
-          "chunk's keyframes; the zero carry is the state's)")
+    check(per_replay.get("keyframe_levels_kernel", 0) == 1,
+          "kernel I launched once in every replay (the chunk's keyframes, "
+          "every level; the zero carry is the state's)")
 
     n = J_STEADY[model]
     walls = []
@@ -3051,10 +3133,9 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
           == per.get((need, None), 0) - 1 > 0,
           "kernel G launched once in every replay (the clip's gray), kernel "
           f"H once per level below the first ({need} less one)")
-    check(per.get(("keyframe_level_kernel", None), 0)
-          == 2 * per.get((need, None), -1),
-          "kernel I launched twice per level in every replay (the clip's "
-          f"zero carry and its keyframes; {need} once per level)")
+    check(per.get(("keyframe_levels_kernel", None), 0) == 2,
+          "kernel I launched twice in every replay (the clip's zero carry "
+          "and its keyframes, every level in one launch each)")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
     return walls
 
@@ -3407,7 +3488,7 @@ def topk_path(frames, poses, params, dev, mask_stages):
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
     path_checks_e_f(launches, "gn_solve", CHUNKS)
-    path_checks_i(launches, CHUNKS, path_levels(WIDTH, HEIGHT, params))
+    path_checks_i(launches, CHUNKS)
     known_motion_checks(meas, ok, poses)
     log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
         "histogram mask (phase 9) | topk")
@@ -3974,10 +4055,10 @@ def aligner_sweep(dev):
           f"kernel B launched once per level ({launches['gn_solve']} of "
           f"{levels}) for all {len(combos)} x {SWEEP_FRAMES} items, one "
           "threshold per item")
-    check(launches[KEY_NAME] == 2 * levels,
-          f"kernel I launched {launches[KEY_NAME]} times (want "
-          f"{2 * levels}: the clip's zero carry and its keyframes, once per "
-          "level each)")
+    check(launches[KEY_NAME] == 2,
+          f"kernel I launched {launches[KEY_NAME]} times (want 2: the "
+          "clip's zero carry and its keyframes, every level in one launch "
+          "each)")
 
     log("  (a) kernel B with per-item thresholds vs its plain version:")
     entry = per_item_b(calls)
@@ -4226,10 +4307,10 @@ def homography_sweep(params_4k, dev):
     check(launches["gn8_solve"] == levels and launches["gn_solve"] == 0,
           f"kernel C launched once per level ({launches['gn8_solve']} of "
           f"{levels}) for {c_n} x 8 items, kernel B not")
-    check(launches[KEY_NAME] == 2 * levels,
-          f"kernel I launched {launches[KEY_NAME]} times (want "
-          f"{2 * levels}: the clip's zero carry and its keyframes, once per "
-          "level each)")
+    check(launches[KEY_NAME] == 2,
+          f"kernel I launched {launches[KEY_NAME]} times (want 2: the "
+          "clip's zero carry and its keyframes, every level in one launch "
+          "each)")
     log(f"  sweep {ms:.1f} ms; align success per threshold "
         + ", ".join(f"{t} px {int(ok[c, 1:].sum())}/7"
                     for c, t in enumerate(ITEM_THRESHOLDS)))
@@ -4414,8 +4495,8 @@ def timed_stream(host, poses, params, dev, eager=False):
     want_d = STREAM_FRAMES - params.smoother_memory
     want_h = (levels - 1) * STREAM_FRAMES
     # From a fresh state frame 0 fills buffer 0 and the odd frames are the
-    # keyframe frames, each computing its keyframe a level at a time.
-    want_i = levels * (STREAM_FRAMES // 2)
+    # keyframe frames, each computing its keyframe's levels in one launch.
+    want_i = STREAM_FRAMES // 2
     n_a = launches.get("warp_frames[similarity,bilinear]", 0)
     check(n_a == STREAM_FRAMES - lag and launches["gn_solve"] == want_b
           and launches["gn8_solve"] == 0
@@ -4432,8 +4513,8 @@ def timed_stream(host, poses, params, dev, eager=False):
           "per smoothed window), kernel F 0 (the streaming accumulator is "
           f"the host's), kernel G {STREAM_FRAMES} (one per frame), kernel H "
           f"{want_h} (one per level below the first of every frame), "
-          f"kernel I {want_i} (one per level of the {STREAM_FRAMES // 2} "
-          "keyframe frames)")
+          f"kernel I {want_i} (one per keyframe frame, every level in one "
+          "launch)")
 
     steady = np.asarray(walls[STREAM_STEADY:])
     log(f"  {'un-captured (graphs.eager())' if eager else 'replayed'}: "
@@ -4467,6 +4548,11 @@ def timed_stream(host, poses, params, dev, eager=False):
     log(f"    sum of the top stages      "
         f"{sum(stages.get(k, 0.0) for k in STREAM_TOP):9.3f} ms")
     figures["align"] = stages.get("AlignNextFrame", 0.0)
+    key_runs = [r["keyframe"] for r in runs if "keyframe" in r]
+    log(f"  the un-captured keyframe span, mean of frames {STREAM_STEADY}-"
+        f"{STREAM_FRAMES - 1}, {stages.get('keyframe', 0.0):.3f} ms (kernel I "
+        f"a launch a level: {KEY_SPAN_BEFORE['stream']} ms); "
+        f"{np.mean(key_runs) if key_runs else 0.0:.3f} ms a keyframe frame")
     return dict(launches=launches, levels=levels, stab=stab, meas=meas,
                 ok=ok, outs=outs, figures=figures, walls=walls)
 
@@ -4794,16 +4880,15 @@ def kernels_launched(launches, a_form: str, b: bool, c: bool, levels: int,
                      what: str):
     """Kernel A's form ``a_form``, B and C as ``b`` and ``c`` say, D, G
     with ``levels`` - 1 launches of H for each of its, and I at least
-    ``levels`` times for each G (each chunk's keyframes; each fresh
-    state's zero carry adds ``levels``)."""
+    once for each G (each chunk's keyframes, every level in one launch;
+    each fresh state's zero carry adds one)."""
     check(launches.get(f"warp_frames[{a_form}]", 0) > 0
           and (launches["gn_solve"] > 0) == b
           and (launches["gn8_solve"] > 0) == c
           and launches["tvl1_smooth"] > 0
           and launches[GRAY_NAME] > 0
           and launches[PYR_NAME] == (levels - 1) * launches[GRAY_NAME]
-          and launches[KEY_NAME] >= levels * launches[GRAY_NAME]
-          and launches[KEY_NAME] % levels == 0,
+          and launches[KEY_NAME] >= launches[GRAY_NAME],
           f"{what}: launches {launches}")
 
 
@@ -4893,12 +4978,12 @@ def latency_chain(dev):
           f"{launches[GRAY_NAME]} (the chain's frames are gray already)")
     # Every chain starts from the same fresh state: its odd steps are the
     # keyframe frames (the first step fills buffer 0).
-    want_i = levels * (chain // 2) * (1 + 2 * reps)
+    want_i = (chain // 2) * (1 + 2 * reps)
     check(launches[KEY_NAME] == want_i,
           f"kernel I launched {launches[KEY_NAME]} times (want {want_i}: "
-          f"{levels} levels x the {chain // 2} keyframe steps of each "
-          f"chain, in the first call, {reps} replays and {reps} chains "
-          "issued step by step)")
+          f"one, every level, for each of the {chain // 2} keyframe steps "
+          f"of each chain, in the first call, {reps} replays and {reps} "
+          "chains issued step by step)")
     stats = prog.stats()[0]
     issued = [ln for ln in run_tool.stderr.splitlines()
               if "issued one call each" in ln]

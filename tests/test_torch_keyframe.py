@@ -1,12 +1,13 @@
-"""Kernel I (one pyramid level's keyframe precompute, ``ops/keyframe.py``)
-around its plain version: the plain version, through the port's
-``_compute_keyframe`` and ``_compute_keyframe_h``, against the JAX
-package's jitted functions on a tie-heavy and a textured keyframe of a
-ragged size; the dispatch by device; the wrapper's refusals; and a numpy
-model of ``csrc/keyframe.cu``'s design (its shared-memory layout, packed
-argmax keys and window piece stores) against the plain version. The
-kernel runs only on the card (``chip_smoke.py`` phase I), where it is held
-to the plain version bit for bit."""
+"""Kernel I (a keyframe set's precompute, ``ops/keyframe.py``) around its
+plain version: the plain version, through the port's ``_compute_keyframe``
+and ``_compute_keyframe_h``, against the JAX package's jitted functions on
+a tie-heavy and a textured keyframe of a ragged size; the dispatch by
+device; ``keyframe_levels`` from strided views into a set at an offset;
+the wrapper's refusals; and a numpy model of ``csrc/keyframe.cu``'s design
+(its work list over every level, shared-memory layout, argmax in 4-tile
+words and window piece stores) against the plain version. The kernel runs
+only on the card (``chip_smoke.py`` phase I), where it is held to the
+plain version bit for bit."""
 
 import pathlib
 
@@ -108,23 +109,26 @@ def test_zero_keyframe_ties_at_index_0():
 
 
 def test_cpu_tensors_take_the_plain_version(monkeypatch):
-    """A CPU tensor never reaches the kernel: no build, no launch."""
+    """A CPU tensor never reaches the kernel (``keyframe_level`` or
+    ``keyframe_levels``): no build, no launch."""
     def refuse(name):
         raise AssertionError(f"cuda_build.load({name!r}) on the CPU path")
     monkeypatch.setattr(cuda_build, "load", refuse)
-    before = keyframe.keyframe_level_kernel.launches
+    before = keyframe.keyframe_levels_kernel.launches
     img = _pyramid([natural_image(H, W, seed=3)])[1]
     for model in ("similarity", "homography"):
         got = keyframe.keyframe_level(img, SPECS[1], model)
         want = keyframe.keyframe_level_plain(img, SPECS[1], model)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert keyframe.keyframe_level_kernel.launches == before
+        got = keyframe.keyframe_levels([img], SPECS[1:2], model)[0]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert keyframe.keyframe_levels_kernel.launches == before
 
 
 def test_kernel_wrapper_refuses():
     """Another dtype or rank, the CPU and meta devices, an unknown model:
     the wrapper raises before any build or launch, no fallback."""
-    before = keyframe.keyframe_level_kernel.launches
+    before = keyframe.keyframe_levels_kernel.launches
     spec = SPECS[2]
     img = torch.zeros((2, spec.height, spec.width), dtype=torch.uint8)
     with pytest.raises(ValueError, match="kernel I takes uint8"):
@@ -137,7 +141,7 @@ def test_kernel_wrapper_refuses():
         keyframe.keyframe_level(img.to("meta"), spec, "homography")
     with pytest.raises(ValueError, match="unknown motion model"):
         keyframe.keyframe_level_kernel(img, spec, "affine")
-    assert keyframe.keyframe_level_kernel.launches == before
+    assert keyframe.keyframe_levels_kernel.launches == before
 
 
 def test_source_listed_and_scanned():
@@ -149,89 +153,177 @@ def test_source_listed_and_scanned():
 
 
 # --------------------------------------------------------------------------
+# keyframe_levels: a set of every level, strided input, output in place
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model", ["similarity", "homography"])
+def test_keyframe_levels_strided_into_out(model):
+    """``keyframe_levels`` on the CPU takes ``align_pairs``' every-other-
+    frame views as they are and writes rows [offset, offset + K) of a set
+    that holds carried rows before them and guard rows after: equal to each
+    level's plain version after the carried rows (``torch.cat``), the other
+    rows untouched."""
+    frames = _pyramid([_tie_heavy(H, W), natural_image(H, W, seed=7),
+                       natural_image(H, W, seed=8), _tie_heavy(H, W)[::-1]
+                       .copy()])
+    odd = [lv[1::2] for lv in frames]             # keyframe stride 2 h w
+    assert not odd[0].is_contiguous()
+    carried = keyframe.keyframe_levels([lv[:1] for lv in frames], SPECS,
+                                       model)
+    guard = 2
+    out = tuple(keyframe.LevelKeyData(*(
+        torch.full((1 + len(odd[0]) + guard,) + f.shape[1:], 7,
+                   dtype=f.dtype) for f in c)) for c in carried)
+    for o, c in zip(out, carried):
+        for a, b in zip(o, c):
+            a[:1].copy_(b)
+    before = [[f.clone() for f in o] for o in out]
+    got = keyframe.keyframe_levels(odd, SPECS, model, out=out, offset=1)
+    assert got is out
+    for o, c, b, lv, spec in zip(out, carried, before, odd, SPECS):
+        want = keyframe.keyframe_level_plain(lv.contiguous(), spec, model)
+        for f, fc, fb, fw in zip(o, c, b, want):
+            assert torch.equal(f[:-guard], torch.cat([fc, fw]))
+            assert torch.equal(f[-guard:], fb[-guard:])
+
+
+def test_keyframe_levels_refuses():
+    """Rows that are not contiguous, and an ``out`` of the wrong extent,
+    dtype or length, raise before anything is written."""
+    img = _pyramid([natural_image(H, W, seed=3)] * 2)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        keyframe.keyframe_levels_kernel(
+            [img[0].repeat_interleave(2, dim=2)[:, :, ::2]], [SPECS[0]])
+    good = keyframe.keyframe_levels(img, SPECS)
+    short = tuple(keyframe.LevelKeyData(*(f[:1] for f in kd))
+                  for kd in good)
+    with pytest.raises(ValueError, match="cannot take rows"):
+        keyframe.keyframe_levels(img, SPECS, out=short)
+    with pytest.raises(ValueError, match="cannot take rows"):
+        keyframe.keyframe_levels(img, SPECS, out=good, offset=1)
+    wrong = tuple(kd._replace(jac=kd.jac.double()) for kd in good)
+    with pytest.raises(ValueError, match="out.jac"):
+        keyframe.keyframe_levels(img, SPECS, out=wrong)
+    with pytest.raises(ValueError, match="levels"):
+        keyframe.keyframe_levels(img, SPECS, out=good[:1])
+
+
+# --------------------------------------------------------------------------
 # A numpy model of csrc/keyframe.cu's design
 # --------------------------------------------------------------------------
 
-MAX_SPAN, SPLIT_SPAN, SMEM_TARGET, PAD = 64, 32, 48 * 1024, 16
+MAX_SPAN, SPLIT_SPAN, SMEM_TARGET, PAD, SLACK = 64, 32, 44 * 1024, 16, 64
 
 
 def _plan(wt, t, m):
-    """(span, spans, jw, shared bytes) as ``vs_keyframe`` picks them: the
-    band of P rows x t phase lines of jw bytes after PAD bytes, then the
-    argmax's two int keys per column."""
+    """(span, spans, jw, shared bytes) as ``plan_level`` picks them: PAD
+    bytes, the band of P rows x t phase lines of jw bytes, SLACK, the
+    argmax's two 16-bit keys per column, SLACK."""
+    p = t + 2 * m
     spans = -(-wt // SPLIT_SPAN) if wt > MAX_SPAN else 1
     while True:
         span = -(-wt // spans)
         jw = (span + (2 * m - 1) // t + 1 + 3) & ~3
         if (jw // 4) % 2 == 0:
             jw += 4
-        keys_at = (PAD + (t + 2 * m) * t * jw + 24 + 15) & ~15
-        smem = keys_at + 8 * t * span
+        keys_at = (PAD + p * t * jw + SLACK + 15) & ~15
+        smem = keys_at + 4 * t * span + SLACK
         if smem <= SMEM_TARGET or span == 1:
             return span, -(-wt // span), jw, smem
         spans += 1
 
 
-def _model_level(img, spec, win_base):
-    """idx_x, idx_y and the flat windows (written into a buffer whose
-    windows start ``win_base`` bytes past an aligned address) of one level
-    as the kernel's blocks make them, block by block; within a block the
-    lanes' work is vectorized."""
-    keys, h, w = img.shape
-    t, m, ht, wt = spec.tile, spec.margin, spec.ht, spec.wt
+def _work_list(specs, keys):
+    """The launch's items in block order, as ``vs_keyframe_levels``
+    numbers them: (level, keyframe, tile row, first tile, tiles), level 0's
+    first."""
+    items = []
+    for lvl, s in enumerate(specs):
+        span, spans, _, _ = _plan(s.wt, s.tile, s.margin)
+        k, i, sp = np.meshgrid(np.arange(keys), np.arange(s.ht),
+                               np.arange(spans), indexing="ij")
+        j0 = (sp * span).ravel()
+        items.append(np.stack([np.full(j0.size, lvl), k.ravel(), i.ravel(),
+                               j0, np.minimum(span, s.wt - j0)], 1))
+    return np.concatenate(items)
+
+
+def _model_item(img, spec, item):
+    """One item as a block runs it: its band in the phase-split layout
+    (edge-clamped), the argmax's 16-bit column keys over 4 tiles a word,
+    the tiles' largest full keys. Returns (idx_x, idx_y of the item's
+    tiles, the band as a flat buffer with PAD bytes before it)."""
+    _, k, i, j0, nj = (int(v) for v in item)
+    h, w = img.shape[1:]
+    t, m = spec.tile, spec.margin
+    p = t + 2 * m
+    _, _, jw, _ = _plan(spec.wt, t, m)
+    cols = nj * t + 2 * m
+    band = np.zeros((p, t, jw + 8), np.int64)
+    ys = np.clip(i * t - m + np.arange(p), 0, h - 1)
+    xs = np.arange(cols)
+    src = img[k][ys][:, np.clip(j0 * t - m + xs, 0, w - 1)]
+    band[:, xs % t, xs // t] = src
+    line = band.reshape(p * t, jw + 8)
+
+    # Every tile column of the words 4v .. 4v + 3 (tiles past nj read the
+    # band's spare bytes and are dropped), all rows at once.
+    ty = np.arange(t)[:, None, None]
+    tx = np.arange(t)[None, :, None]
+    jr = np.arange(4 * -(-nj // 4))[None, None, :]
+
+    def at(y, q):
+        return line[y * t + q % t, q // t + jr]
+    dx = np.abs(at(m + ty, m + tx + 1) - at(m + ty, m + tx - 1))
+    dy = np.abs(at(m + ty + 1, m + tx) - at(m + ty - 1, m + tx))
+    idx = np.zeros((2, nj), np.int64)
+    for axis, d in enumerate((dx, dy)):
+        key16 = ((d << 5) | (31 - ty)).max(axis=0)          # (tx, tiles)
+        full = ((key16 >> 5) << 11) | (
+            (1023 - ((31 - (key16 & 31)) * t + tx[0])) << 1)
+        idx[axis] = 1023 - ((full.max(axis=0)[:nj] >> 1) & 1023)
+    flat = np.concatenate([np.zeros(PAD, np.int64), band[..., :jw].ravel(),
+                           np.zeros(SLACK, np.int64)])
+    return idx, flat
+
+
+def _model_windows(flat, spec, item, wins, win_base):
+    """The item's window pieces, stored into the flat buffer ``wins`` whose
+    windows start ``win_base`` bytes past an aligned address: slot (q, s)
+    stores the s-th aligned piece run q touches, from the band."""
+    _, k, i, j0, nj = (int(v) for v in item)
+    t, m = spec.tile, spec.margin
     p, n = t + 2 * m, spec.ht * spec.wt
-    span, spans, jw, _ = _plan(wt, t, m)
+    span, _, jw, _ = _plan(spec.wt, t, m)
     piece = 16 if t >= 8 else 4
     smax = max(2, (span + 2 * piece - 2) // piece)
-    idx = np.full((2, keys, ht, wt), -1, np.int64)
-    buf = np.full(win_base + keys * p * p * n + 8, 0xAB, np.uint8)
-    ty, tx = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
-    flat = ty * t + tx
-    q_pl = np.arange(p * p)
-    r_pl, c_pl = q_pl // p, q_pl % p
-    for k in range(keys):
-        for i in range(ht):
-            for sp in range(spans):
-                j0 = sp * span
-                nj = min(span, wt - j0)
-                # The band in the phase-split layout, with the PAD bytes
-                # before it that the funnel reads may touch.
-                cols = nj * t + 2 * m
-                band = np.zeros(PAD + p * t * jw + 24, np.int64)
-                ys = np.clip(i * t - m + np.arange(p), 0, h - 1)
-                xs = np.arange(cols)
-                src = img[k][ys][:, np.clip(j0 * t - m + xs, 0, w - 1)]
-                off = (np.arange(p)[:, None] * t + xs % t) * jw + xs // t
-                band[PAD + off] = src
-                line = band[PAD:]
-                # The argmax: a thread walks a column's t rows, a tile takes
-                # the largest of its columns' packed keys.
-                jr = np.arange(nj)[:, None, None]
-                row = ((m + ty) * t * jw)[None]
+    q = np.arange(p * p)
+    r, c = q // p, q % p
+    run = win_base + (k * p * p + q) * n + i * spec.wt + j0
+    off = PAD + (r * t + c % t) * jw + c // t
+    lo = piece * np.arange(smax)[None, :] - (run & (piece - 1))[:, None]
+    pos = lo[..., None] + np.arange(piece)
+    keep = (lo[..., None] < nj) & (pos >= 0) & (pos < nj)
+    dst = run[:, None, None] + pos
+    wins[dst[keep]] = flat[(off[:, None, None] + pos)[keep]]
 
-                def at(dq, drow):
-                    q = m + tx + dq
-                    return line[row + drow + (q % t) * jw + q // t + jr]
-                for axis, d in enumerate((at(1, 0) - at(-1, 0),
-                                          at(0, t * jw) - at(0, -t * jw))):
-                    key = (np.abs(d) << 11) | ((1023 - flat) << 1) | (d < 0)
-                    best = key.reshape(nj, -1).max(axis=1)
-                    idx[axis, k, i, j0:j0 + nj] = 1023 - ((best >> 1) & 1023)
-                # The windows: slot (q, s) stores the s-th aligned piece run
-                # q touches, its bytes from the band at PAD + run_off + lo.
-                run = win_base + (k * p * p + q_pl) * n + i * wt + j0
-                run_off = (r_pl * t + c_pl % t) * jw + c_pl // t
-                lo = piece * np.arange(smax)[None, :] \
-                    - (run & (piece - 1))[:, None]
-                pos = lo[..., None] + np.arange(piece)         # (q, s, byte)
-                keep = (lo[..., None] < nj) & (pos >= 0) & (pos < nj)
-                dst = run[:, None, None] + pos
-                srcb = PAD + run_off[:, None, None] + pos
-                buf[dst[keep]] = band[srcb[keep]]
-    wins = buf[win_base:win_base + keys * p * p * n].reshape(keys, p, p, n)
-    assert (buf[:win_base] == 0xAB).all() and (
-        buf[win_base + wins.size:] == 0xAB).all()
-    return idx, wins
+
+def _model_level(img, spec, win_base):
+    """idx_x, idx_y and the windows of one level's work list, item by
+    item."""
+    keys = img.shape[0]
+    p, n = spec.tile + 2 * spec.margin, spec.ht * spec.wt
+    idx = np.full((2, keys, spec.ht, spec.wt), -1, np.int64)
+    wins = np.full(win_base + keys * p * p * n + 8, 0xAB, np.int64)
+    for item in _work_list([spec], keys):
+        ij, flat = _model_item(img, spec, item)
+        _, k, i, j0, nj = item
+        idx[:, k, i, j0:j0 + nj] = ij
+        _model_windows(flat, spec, item, wins, win_base)
+    body = wins[win_base:win_base + keys * p * p * n]
+    assert (wins[:win_base] == 0xAB).all() and (
+        wins[win_base + body.size:] == 0xAB).all()
+    return idx, body.reshape(keys, p, p, n)
 
 
 WIDE = aligner.LevelSpec(1300, 45, 10, 130, 4, 6)   # 5 spans, 16-byte pieces
@@ -239,11 +331,12 @@ WIDE = aligner.LevelSpec(1300, 45, 10, 130, 4, 6)   # 5 spans, 16-byte pieces
 
 @pytest.mark.parametrize("level, base", [(0, 1), (1, 2), (2, 3), (3, 5)])
 def test_kernel_design_model_matches_plain(level, base):
-    """The kernel's band layout, packed argmax keys and piece stores, run
-    in numpy on tie-heavy and textured keyframes, rebuild the plain
-    version's indices and windows bit for bit, at an unaligned window base:
-    this file's three levels (tiles 4 and 2, 4-byte pieces) and a wide
-    level in spans of 32 tiles (tile 10, 16-byte pieces)."""
+    """The kernel's phase-split band, its argmax in 4-tile words (16-bit
+    column keys: |d| << 5 | 31 - row, then the tiles' full keys) and its
+    piece stores, run in numpy on tie-heavy and textured keyframes, rebuild
+    the plain version's indices and windows bit for bit, at an unaligned
+    window base: this file's three levels (tiles 4 and 2, 4-byte pieces)
+    and a wide level in spans of 32 tiles (tile 10, 16-byte pieces)."""
     if level < len(SPECS):
         levels = _pyramid([_tie_heavy(H, W), natural_image(H, W, seed=5)])
         img, spec = levels[level], SPECS[level]
@@ -252,7 +345,7 @@ def test_kernel_design_model_matches_plain(level, base):
         img = torch.from_numpy(np.stack([
             _tie_heavy(spec.height, spec.width),
             natural_image(spec.height, spec.width, seed=6)]))
-    idx, wins = _model_level(img.numpy(), spec, base)
+    idx, wins = _model_level(img.numpy().astype(np.int64), spec, base)
     want = keyframe.keyframe_level_plain(img, spec)
     np.testing.assert_array_equal(idx[0], want.idx_x.numpy())
     np.testing.assert_array_equal(idx[1], want.idx_y.numpy())
@@ -260,15 +353,54 @@ def test_kernel_design_model_matches_plain(level, base):
 
 
 def test_plan_spans_and_pitch():
-    """A tile row of up to 64 tiles is one block, a wider one splits into
-    spans of up to 32 (the chunks' level 0: 3 spans at 1080p, 6 at 4K),
-    more where the band and keys would pass 48 KB (margin 22), and every
-    line pitch is an odd number of words."""
+    """A tile row of up to 64 tiles is one item unless it would pass 44 KB
+    of shared memory, a wider one splits into spans of up to 32 (the
+    chunks' level 0: 3 spans at 1080p, 6 at 4K); the 1080p chain's level 1
+    is one item a row, every level fits SMEM_TARGET (the 5 blocks an SM
+    that 48 registers allow), and every line pitch is an odd number of
+    words."""
     assert _plan(192, 20, 6)[:3] == (32, 6, 36)
     assert _plan(96, 20, 6)[:3] == (32, 3, 36)
     assert _plan(48, 20, 6)[:3] == (48, 1, 52)
     assert _plan(60, 2, 12)[:3] == (60, 1, 76)
     span, spans, _, smem = _plan(48, 20, 22)
     assert spans == 2 and smem <= SMEM_TARGET
+    for s in aligner.level_specs(1920, 1080, AlignerParams()):
+        assert _plan(s.wt, s.tile, s.margin)[3] <= SMEM_TARGET
     for wt, t, m in ((192, 20, 6), (51, 20, 6), (30, 2, 12), (250, 6, 22)):
         assert (_plan(wt, t, m)[2] // 4) % 2 == 1
+
+
+def _spec_sets():
+    """The work lists of phase I's path inputs: the 1080p chunk's 64
+    keyframes, the 4K chunk's 16, one 1080p frame, the ragged chain from
+    437x1033 (3 keyframes) and 70,000 8x8 frames."""
+    p = AlignerParams()
+    return {"1080p chunk": (aligner.level_specs(1920, 1080, p), 64),
+            "4K chunk": (aligner.level_specs(3840, 2160, p), 16),
+            "one frame": (aligner.level_specs(1920, 1080, p), 1),
+            "ragged 437x1033": (aligner.level_specs(1033, 437, p), 3),
+            "70,000 8x8 frames": (aligner.level_specs(8, 8, p), 70_000)}
+
+
+@pytest.mark.parametrize("name", list(_spec_sets()))
+def test_work_list_covers_each_tile_once(name):
+    """The one launch's work list covers each (level, keyframe, tile)
+    exactly once, level 0's items first and the levels in order; the
+    persistent blocks (item b, b + grid, ...) take every item once at a
+    grid of 4 blocks on each of 132 SMs."""
+    specs, keys = _spec_sets()[name]
+    items = _work_list(specs, keys)
+    assert (np.diff(items[:, 0]) >= 0).all() and items[0, 0] == 0
+    for lvl, s in enumerate(specs):
+        mine = items[items[:, 0] == lvl]
+        cover = np.zeros((keys, s.ht, s.wt + 1), np.int64)
+        starts = mine[:, 1] * s.ht * (s.wt + 1) + mine[:, 2] * (s.wt + 1)
+        flat = cover.reshape(-1)
+        np.add.at(flat, starts + mine[:, 3], 1)
+        np.add.at(flat, starts + mine[:, 3] + mine[:, 4], -1)
+        assert (np.cumsum(cover, axis=2)[..., :s.wt] == 1).all()
+    grid = min(len(items), 4 * 132)
+    taken = np.concatenate([np.arange(b, len(items), grid)
+                            for b in range(grid)])
+    assert np.array_equal(np.sort(taken), np.arange(len(items)))

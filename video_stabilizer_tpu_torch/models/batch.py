@@ -64,6 +64,7 @@ from video_stabilizer_tpu_torch.ops.accum import (  # noqa: F401 (re-export)
     accum_scan, fold_jitter)
 from video_stabilizer_tpu_torch.ops.fast_warp import (
     warp_homography_fast, warp_image_fast)
+from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
 from video_stabilizer_tpu_torch.utils.graphs import Program
@@ -167,13 +168,18 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
                  for lv in levels]
     pyr_b = [lv[:, 1::2] for lv in levels]
     with span("keyframe"):
-        key_b = ops["compute_keyframe"](
-            [lv.reshape((s_n * p_n,) + lv.shape[2:]) for lv in pyr_b], specs)
         # Keyframes: the S carried ones, then the S*P new ones
-        # (stream-major).
+        # (stream-major), each level's set allocated whole; kernel I writes
+        # the new ones in place from the odd frames' strided views.
         key_all = tuple(
-            LevelKeyData(*(torch.cat([c, n], dim=0) for c, n in zip(ck, nk)))
-            for ck, nk in zip(carry.key, key_b))
+            LevelKeyData(*(c.new_empty((s_n + s_n * p_n,) + c.shape[1:])
+                           for c in ck))
+            for ck in carry.key)
+        torch._foreach_copy_([a[:s_n] for ka in key_all for a in ka],
+                             [c for ck in carry.key for c in ck])
+        keyframe_levels(
+            [lv.reshape((s_n * p_n,) + lv.shape[2:]) for lv in pyr_b], specs,
+            model, out=key_all, offset=s_n)
 
     s_idx = torch.arange(s_n, device=dev)[:, None]
     p_idx = torch.arange(p_n, device=dev)[None, :]
@@ -212,9 +218,9 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
     ok = torch.stack([ok_a, ok_b], dim=-1).reshape(lead + (s_n, t_n))
 
     last = tuple(
-        LevelKeyData(*(f.reshape((s_n, p_n) + f.shape[1:])[:, -1].contiguous()
-                       for f in kd))
-        for kd in key_b)
+        LevelKeyData(*(f[s_n:].reshape((s_n, p_n) + f.shape[1:])[:, -1]
+                       .contiguous() for f in kd))
+        for kd in key_all)
     new_carry = PairCarry(
         key_pyr=tuple(lv[:, -1].contiguous() for lv in pyr_b), key=last)
     return new_carry, meas, ok

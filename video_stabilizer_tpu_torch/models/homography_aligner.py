@@ -36,7 +36,7 @@ from video_stabilizer_tpu_torch.models.batch import (
     stabilize_clip, stabilize_clip_core, stabilize_streams, warp_delayed)
 from video_stabilizer_tpu_torch.ops.gn8_solve import (
     gn8_solve, warp_rel_positions_h)
-from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level
+from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels
 from video_stabilizer_tpu_torch.ops.linalg import regularized_pinv_sym4
 from video_stabilizer_tpu_torch.ops.patches import (
     sample_windows_flat, window_origins_flat)
@@ -50,11 +50,10 @@ LevelKeyDataH = LevelKeyData
 def _compute_keyframe_h(key_imgs, specs):
     """Per level: gradients, per-tile argmax, the (K, 8, 2, N) Jacobian
     rows in normalized coordinates and the u8 windows
-    (homography_aligner.py:74-113): ``ops.keyframe.keyframe_level`` on each
-    level (kernel I on the card, one launch a level). ``key_imgs``: per
-    level (K, h, w) u8."""
-    return tuple(keyframe_level(img, s, "homography")
-                 for img, s in zip(key_imgs, specs))
+    (homography_aligner.py:74-113): ``ops.keyframe.keyframe_levels`` over
+    every level (kernel I on the card, one launch for all levels).
+    ``key_imgs``: per level (K, h, w) u8."""
+    return keyframe_levels(list(key_imgs), specs, "homography")
 
 
 def normalized_keypoints(key: LevelKeyData, spec: LevelSpec):

@@ -121,7 +121,7 @@ def _kernel_wrappers():
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
     from video_stabilizer_tpu_torch.ops.gray import bgr_to_gray_kernel
-    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_level_kernel
+    from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
@@ -129,7 +129,7 @@ def _kernel_wrappers():
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     return (gn_solve, gn8_solve, warp_frames, tvl1_smooth_kernel,
             regularized_pinv_sym4_kernel, accum_scan_kernel,
-            bgr_to_gray_kernel, pyr_down_kernel, keyframe_level_kernel)
+            bgr_to_gray_kernel, pyr_down_kernel, keyframe_levels_kernel)
 
 
 def launch_counts() -> dict:
