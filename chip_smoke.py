@@ -12,9 +12,10 @@ Run from the root of the repository. Phases:
      kernels B and C, both of kernel D (the wavefront for windows of up
      to 32, one thread a row beyond), both of kernels E (n = 4 one
      thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8), kernel
-     G's one, H's two (its narrow and wide engines) and I's one must
-     report no spills and a 0-byte stack frame (kernel E: 32 bytes, the
-     CUDA math library's sinf / cosf argument-reduction buffer).
+     G's one, H's two (its narrow and wide engines), I's one and J's two
+     (R = 4 and 8 Jacobian rows) must report no spills and a 0-byte stack
+     frame (kernel E: 32 bytes, the CUDA math library's sinf / cosf
+     argument-reduction buffer).
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
      the card as on the CPU (the tests hold the CPU's to the JAX package's).
   3. Drive the 1080p similarity path over two chunks to capture real
@@ -158,6 +159,37 @@ Run from the root of the repository. Phases:
      the plain version, the byte bound; per input the one launch's wrapper
      and device time beside the levels' sums and the summed bound. No
      single PyTorch call computes this precompute.
+ SEL. Kernel J (select's warp-diff prelude of a level: the template
+     intensities, the Lanczos2 warp diffs at the incoming transform, the
+     histogram keep-mask, the masked Jacobian and the Hessian; one launch
+     a level, either model) against its plain version on the card, on the
+     calls phases 3 and 6 recorded: (a) the 1080p chunk's 6 levels
+     (similarity, 128 items), (b) the 4K chunk's 7 (homography, 32
+     items), (c) one streaming item (each 1080p level's first, on its own
+     keyframe), (d) G1's sweep (its align un-captured, 864 items a level,
+     one keep fraction each) and (e) edge inputs in both models: ties
+     (every diff 7), keep fractions 0, 1, 1.5, -0.5 and 0.5 per item,
+     diffs in the overflow bin (windows of 255 under the positive tap
+     weights at half-pixel positions), positions pushed onto the clamp,
+     and ragged N (a 437x1033 chain's finest and coarsest levels). The
+     kernel also writes its warp diffs (a debug output, off on the paths).
+     Bars: tmpl bit-equal; jac_masked equal to jac * mask (x 0.5 for the
+     similarity) bit for bit, the mask histogram_mask's on the kernel's
+     own diffs; those diffs within 2^-10 of the plain version's (the two
+     add the taps in other orders); each mask entry that differs from the
+     plain version's counted and printed, and each lies within that gap
+     of an integer or in a row where such an entry's bin moved; the
+     Hessian within 1.2e-7 of a float64 sum of the same masked products,
+     relative to the sum of their magnitudes (float32 products summed in
+     float64 and rounded once stay within 2^-23; a float32 running sum
+     does not), and symmetric; two launches byte-equal. Per level of (a)
+     and (b): the launch plan, the wrapper between CUDA events over 50
+     launches, the device time (50 launches replayed from a CUDA graph),
+     the plain version, the byte bound (each input read once: a
+     keyframe's coords, jac and idx once for each keyframe in use, the 16
+     taps and the outputs for each item) and the taps counted as 32-byte
+     sectors; and each chunk's sums. No single PyTorch call computes this
+     prelude.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -175,12 +207,16 @@ Run from the root of the repository. Phases:
      motion against the clip's known motion, and the launches: kernel E
      once per level (as B), kernel F once per chunk, kernel G once per
      chunk, kernel H once per level below the first (5 a chunk; 6 at 4K
-     in phase 10) and kernel I once a chunk (every level in one launch;
-     the fresh state's zero carry runs before the counts are set to 0).
+     in phase 10), kernel I once a chunk (every level in one launch;
+     the fresh state's zero carry runs before the counts are set to 0)
+     and kernel J once per level (as B).
      Prints the un-captured keyframe span beside kernel I's first
      design's. One more chunk, replayed, runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
-     selection): the same checks, its stage table beside phase 9's.
+     selection): the same checks, its stage table beside phase 9's. Its
+     select runs the plain prelude by setting (kernel J takes the
+     histogram selection only): kernel J launched never, the plain
+     version's calls printed and not counted as a path's fallback.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
      against the gather oracle (ops/warp.py) on phase 9's 128 delayed
      frames and corrections and on 8 of them at integer translations
@@ -198,7 +234,7 @@ Run from the root of the repository. Phases:
      (median, min, max, spread) beside the un-captured chunks' of the
      phase, the device-busy share and the copies of 3 replays under
      torch.profiler, and the launches per replay (kernels D, F and G once,
-     E once per level, I once, H once per level below the first).
+     E and J once per level, I once, H once per level below the first).
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
@@ -273,7 +309,8 @@ J10. The chunk programs' memory, and long replay. (a)
      frames of bench.py's content (seed 100) through ``align_clip_impl``
      with (27,) DynAlignParams, launch counts set to 0 before and read
      after (kernel B once per level for all 27 x 32 items, kernel I twice:
-     the zero carry and the keyframes). (a) Kernel B
+     the zero carry and the keyframes, kernel J once per level, one keep
+     fraction per item). (a) Kernel B
      with per-item thresholds against its plain version at every level:
      converged equal; phase 5's bars on the items whose engines ran the
      same iterations (not the A/B >= 10x check: translation-only content);
@@ -299,8 +336,9 @@ J10. The chunk programs' memory, and long replay. (a)
      byte-equal f32, the out/in ratios equal G1 (d)'s; timed.
  G2 path. 8 frames of config 4's content through ``align_clip_impl`` with
      model="homography" and the three thresholds as (3,) DynAlignParams,
-     launch counts set to 0 before and read after: kernel C once per level,
-     kernel I twice, kernel B never; the 0.02 px combo against the run
+     launch counts set to 0 before and read after: kernels C and J once
+     per level, kernel I twice, kernel B never; the 0.02 px combo against
+     the run
      without ``dyn``: ok equal, >= 6 of 7 frames aligned.
  G3. The apps' pipeline at 1080p without cv2: 32 frames of bench.py's
      content written as a .y4m, read back bit-equal through
@@ -326,8 +364,8 @@ J10. The chunk programs' memory, and long replay. (a)
      alignable frames, TX/TY against the known motion (phase 9's bars),
      and the launches: kernel A once per output, kernel B once per level
      of every frame (the first frame runs the level loop, as in the JAX
-     package), kernel C never, kernel D once per smoothed window, kernel E
-     once per level of every frame, kernel F never (the host's
+     package), kernel C never, kernel D once per smoothed window, kernels E
+     and J once per level of every frame, kernel F never (the host's
      accumulator), kernel G once per frame, kernel H once per level
      below the first of every frame and kernel I once for each of the 24
      keyframe frames (the odd ones; every level in one launch). Prints the
@@ -365,10 +403,12 @@ J10. The chunk programs' memory, and long replay. (a)
      JSON line parses with its metric string and the card's name, the
      align success >= 0.9, and the launch counts show kernels A, B, D and
      G launched, H 5 times for each G, I at least 6 times for each G (a
-     whole number of levels: each fresh state's zero carry adds 6), C not.
+     whole number of levels: each fresh state's zero carry adds 6), J as
+     often as B, C not.
  P2. ``apps/bench_configs.py``'s ``bench_4k`` at 2 streams, 3 reps:
      kernels A, C, D and G launched, H 6 times and I at least 7 for each
-     G, B not; success >= 0.9 on the frames after each stream's first.
+     G, J as often as C, B not; success >= 0.9 on the frames after each
+     stream's first.
  P3. The latency modes, shortened: ``bench_latency`` (chain 16, 3 reps;
      the chain replayed as one captured graph),
      ``bench_latency_chunk2`` (chain 8, 3 reps) and
@@ -376,16 +416,18 @@ J10. The chunk programs' memory, and long replay. (a)
      positive and finite.
  J4. ``apps/bench_configs.py --mode latency`` at chain 32, 5 reps: the
      JAX tool's ``run_chain``, 32 align steps captured as one graph
-     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's, H's
-     and I's launches counted through them, I once for each
+     (``bench_configs.run_chain``: 1 capture, 5 replays, kernel B's, H's,
+     I's and J's launches counted through them, J as B, I once for each
      of the chain's 16 keyframe steps; G none: the chain's frames are gray);
      prints its p50 beside the same steps issued one call each.
  P4. ``apps/profile_chunk.py`` on one un-captured 1080p chunk (a replayed
      graph has no Python frames): its per-kernel table
-     names kernel A's, B's, D's, E's, F's, G's, H's and I's symbols, the
-     smoother's, the pseudo-inverse's, the accumulator's, the gray
-     conversion's, the pyramid's and the keyframe's kernels and device
-     time per chunk are printed, ``--parse-only`` reprints the same
+     names kernel A's, B's, D's, E's, F's, G's, H's, I's and J's symbols
+     (J's ``prelude_kernel``: profile_chunk's ``HAND_KERNELS`` line charges
+     select's device time to it), the hand kernels' line, the smoother's,
+     the pseudo-inverse's, the accumulator's, the gray conversion's, the
+     pyramid's, the keyframe's and select's kernels and device time per
+     chunk are printed, ``--parse-only`` reprints the same
      totals from the saved trace, and ``--by-source`` puts over 90 % of
      the device time on frames under ``video_stabilizer_tpu_torch/``.
  P5. The scale-out modules on the card: ``graft_entry.entry()``,
@@ -402,15 +444,16 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(seventeen entries: kernel A's two chunked forms and its one-frame form,
+(nineteen entries: kernel A's two chunked forms and its one-frame form,
 B per chunk, at one item, in its fixed mode at K = 4 (S5's launches) and
 with per-item thresholds (G1's launches), C per chunk and with per-item
 thresholds (the G2 path's launches), D at the 1080p chunk's rows, E at the
 1080p chunk's level 0, F, G, H (summed over its 5 levels) and I's
 similarity form (summed over its 6 levels) at the 1080p chunk (the 1080p
-path's launches), and E's 8x8 form at the 4K chunk's level 0 and I's
-homography form summed over the 4K chunk's 7 levels (the 4K path's
-launches)), the
+path's launches), J's similarity form summed over the 1080p chunk's 6
+levels (the 1080p path's launches), and E's 8x8 form at the 4K chunk's
+level 0 and I's and J's homography forms summed over the 4K chunk's 7
+levels (the 4K path's launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -518,6 +561,41 @@ PYR_OPS_PER_OUTPUT = 11
 # Either way the kernel is byte-bound by two orders of magnitude.
 KEY_OPS_PER_PIXEL = 6
 KEY_OPS_PER_POINT = {4: 18, 8: 32}
+# Kernel J replaces XLA stages, not a Pallas kernel: select's prelude of a
+# level of each model, everything before the GN loop of _align_level and
+# _align_level_h. Its launch count and plain version go by SEL_NAME; the
+# kernels line has one entry per model.
+SEL_NAME = "level_prelude"
+SEL_ENTRY = "level_prelude"
+SEL_H_ENTRY = "level_prelude[homography]"
+SEL_REPLACES = "video_stabilizer_tpu/models/aligner.py:316"
+SEL_H_REPLACES = "video_stabilizer_tpu/models/homography_aligner.py:130"
+# The gap allowed between kernel J's warp diffs and its plain version's:
+# the two add the 16 bf16 tap products and the 4 + 4 tap weights in other
+# orders, a few float32 roundings of values up to about 320.
+SEL_WD_GAP = 2.0 ** -10
+# Kernel J's bytes, by Jacobian rows R, each input read once: per
+# (keyframe in use, set, keypoint) 8 of coords, 4 R of jac and 4 of idx;
+# per (keyframe, template) pair in use and (set, keypoint) the template
+# byte; per (item, set, keypoint) the 16 window taps (at most the
+# keyframe's whole P x P window), and written 4 of tmpl and 4 R of
+# jac_masked. Counted as 32-byte sectors, each tap costs a sector of its
+# own. Its float32 operations per (item, set, keypoint): the position
+# (similarity 10, homography 24 with u and v), clamp and floor 8, eight
+# Lanczos2 weights 128, their normalizer 7, the 4x4 bf16 taps 100, the
+# divide, |sample - tmpl| 2, the bin 2, the mask 2, jac_masked R, and the
+# Hessian's R masked rows and R (R + 1) / 2 products and sums.
+SEL_KEY_BYTES = {4: 28, 8: 44}
+SEL_OUT_BYTES = {4: 20, 8: 36}
+SEL_TAPS = 16
+# Kernel J's Hessian against a float64 sum of the same masked products,
+# relative to the sum of their magnitudes: each float32 product is within
+# 2^-24 of the exact one, and the float64 sum, rounded once to float32,
+# adds 2^-24 more, so a sound kernel stays within 2^-23 (1.19e-7); a
+# float32 running sum of the same products reads up to about 1.7e-7 at
+# the chunks' levels.
+SEL_HESS_BAR = 1.2e-7
+SEL_OPS = {4: 288, 8: 362}
 
 
 # Stack frames a kernel may report beside its 0 spills: kernel E's 32 bytes
@@ -584,20 +662,23 @@ def release_graphs():
 
 
 PLAIN_ON_CARD = {TVL1_NAME: 0, PINV_NAME: 0, ACCUM_NAME: 0, GRAY_NAME: 0,
-                 PYR_NAME: 0, KEY_NAME: 0}
+                 PYR_NAME: 0, KEY_NAME: 0, SEL_NAME: 0}
 PLAIN = {}
 
 
 def count_plain_on_card():
-    """Count the calls of kernel D's, E's, F's, G's, H's and I's plain
+    """Count the calls of kernel D's, E's, F's, G's, H's, I's and J's plain
     versions on a card tensor made through their dispatchers
     (``models.smoother.tvl1_smooth``, ``ops.linalg.regularized_pinv_sym4``,
     ``ops.accum.accum_scan``, ``ops.gray.bgr_to_gray``,
-    ``ops.pyr_down.pyr_down``, ``ops.keyframe.keyframe_level``: every
-    path's). Phases E, G and I call the plain versions kept in ``PLAIN``,
-    which are not counted (phase D calls ``ops.tvl1``'s own)."""
+    ``ops.pyr_down.pyr_down``, ``ops.keyframe.keyframe_level``,
+    ``ops.prelude.level_prelude``: every path's), and J's where that
+    dispatcher takes it by setting (``selection="topk"``). Phases E, G, I and
+    SEL call the plain versions kept in ``PLAIN``, which are not counted
+    (phase D calls ``ops.tvl1``'s own)."""
     from video_stabilizer_tpu_torch.models import smoother
-    from video_stabilizer_tpu_torch.ops import accum, gray, keyframe, linalg
+    from video_stabilizer_tpu_torch.ops import (
+        accum, gray, keyframe, linalg, prelude)
     # ``ops.pyr_down`` is the function (ops/__init__ exports it): the
     # module comes from sys.modules.
     pyr = sys.modules["video_stabilizer_tpu_torch.ops.pyr_down"]
@@ -607,11 +688,14 @@ def count_plain_on_card():
             (ACCUM_NAME, accum, "accum_scan_plain"),
             (GRAY_NAME, gray, "bgr_to_gray_plain"),
             (PYR_NAME, pyr, "pyr_down_plain"),
-            (KEY_NAME, keyframe, "keyframe_level_plain")):
+            (KEY_NAME, keyframe, "keyframe_level_plain"),
+            (SEL_NAME, prelude, "level_prelude_plain")):
         plain = PLAIN.setdefault(name, getattr(module, attr))
 
         def counted(x, *args, _plain=plain, _name=name, **kw):
-            if x.device.type != "cpu":
+            # Kernel J's plain version takes (spec, key, ...).
+            on = args[0].windows if _name == SEL_NAME else x
+            if on.device.type != "cpu":
                 PLAIN_ON_CARD[_name] += 1
             return _plain(x, *args, **kw)
         setattr(module, attr, counted)
@@ -710,12 +794,14 @@ def reset_launch_counts():
     from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
+    from video_stabilizer_tpu_torch.ops.prelude import level_prelude_kernel
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     warp_kernel.reset_launches()
     for fn in (gn_solve, gn8_solve, tvl1_smooth_kernel,
                regularized_pinv_sym4_kernel, accum_scan_kernel,
-               bgr_to_gray_kernel, pyr_down_kernel, keyframe_levels_kernel):
+               bgr_to_gray_kernel, pyr_down_kernel, keyframe_levels_kernel,
+               level_prelude_kernel):
         fn.launches = 0
 
 
@@ -728,6 +814,7 @@ def launch_counts() -> dict:
     from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
+    from video_stabilizer_tpu_torch.ops.prelude import level_prelude_kernel
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
@@ -740,7 +827,8 @@ def launch_counts() -> dict:
                    ACCUM_NAME: accum_scan_kernel.launches,
                    GRAY_NAME: bgr_to_gray_kernel.launches,
                    PYR_NAME: pyr_down_kernel.launches,
-                   KEY_NAME: keyframe_levels_kernel.launches})
+                   KEY_NAME: keyframe_levels_kernel.launches,
+                   SEL_NAME: level_prelude_kernel.launches})
     return counts
 
 
@@ -754,10 +842,10 @@ def build_kernels():
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
     # per block size; D: the wavefront and the any-length one; E: n = 4
     # and 8; F: P = 4 and 8; G: one; H: its narrow and wide engines; I:
-    # one for both models.
+    # one for both models; J: R = 4 and 8.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
                      gn8_solve=len(gn8_solve.THREADS), tvl1=2, jacobi=2,
-                     accum=2, gray=1, pyr_down=2, keyframe=1)
+                     accum=2, gray=1, pyr_down=2, keyframe=1, prelude=2)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -799,6 +887,7 @@ def synth_on_card(dev):
 def capture(params, dev):
     from video_stabilizer_tpu_torch import transforms as T
     from video_stabilizer_tpu_torch.models import aligner, chunked
+    from video_stabilizer_tpu_torch.ops import prelude
     from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve
 
     frames, _ = synth_streams(dev, 2 * CHUNK, GN_CONTENT)
@@ -812,7 +901,9 @@ def capture(params, dev):
             mock.patch.object(aligner, "regularized_pinv_sym4",
                               wraps=aligner.regularized_pinv_sym4) as pinv, \
             mock.patch.object(chunked, "accum_scan",
-                              wraps=chunked.accum_scan) as scan:
+                              wraps=chunked.accum_scan) as scan, \
+            mock.patch.object(prelude, "level_prelude",
+                              wraps=prelude.level_prelude) as sel:
         _, delayed, accums, *_ = chunked.stabilize_chunk_core(
             states, chunk1, params, WIDTH, HEIGHT)
     t_ul = T.center_to_ul(accums, WIDTH, HEIGHT, minus_one=True)
@@ -825,6 +916,7 @@ def capture(params, dev):
                 pinv_calls=[c.args[0] for c in pinv.call_args_list],
                 accum_calls=[(c.args, c.kwargs)
                              for c in scan.call_args_list],
+                sel_calls=[c.args for c in sel.call_args_list],
                 levels=len(aligner.level_specs(WIDTH, HEIGHT,
                                                params.aligner)))
 
@@ -1255,6 +1347,7 @@ def capture_4k(params, dev):
     from video_stabilizer_tpu_torch.models import homography_aligner as ha
     from video_stabilizer_tpu_torch.models.aligner import level_specs
     from video_stabilizer_tpu_torch.models.stabilizer import bgr_to_gray
+    from video_stabilizer_tpu_torch.ops import prelude
     from video_stabilizer_tpu_torch.ops.gn8_solve import gn8_solve
     from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
@@ -1272,10 +1365,13 @@ def capture_4k(params, dev):
             mock.patch.object(ha, "regularized_pinv_sym4",
                               wraps=ha.regularized_pinv_sym4) as pinv, \
             mock.patch.object(chunked, "accum_scan",
-                              wraps=chunked.accum_scan) as scan:
+                              wraps=chunked.accum_scan) as scan, \
+            mock.patch.object(prelude, "level_prelude",
+                              wraps=prelude.level_prelude) as sel:
         _, delayed, accums, *_ = chunked.stabilize_chunk_core(
             states, chunk1, params, W4K, H4K, HOMOGRAPHY)
     calls = [(c.args, c.kwargs) for c in spy.call_args_list]
+    sel_calls = [c.args for c in sel.call_args_list]
     tvl1_calls = [(c.args, c.kwargs) for c in smooth.call_args_list]
     pinv_calls = [c.args[0] for c in pinv.call_args_list]
     accum_calls = [(c.args, c.kwargs) for c in scan.call_args_list]
@@ -1307,7 +1403,7 @@ def capture_4k(params, dev):
                 warp_ts=accums.reshape(-1, 8).contiguous(), gn8_calls=calls,
                 persp_calls=persp, tvl1_calls=tvl1_calls,
                 pinv_calls=pinv_calls, accum_calls=accum_calls,
-                levels=len(specs))
+                sel_calls=sel_calls, levels=len(specs))
 
 
 @phase("kernel A: output warp vs its plain version (4K, homography)")
@@ -2559,6 +2655,346 @@ def check_keyframe(params, params_4k, dev):
     return entries.get(KEY_ENTRY), entries.get(KEY_H_ENTRY)
 
 
+def sel_bound(args):
+    """Kernel J's roofline bound on one level's call (``SEL_KEY_BYTES``):
+    (bound ms, bound_by, the taps counted as 32-byte sectors ms)."""
+    spec, key, kidx, templates, tidx, transform, _, fraction, _ = args
+    n, bsz = spec.ht * spec.wt, kidx.shape[0]
+    p, rows = key.windows.shape[1], key.jac.shape[1]
+    kidx = kidx.long()
+    uses = torch.bincount(kidx, minlength=key.windows.shape[0])
+    taps = float(torch.clamp(uses * 2 * SEL_TAPS, max=p * p).sum()) * n
+    keys = int((uses > 0).sum())
+    pairs = int(torch.unique(kidx * templates.shape[0] + tidx.long())
+                .numel())
+    per_item = bsz * (2 * 8 + 4 * rows + 4 * rows * rows + (
+        4 if isinstance(fraction, torch.Tensor) else 0))
+    total = (2 * n * (keys * SEL_KEY_BYTES[rows] + pairs
+                      + bsz * SEL_OUT_BYTES[rows]) + taps + per_item)
+    ms, by = roofline(total, bsz * 2 * n * SEL_OPS[rows])
+    sectors = total - taps + bsz * 2 * n * SEL_TAPS * 32
+    return ms, by, sectors / HBM_BYTES_PER_S * 1e3
+
+
+def sel_one_item(args, item=0):
+    """One level's kernel J call cut to one item on its own keyframe and
+    template: the streaming step's shape (B = 1, K = 1, M = 1)."""
+    spec, key, kidx, templates, tidx, transform, params, fraction, model = \
+        args
+    from video_stabilizer_tpu_torch.ops.keyframe import LevelKeyData
+    k, m = int(kidx[item]), int(tidx[item])
+    if isinstance(fraction, torch.Tensor) and fraction.dim() == 1:
+        fraction = fraction[item:item + 1]
+    return (spec, LevelKeyData(*(f[k:k + 1] for f in key)),
+            kidx.new_zeros(1), templates[m:m + 1], tidx.new_zeros(1),
+            transform[item:item + 1].contiguous(), params, fraction, model)
+
+
+def sel_compare(args):
+    """Kernel J (with its debug warp-diff output) against its plain version
+    on one level's call. Returns a dict: the bars (tmpl bit-equal, jac_masked
+    = jac * mask of the kernel's own wd bit for bit, the kernel's wd within
+    SEL_WD_GAP of the plain one, every mask entry that differs from the
+    plain version's explained, the Hessian within SEL_HESS_BAR of a float64
+    sum of the kernel's own masked products relative to the sum of their
+    magnitudes, symmetric, two launches byte-equal) and the figures."""
+    from video_stabilizer_tpu_torch.ops.prelude import (
+        level_prelude_kernel, selection_mask)
+    spec, key, kidx, templates, tidx, transform, params, fraction, model = \
+        args
+    got = level_prelude_kernel(*args, return_wd=True)
+    again = level_prelude_kernel(*args, return_wd=True)
+    want = PLAIN[SEL_NAME](*args, return_wd=True)
+    tm, jm, hess, wd = got
+    tm_p, _, _, wd_p = want
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again))
+    gap = float((wd - wd_p).abs().max()) if wd.numel() else 0.0
+    mask = selection_mask(wd, params, fraction)
+    mask_p = selection_mask(wd_p, params, fraction)
+    jac = key.jac[kidx.long()]
+    rows = jac.shape[1]
+    jm_want = jac * (mask * 0.5 if rows == 4 else mask)[:, None]
+    jm_exact = torch.equal(jm.view(torch.int32), jm_want.view(torch.int32))
+    # A mask entry may differ from the plain version's only where a plain
+    # diff lies within the gap of an integer (its bin may differ), or in a
+    # row where such a bin moved (the row's threshold may move with it).
+    differ = mask != mask_p
+    near = (wd_p - torch.round(wd_p)).abs() <= SEL_WD_GAP
+    bins, bins_p = (torch.clamp(torch.floor(x), max=256) for x in (wd, wd_p))
+    moved = (bins != bins_p).any(dim=-1, keepdim=True).expand_as(differ)
+    jm64, j64 = (jac * mask[:, None]).double(), jac.double()
+    h64 = torch.einsum("brsn,bqsn->brq", jm64, j64)
+    mag = torch.einsum("brsn,bqsn->brq", jm64.abs(), j64.abs())
+    hess_rel = float(((hess.double() - h64).abs()
+                      / mag.clamp_min(1e-300)).max()) if hess.numel() else 0.0
+    return dict(
+        tmpl=torch.equal(tm, tm_p), jac_masked=jm_exact, gap=gap,
+        differ=int(differ.sum()), near=int((differ & near).sum()),
+        moved=int((differ & ~near & moved).sum()),
+        unexplained=int((differ & ~near & ~moved).sum()),
+        hess_rel=hess_rel, symmetric=torch.equal(hess, hess.transpose(1, 2)),
+        deterministic=same, kept=float(mask.mean()) if mask.numel() else 0.0,
+        overflow=int((wd >= 256).sum()), entries=wd.numel())
+
+
+def sel_passes(r) -> bool:
+    return (r["tmpl"] and r["jac_masked"] and r["gap"] <= SEL_WD_GAP
+            and r["unexplained"] == 0 and r["hess_rel"] <= SEL_HESS_BAR
+            and r["symmetric"] and r["deterministic"])
+
+
+def sel_row(r) -> str:
+    return (f"tmpl {r['tmpl']}, jac_masked {r['jac_masked']}, wd gap "
+            f"{r['gap']:.3g}, masks != plain {r['differ']} (near an "
+            f"integer {r['near']}, in rows with a moved bin {r['moved']}, "
+            f"else {r['unexplained']}), hess rel {r['hess_rel']:.3g}, "
+            f"symmetric {r['symmetric']}, deterministic "
+            f"{r['deterministic']}; kept {r['kept']:.3f}, overflow "
+            f"{r['overflow']} of {r['entries']}")
+
+
+def sweep_preludes(dev):
+    """Kernel J's calls in G1's sweep (27 combos x 32 frames, 864 items a
+    level, one keep fraction per item): its align, un-captured, with a spy
+    on the dispatcher."""
+    from video_stabilizer_tpu_torch.apps import grid_search_align as gsa
+    from video_stabilizer_tpu_torch.models.batch import align_clip_impl
+    from video_stabilizer_tpu_torch.ops import prelude
+
+    frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
+    gray = torch.from_numpy(gsa.host_gray(frames)).to(dev)
+    base, _ = gsa.widened_aligner()
+    dyn = gsa.dyn_params(gsa.combo_grid(), dev)
+    with mock.patch.object(prelude, "level_prelude",
+                           wraps=prelude.level_prelude) as spy:
+        align_clip_impl(gray, base, WIDTH, HEIGHT, dyn=dyn)
+    return [c.args for c in spy.call_args_list]
+
+
+def sel_lobes(args):
+    """An edge input from one level's call: the first keyframe's windows
+    replaced by 255 under each tap of positive 2-D Lanczos2 weight and 0
+    under the others at positions moved by half a pixel each way (the
+    similarity's (0, 0, 0.5, 0.5), the homography's translation of 0.5 /
+    width), 8 items on it, templates 0 and 255 in turn: diffs of up to
+    about 320, many in the overflow bin."""
+    from video_stabilizer_tpu_torch import transforms as T
+    from video_stabilizer_tpu_torch.ops import gn8_solve, patches
+    from video_stabilizer_tpu_torch.ops.keyframe import LevelKeyData
+    spec, key, kidx, templates, tidx, transform, params, fraction, model = \
+        args
+    dev = key.windows.device
+    one = LevelKeyData(*(f[:1].clone() for f in key))
+    p = one.windows.shape[1]
+    ox, oy = patches.window_origins_flat(spec.ht, spec.wt, spec.tile,
+                                         spec.margin, device=dev)
+    if model == "similarity":
+        t = torch.tensor([[0.0, 0.0, 0.5, 0.5]], device=dev)
+        t_ul = T.center_to_ul(t, spec.width, spec.height)[:, None, None, :]
+        rx, ry = patches.warp_rel_positions_flat(
+            one.coords[:, 0], one.coords[:, 1], t_ul, ox, oy, p)
+    else:
+        t = torch.zeros((1, 8), device=dev)
+        t[0, 2] = t[0, 5] = 0.5 / spec.width
+        u, v = gn8_solve.normalized_keypoints(one, spec)
+        rx, ry = gn8_solve.warp_rel_positions_h(
+            t[:, None, None, :], u, v, spec.width, spec.height, ox, oy, p)
+    win = torch.zeros_like(one.windows[0])
+    n = torch.arange(win.shape[2], device=dev)
+    sign = (-1, 1, 1, -1)
+    for s in range(2):
+        x0 = torch.floor(rx[0, s]).long() - 1
+        y0 = torch.floor(ry[0, s]).long() - 1
+        for a in range(4):
+            for b in range(4):
+                win[y0 + a, x0 + b, n] = 255 if sign[a] * sign[b] > 0 else 0
+    one.windows[0] = win
+    items = 8
+    frames = torch.zeros((2, spec.height, spec.width), dtype=torch.uint8,
+                         device=dev)
+    frames[1] = 255
+    return (spec, one, torch.zeros(items, dtype=torch.int64, device=dev),
+            frames, torch.arange(items, device=dev) % 2,
+            t.expand(items, -1).contiguous(), params, fraction, model)
+
+
+def sel_edges(sim_args, hom_args, ragged, dev):
+    """Phase SEL's edge inputs: (name, call). From a 1080p and a 4K level's
+    call: ties (zero windows, a flat template of 7: every diff 7), keep
+    fractions 0 and 1 (and 1.5, -0.5) per item, the overflow bin
+    (``sel_lobes``), positions pushed onto the clamp; and ragged N (a
+    437x1033 chain's keyframes through the plain keyframe precompute)."""
+    from video_stabilizer_tpu_torch.ops.keyframe import LevelKeyData
+    keyframe_level_plain = PLAIN[KEY_NAME]
+    out = []
+    for args in (sim_args, hom_args):
+        spec, key, kidx, templates, tidx, transform, params, _, model = args
+        bsz = kidx.shape[0]
+        fracs = torch.tensor([0.0, 1.0, 1.5, -0.5, 0.5], device=dev)[
+            torch.arange(bsz, device=dev) % 5]
+        zero = LevelKeyData(*key[:4], torch.zeros_like(key.windows))
+        flat = torch.full_like(templates, 7)
+        out.append((f"ties, {model}", (spec, zero, kidx, flat, tidx,
+                                       transform, params, fracs, model)))
+        out.append((f"fractions 0, 1, 1.5, -0.5, 0.5, {model}",
+                    (spec, key, kidx, templates, tidx, transform, params,
+                     fracs, model)))
+        out.append((f"overflow, {model}", sel_lobes(args)))
+        push = transform.clone()
+        if model == "similarity":
+            push[:, 0] += 0.05
+            push[:, 2:] += torch.tensor([40.0, -40.0], device=dev)
+        else:
+            push[:, 2] += 40.0 / spec.width
+            push[:, 5] -= 40.0 / spec.width
+            push[:, 6] += 2e-3
+        out.append((f"clamp, {model}", (spec, key, kidx, templates, tidx,
+                                        push, params, 0.8, model)))
+    frames, specs, params = ragged
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for model, rows in (("similarity", 4), (HOMOGRAPHY, 8)):
+        for lvl in (0, len(specs) - 1):
+            spec = specs[lvl]
+            key = keyframe_level_plain(frames[lvl], spec, model)
+            bsz = 5
+            scale = torch.tensor([1e-3, 1e-3, 1.0, 1.0] if rows == 4 else
+                                 [1e-3, 1e-3, 1.0 / spec.width, 1e-3, 1e-3,
+                                  1.0 / spec.width, 1e-4, 1e-4], device=dev)
+            t = (torch.rand((bsz, rows), generator=g, device=dev) * 2 - 1) \
+                * scale
+            kidx = torch.tensor([0, 1, 2, 1, 0], device=dev)
+            tidx = torch.tensor([2, 0, 1, 1, 2], device=dev)
+            out.append((f"ragged {spec.width}x{spec.height} (N = "
+                        f"{spec.ht * spec.wt}), {model}",
+                        (spec, key, kidx, frames[lvl], tidx, t, params,
+                         torch.rand(bsz, generator=g, device=dev), model)))
+    return out
+
+
+@phase("SEL. kernel J: select's prelude vs its plain version (the 1080p "
+       "and 4K chunks' levels, one streaming item, G1's 864 items, edge "
+       "inputs)")
+def check_prelude(calls_1080p, calls_4k, params, dev):
+    """See SEL in the module's docstring. Returns the kernels line's
+    entries of kernel J at the 1080p chunk (similarity) and the 4K chunk
+    (homography)."""
+    from video_stabilizer_tpu_torch.models.aligner import level_specs
+    from video_stabilizer_tpu_torch.ops.prelude import (
+        launch_plan, level_prelude_kernel)
+    from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
+
+    plain = PLAIN[SEL_NAME]
+    worst, all_pass, plan_same = 0.0, True, True
+    entries = {}
+    log("  kernel J | input | level | B (keyframes) x N | model | plan "
+        "(cluster x slice) | bars | kernel ms | device ms | plain ms | "
+        "bound ms (bytes) | sectors ms | device / bound")
+    for what, calls, name, replaces in (
+            ("(a) 1080p chunk", calls_1080p, SEL_ENTRY, SEL_REPLACES),
+            ("(b) 4K chunk", calls_4k, SEL_H_ENTRY, SEL_H_REPLACES)):
+        totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                      sector_ms=0.0)
+        # The level loop runs coarse to fine; the table goes fine first.
+        for args in sorted(calls, key=lambda a: -a[0].width):
+            spec, key, kidx, *_, model = args
+            keys = int(torch.unique(kidx).numel())
+            r = sel_compare(args)
+            ok = sel_passes(r)
+            all_pass &= ok
+            worst = max(worst, r["gap"])
+            bsz, n = kidx.shape[0], spec.ht * spec.wt
+            plan = launch_plan(bsz, n)
+            ms = cuda_ms(lambda: level_prelude_kernel(*args), 50)
+            device_ms = graph_ms(lambda: level_prelude_kernel(*args), 50)
+            plain_ms = cuda_ms(lambda: plain(*args), 5)
+            bound_ms, bound_by, sector_ms = sel_bound(args)
+            # Every cluster size: the same bytes (the float64 Hessian sums
+            # make the result the plan's no matter), and its device time.
+            ref = level_prelude_kernel(*args)
+            by_plan = []
+            for c in (1, 2, 4, 8):
+                pl = launch_plan(bsz, n, c)
+                got = level_prelude_kernel(*args, plan=pl)
+                plan_same &= all(torch.equal(x.view(torch.int32),
+                                             y.view(torch.int32))
+                                 for x, y in zip(got, ref))
+                plan_ms = graph_ms(
+                    lambda: level_prelude_kernel(*args, plan=pl), 20)
+                by_plan.append(f"{c} x {pl.slice} {plan_ms:.4f}")
+            del ref, got
+            log(f"  {what} | {spec.width}x{spec.height} | {bsz} ({keys}) x "
+                f"{n} | {model} | {plan.cluster} x {plan.slice} | "
+                f"{'pass' if ok else 'FAIL'}: {sel_row(r)} | {ms:.4f} | "
+                f"{device_ms:.4f} | {plain_ms:.3f} | {bound_ms:.4f} "
+                f"({bound_by}) | {sector_ms:.4f} | "
+                f"{device_ms / bound_ms:.2f} | device ms by cluster x slice: "
+                + ", ".join(by_plan))
+            for k, v in (("ms", ms), ("device_ms", device_ms),
+                         ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                         ("sector_ms", sector_ms)):
+                totals[k] += v
+        log(f"  {what}, all {len(calls)} levels: kernel "
+            f"{totals['ms']:.4f} ms, device {totals['device_ms']:.4f}, "
+            f"plain {totals['plain_ms']:.3f}, bound {totals['bound_ms']:.4f}"
+            f" (bytes; {totals['sector_ms']:.4f} with the taps as sectors), "
+            f"device / bound "
+            f"{totals['device_ms'] / max(totals['bound_ms'], 1e-12):.2f}")
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="video_stabilizer_tpu_torch/csrc/prelude.cu",
+            replaces=replaces, bound_by="bytes", library_ms=None,
+            ms=totals["ms"], device_ms=totals["device_ms"],
+            plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"])
+
+    others = [(f"(c) one streaming item, {a[0].width}x{a[0].height}",
+               sel_one_item(a))
+              for a in sorted(calls_1080p, key=lambda a: -a[0].width)]
+    sweep = sweep_preludes(dev)
+    check(len(sweep) == len(calls_1080p) and all(
+        isinstance(a[7], torch.Tensor) and a[7].shape == a[2].shape
+        for a in sweep), f"G1's sweep: {len(sweep)} kernel J calls, each "
+          "with one keep fraction per item")
+    others += [(f"(d) G1's sweep, {a[0].width}x{a[0].height}, "
+                f"{a[2].shape[0]} items", a)
+               for a in sorted(sweep, key=lambda a: -a[0].width)]
+    del sweep
+    by_width = {a[0].width: a for a in calls_1080p}
+    by_width_4k = {a[0].width: a for a in calls_4k}
+    ragged_specs = level_specs(RAGGED[2], RAGGED[1], params.aligner)
+    frames = torch.randint(0, 256, RAGGED, dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(dev).manual_seed(SEED))
+    frames = build_pyramid(frames, len(ragged_specs))
+    others += [(f"(e) {name}", args) for name, args in sel_edges(
+        by_width[min(by_width, key=lambda w: abs(w - 480))],
+        by_width_4k[min(by_width_4k, key=lambda w: abs(w - 480))],
+        (frames, ragged_specs, params.aligner), dev)]
+    for what, args in others:
+        r = sel_compare(args)
+        ok = sel_passes(r)
+        all_pass &= ok
+        worst = max(worst, r["gap"])
+        if what.startswith("(e) overflow"):
+            ok &= r["overflow"] > 0
+            check(r["overflow"] > 0, f"{what}: {r['overflow']} diffs at or "
+                  "above 256")
+        log(f"  {what} | {'pass' if ok else 'FAIL'}: {sel_row(r)}")
+        torch.cuda.empty_cache()
+    check(plan_same, "kernel J gives the same bytes under every cluster "
+          "size (1, 2, 4, 8) at every level of both chunks")
+    check(all_pass, "kernel J against its plain version at every input: "
+          "tmpl bit-equal, jac_masked = jac * mask of its own wd bit for "
+          f"bit, wd within {SEL_WD_GAP:.3g} (largest {worst:.3g}), every "
+          "differing mask entry near an integer or in a row with a moved "
+          f"bin, Hessian within {SEL_HESS_BAR:.3g} of a float64 sum, "
+          "symmetric, two launches byte-equal")
+    log("  kernel J's library: none (no single PyTorch call computes "
+        "select's prelude)")
+    for entry in entries.values():
+        entry["max_abs_err"] = worst
+    return entries.get(SEL_ENTRY), entries.get(SEL_H_ENTRY)
+
+
 def drive_path(frames, params, dev, model="similarity"):
     """Drive a chunked path over every chunk of ``frames`` (S, T, H, W, 3)
     from a fresh state, twice: un-captured (``graphs.eager()``) under a
@@ -2682,14 +3118,20 @@ def main_path(frames, poses, params, dev):
     return launches, states, last, stages
 
 
-def path_checks_e_f(launches, gn: str, chunks: int):
+def path_checks_e_f(launches, gn: str, chunks: int, sel: bool = True):
     """Kernel E once per level (as the GN kernel ``gn``) and kernel F once
-    per chunk on a chunked path."""
+    per chunk on a chunked path; kernel J once per level too, or with
+    ``sel`` False (the exact-count selection's path) never."""
     check(launches[PINV_NAME] == launches[gn] > 0
           and launches[ACCUM_NAME] == chunks,
           f"kernel E launched {launches[PINV_NAME]} times (once per level: "
           f"{gn} {launches[gn]}), kernel F {launches[ACCUM_NAME]} (once per "
           f"chunk: {chunks})")
+    want = launches[gn] if sel else 0
+    check(launches[SEL_NAME] == want,
+          f"kernel J launched {launches[SEL_NAME]} times (want {want}: "
+          + ("once per level of every chunk, as " + gn + ")" if sel else
+             "the exact-count selection keeps the plain prelude)"))
 
 
 def path_levels(width, height, params) -> int:
@@ -2945,6 +3387,9 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
     check(per_replay.get("keyframe_levels_kernel", 0) == 1,
           "kernel I launched once in every replay (the chunk's keyframes, "
           "every level; the zero carry is the state's)")
+    check(per_replay.get("level_prelude_kernel", 0)
+          == per_replay.get(gn, -1),
+          f"kernel J launched once per level in every replay (as {gn})")
 
     n = J_STEADY[model]
     walls = []
@@ -3136,6 +3581,8 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
     check(per.get(("keyframe_levels_kernel", None), 0) == 2,
           "kernel I launched twice in every replay (the clip's zero carry "
           "and its keyframes, every level in one launch each)")
+    check(per.get(("level_prelude_kernel", None), 0) == per[(need, None)],
+          f"kernel J launched once per level in every replay (as {need})")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
     return walls
 
@@ -3483,11 +3930,20 @@ def chunk_programs(frames, params, dev):
 def topk_path(frames, poses, params, dev, mask_stages):
     """Phase 9's run with the exact-count keypoint selection: the same
     checks, and its stage table beside phase 9's (histogram mask)."""
+    plain_before = PLAIN_ON_CARD[SEL_NAME]
     launches, meas, ok, _, _, stages = drive_path(frames, params, dev)
+    # The exact-count selection runs the plain prelude by setting: its
+    # calls on the card are this phase's, not a path's fallback.
+    by_setting = PLAIN_ON_CARD[SEL_NAME] - plain_before
+    PLAIN_ON_CARD[SEL_NAME] = plain_before
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
-    path_checks_e_f(launches, "gn_solve", CHUNKS)
+    path_checks_e_f(launches, "gn_solve", CHUNKS, sel=False)
+    check(by_setting >= launches["gn_solve"],
+          f"select ran the plain prelude {by_setting} times by setting "
+          f"(selection=\"topk\"; at least once per level of the timed "
+          f"chunks: {launches['gn_solve']})")
     path_checks_i(launches, CHUNKS)
     known_motion_checks(meas, ok, poses)
     log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
@@ -4059,6 +4515,10 @@ def aligner_sweep(dev):
           f"kernel I launched {launches[KEY_NAME]} times (want 2: the "
           "clip's zero carry and its keyframes, every level in one launch "
           "each)")
+    check(launches[SEL_NAME] == levels,
+          f"kernel J launched {launches[SEL_NAME]} times (want {levels}: "
+          f"once per level for all {len(combos)} x {SWEEP_FRAMES} items, one "
+          "keep fraction per item)")
 
     log("  (a) kernel B with per-item thresholds vs its plain version:")
     entry = per_item_b(calls)
@@ -4311,6 +4771,9 @@ def homography_sweep(params_4k, dev):
           f"kernel I launched {launches[KEY_NAME]} times (want 2: the "
           "clip's zero carry and its keyframes, every level in one launch "
           "each)")
+    check(launches[SEL_NAME] == levels,
+          f"kernel J launched {launches[SEL_NAME]} times (want {levels}: "
+          "once per level, its homography form)")
     log(f"  sweep {ms:.1f} ms; align success per threshold "
         + ", ".join(f"{t} px {int(ok[c, 1:].sum())}/7"
                     for c, t in enumerate(ITEM_THRESHOLDS)))
@@ -4505,10 +4968,11 @@ def timed_stream(host, poses, params, dev, eager=False):
           and launches[GRAY_NAME] == STREAM_FRAMES
           and launches[PYR_NAME] == want_h
           and launches[KEY_NAME] == want_i
+          and launches[SEL_NAME] == want_b
           and sum(launches.values())
-          == n_a + 2 * want_b + want_d + STREAM_FRAMES + want_h + want_i,
+          == n_a + 3 * want_b + want_d + STREAM_FRAMES + want_h + want_i,
           f"launches {launches}: kernel A {STREAM_FRAMES - lag} (one per "
-          f"output), kernels B and E {want_b} each (one per level of every "
+          f"output), kernels B, E and J {want_b} each (one per level of every "
           f"frame, the first included), kernel C 0, kernel D {want_d} (one "
           "per smoothed window), kernel F 0 (the streaming accumulator is "
           f"the host's), kernel G {STREAM_FRAMES} (one per frame), kernel H "
@@ -4888,7 +5352,9 @@ def kernels_launched(launches, a_form: str, b: bool, c: bool, levels: int,
           and launches["tvl1_smooth"] > 0
           and launches[GRAY_NAME] > 0
           and launches[PYR_NAME] == (levels - 1) * launches[GRAY_NAME]
-          and launches[KEY_NAME] >= launches[GRAY_NAME],
+          and launches[KEY_NAME] >= launches[GRAY_NAME]
+          and launches[SEL_NAME]
+          == launches["gn_solve"] + launches["gn8_solve"],
           f"{what}: launches {launches}")
 
 
@@ -4984,6 +5450,9 @@ def latency_chain(dev):
           f"one, every level, for each of the {chain // 2} keyframe steps "
           f"of each chain, in the first call, {reps} replays and {reps} "
           "chains issued step by step)")
+    check(launches[SEL_NAME] == want,
+          f"kernel J launched {launches[SEL_NAME]} times (want {want}: as "
+          "kernel B, once per level of every step)")
     stats = prog.stats()[0]
     issued = [ln for ln in run_tool.stderr.splitlines()
               if "issued one call each" in ln]
@@ -5034,7 +5503,8 @@ def tool_profile():
         names = list(totals)
         for symbol in ("warp_kernel", "gn_solve_kernel", "tvl1_wave_kernel",
                        "pinv4_kernel", "accum_kernel", "gray_kernel",
-                       "pyr_down_kernel", "keyframe_kernel"):
+                       "pyr_down_kernel", "keyframe_kernel",
+                       profile_chunk.HAND_KERNELS["J"][0]):
             hits = [n for n in names if symbol in n]
             check(bool(hits), f"the per-kernel table names {symbol}: "
                   f"{hits[:1]}")
@@ -5047,6 +5517,14 @@ def tool_profile():
                                 args + ["--parse-only", "--by-source"])
     total = sum(us for us, _ in totals.values())
     events = sum(n for _, n in totals.values())
+    hand = profile_chunk.hand_kernel_totals(totals)
+    log("  hand kernels in the chunk: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms x{n}" for k, (us, n) in hand.items()))
+    select = [(us, n) for name, (us, n) in by_src.items()
+              if "/models/aligner.py" in name and "_level_prelude" in name]
+    log(f"  select's own frames (aligner._level_prelude, outside kernel "
+        f"J's module): {sum(n for _, n in select)} device events, "
+        f"{sum(us for us, _ in select) / 1e3:.3f} ms")
     smooth = [(us, n) for name, (us, n) in by_src.items()
               if "/ops/tvl1.py" in name or "/models/smoother.py" in name]
     log(f"  the smoother's device work in the chunk: "
@@ -5060,7 +5538,8 @@ def tool_profile():
             ("gray conversion's (kernel G)", "/ops/gray.py", None),
             ("pyramid's (kernel H)", "/ops/pyr_down.py", None),
             ("keyframe precompute's (kernel I)", "/ops/keyframe.py",
-             "about 400")):
+             "about 400"),
+            ("select prelude's (kernel J)", "/ops/prelude.py", None)):
         # pad_edge (ops/pyr_down.py) served the plain keyframe's gradients
         # and windows.
         rows = [(us, n) for name, (us, n) in by_src.items()
@@ -5196,7 +5675,7 @@ def main() -> int:
     crop = params.crop_pixels
     synth_on_card(dev)
     kernels = {}
-    smooth_calls, pinv_calls, accum_calls = {}, {}, {}
+    smooth_calls, pinv_calls, accum_calls, sel_calls = {}, {}, {}, {}
     cap = capture(params, dev)
     if cap is not None:
         kernels["warp_frames[similarity,bilinear]"] = check_warp(cap, crop,
@@ -5206,6 +5685,7 @@ def main() -> int:
         smooth_calls["1080p"] = cap["tvl1_calls"]
         pinv_calls["1080p"] = cap["pinv_calls"]
         accum_calls["1080p"] = cap["accum_calls"]
+        sel_calls["1080p"] = cap["sel_calls"]
         del cap
     cap = capture_4k(params_4k, dev)
     if cap is not None:
@@ -5216,6 +5696,7 @@ def main() -> int:
         smooth_calls["4K"] = cap["tvl1_calls"]
         pinv_calls["4K"] = cap["pinv_calls"]
         accum_calls["4K"] = cap["accum_calls"]
+        sel_calls["4K"] = cap["sel_calls"]
         del cap
     if len(smooth_calls) == 2:
         kernels[TVL1_NAME] = check_tvl1(smooth_calls["1080p"],
@@ -5237,6 +5718,13 @@ def main() -> int:
     entries = check_keyframe(params, params_4k, dev)
     if entries is not None:
         kernels[KEY_ENTRY], kernels[KEY_H_ENTRY] = entries
+    torch.cuda.empty_cache()
+    if len(sel_calls) == 2:
+        entries = check_prelude(sel_calls["1080p"], sel_calls["4K"], params,
+                                dev)
+        if entries is not None:
+            kernels[SEL_ENTRY], kernels[SEL_H_ENTRY] = entries
+    del sel_calls
     torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
     torch.cuda.empty_cache()
@@ -5272,6 +5760,11 @@ def main() -> int:
             # path's homography ones.
             path_launches[KEY_ENTRY if model == "similarity"
                           else KEY_H_ENTRY] = launches[KEY_NAME]
+        if launches.get(SEL_NAME, 0) > 0:
+            # Kernel J: the 1080p path's similarity preludes, the 4K
+            # path's homography ones.
+            path_launches[SEL_ENTRY if model == "similarity"
+                          else SEL_H_ENTRY] = launches[SEL_NAME]
         if model == "similarity":
             # Right after phase 9, so that both runs meet the same host
             # pace: on an NVIDIA H100 80GB HBM3 (700.00 W) a run after the
@@ -5356,11 +5849,13 @@ def main() -> int:
 
     check(not any(PLAIN_ON_CARD.values()),
           f"plain versions run on the card over every path: {PLAIN_ON_CARD} "
-          "(each smoother, pseudo-inverse, accumulator, gray, pyramid and "
-          "keyframe call there went to kernel D, E, F, G, H or I)")
+          "(each smoother, pseudo-inverse, accumulator, gray, pyramid, "
+          "keyframe and select prelude call there went to kernel D, E, F, "
+          "G, H, I or J; 9T's exact-count selection runs the plain prelude "
+          "by setting and is not counted)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 17:
+    if failures or missing or len(kernels) != 19:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))

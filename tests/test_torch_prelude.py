@@ -1,0 +1,504 @@
+"""Kernel J (select's warp-diff prelude, ``ops/prelude.py``) around its
+plain version: the plain version against the JAX package's own steps
+(aligner.py:316-345, homography_aligner.py:130-149) at two levels of a
+96x128 pyramid, two keyframes and a flat and an overflowing one, four
+items, both models, the keep fraction as a float and per item; the
+dispatch by device; the wrapper's refusals; and a numpy model of
+``csrc/prelude.cu``'s design (the CTA slices of a cluster, the histogram
+merge in rank order, the threshold scan, the fixed-order Hessian sum)
+against the plain version. The kernel runs only on the card
+(``chip_smoke.py`` phase SEL), where it is held to the plain version."""
+
+import functools
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_stabilizer_tpu import transforms as JT
+from video_stabilizer_tpu.config import AlignerParams as JAlignerParams
+from video_stabilizer_tpu.models import aligner as jaligner
+from video_stabilizer_tpu.models import homography_aligner as jha
+from video_stabilizer_tpu.ops.argmax import take_at_tile_argmax
+from video_stabilizer_tpu.ops.patches import (
+    sample_windows_flat, warp_rel_positions_flat, window_origins_flat)
+from video_stabilizer_tpu.ops.select import histogram_mask
+from video_stabilizer_tpu_torch.config import AlignerParams
+from video_stabilizer_tpu_torch.models import aligner
+from video_stabilizer_tpu_torch.ops import cuda_build, prelude
+from video_stabilizer_tpu_torch.ops import gn8_solve, patches
+from video_stabilizer_tpu_torch.ops import select as tselect
+from video_stabilizer_tpu_torch.ops.keyframe import (
+    LevelKeyData, keyframe_level_plain)
+from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
+from video_stabilizer_tpu_torch import transforms as T
+from conftest import natural_image
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "video_stabilizer_tpu_torch"
+
+H, W = 96, 128
+PARAMS = AlignerParams()
+JPARAMS = JAlignerParams()
+SPECS = aligner.level_specs(W, H, PARAMS)
+J_SPECS = jaligner.level_specs(W, H, JPARAMS)
+MODELS = ("similarity", "homography")
+# Two of the pyramid's three levels: the finest (margin 6, N = 3072) and
+# the coarsest (margin 12, N = 192). Each level costs the JAX package's
+# eager operations a compile of their own.
+LEVELS = (0, 2)
+# Items: (key, template frame). Key 2 has all-zero windows and item 1 a
+# flat template of 7 there: every warp diff of its rows is 7 (ties in
+# one bin). Key 3's windows put 255 under each positive Lanczos2 tap
+# weight and 0 under each negative one at item 2's positions, whose
+# template is 0: diffs of 256 and more (the overflow bin).
+KEY_INDEX = np.array([0, 2, 3, 1])
+TEMPLATE_INDEX = np.array([1, 2, 3, 0])
+FRACTIONS = np.array([0.8, 0.5, 0.3, 1.0], np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _transforms(model):
+    """Item 2's transform moves its keypoints by half a pixel each way
+    (a tap pattern of fixed signs); the others are small random motions."""
+    rng = np.random.default_rng(40)
+    if model == "similarity":
+        t = rng.normal(0, [1e-3, 1e-3, 0.8, 0.8], (4, 4))
+        t[2] = (0.0, 0.0, 0.5, 0.5)
+    else:
+        t = rng.normal(0, [1e-3, 1e-3, 6e-3, 1e-3, 1e-3, 6e-3, 1e-3, 1e-3],
+                       (4, 8))
+        t[2] = (0.0, 0.0, 0.5 / W, 0.0, 0.0, 0.5 / W, 0.0, 0.0)
+    return t.astype(np.float32)
+
+
+def _lobe_windows(key, spec, model, transform):
+    """(P, P, N) u8 windows with 255 under the taps of positive 2-D weight
+    and 0 under the others, at ``transform``'s positions of key 0 of
+    ``key``, both sets (the Y set's pattern where they overlap)."""
+    p = key.windows.shape[1]
+    ox, oy = patches.window_origins_flat(spec.ht, spec.wt, spec.tile,
+                                         spec.margin)
+    if model == "similarity":
+        t_ul = T.center_to_ul(_t(transform)[None], spec.width,
+                              spec.height)[:, None, None, :]
+        rx, ry = patches.warp_rel_positions_flat(
+            key.coords[:1, 0], key.coords[:1, 1], t_ul, ox, oy, p)
+    else:
+        u, v = gn8_solve.normalized_keypoints(key, spec)
+        rx, ry = gn8_solve.warp_rel_positions_h(
+            _t(transform)[None, None, None, :], u[:1], v[:1], spec.width,
+            spec.height, ox, oy, p)
+    win = np.zeros((p, p, spec.ht * spec.wt), np.uint8)
+    sign = np.array([-1, 1, 1, -1])
+    for s in range(2):
+        x0 = np.floor(rx[0, s].numpy()).astype(int) - 1
+        y0 = np.floor(ry[0, s].numpy()).astype(int) - 1
+        for a in range(4):
+            for b in range(4):
+                n = np.arange(win.shape[2])
+                win[y0 + a, x0 + b, n] = 255 if sign[a] * sign[b] > 0 else 0
+    return _t(win)
+
+
+@pytest.fixture(scope="module")
+def levels():
+    """Per level and model: the keyframe set (two keyframes of natural
+    images, the zero and the lobe windows), the template frames and the
+    items' transforms."""
+    imgs = np.stack([natural_image(H, W, seed=s) for s in (31, 32, 33, 34)])
+    pyr = build_pyramid(_t(imgs), len(SPECS))
+    out = {}
+    for lvl in LEVELS:
+        spec = SPECS[lvl]
+        tmpl = pyr[lvl].clone()
+        tmpl[2] = 7
+        tmpl[3] = 0
+        for model in MODELS:
+            base = keyframe_level_plain(pyr[lvl][:2].contiguous(), spec,
+                                        model)
+            transform = _transforms(model)
+            flat = LevelKeyData(*(f[:1] for f in base))
+            lobes = _lobe_windows(flat, spec, model, transform[2])
+            key = LevelKeyData(
+                *(torch.cat([f, f[:1], f[:1]]) for f in base[:4]),
+                torch.cat([base.windows, torch.zeros_like(base.windows[:1]),
+                           lobes[None]]))
+            out[lvl, model] = (key, tmpl, transform)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fns(lvl, model):
+    """The JAX package's steps of one level: the template read and the
+    window origins (integers) jitted and mapped over the items; the
+    positions eager, item by item (under jit XLA on the CPU contracts
+    ``(1 + a) * fx - b * fy + tx`` into FMAs, and a last-bit move of a
+    position moves a bf16-rounded tap weight, and so the sample, by up to
+    half an intensity); the selection and the Hessian jitted and
+    mapped."""
+    spec_j = J_SPECS[lvl]
+    n = spec_j.ht * spec_j.wt
+    p = spec_j.tile + 2 * spec_j.margin
+
+    def read(frame, idx):
+        tm = take_at_tile_argmax(frame, idx, spec_j.tile).reshape(2, n)
+        return tm.astype(jnp.float32)
+
+    origins = jax.jit(lambda: window_origins_flat(
+        spec_j.ht, spec_j.wt, spec_j.tile, spec_j.margin))
+
+    def positions(coords, t):
+        ox, oy = origins()
+        if model == "similarity":
+            t_ul0 = JT.center_to_ul(t, spec_j.width, spec_j.height,
+                                    minus_one=False)
+            return warp_rel_positions_flat(coords[0], coords[1], t_ul0, ox,
+                                           oy, p)
+        return jha._warp_rel_h(t, coords[0], coords[1], spec_j, ox, oy, p)
+
+    def select(wd, jac, f):
+        mask = jnp.stack([histogram_mask(wd[0], f),
+                          histogram_mask(wd[1], f)]).astype(jnp.float32)
+        jm = jac * mask
+        hess = jnp.sum(jm[:, None] * jac[None, :], axis=(2, 3))
+        jac_masked = jac * (mask * 0.5) if model == "similarity" else jm
+        return mask, jac_masked, hess
+
+    return jax.jit(jax.vmap(read)), positions, jax.jit(jax.vmap(select))
+
+
+def _jax_reads(lvl, key, tmpl, transform, model):
+    """The JAX package's steps of one level up to the warp diffs, which do
+    not depend on the keep fraction: the template read, the warped
+    positions and the sample (eager too, item by item: under jit XLA on
+    the CPU keeps the bf16 products in float32, tests/test_torch_ops.py).
+    Returns jax (tmpl, wd)."""
+    read, positions, _ = _jax_fns(lvl, model)
+    kidx = KEY_INDEX
+    idx = jnp.stack([jnp.asarray(key.idx_x.numpy()[kidx]),
+                     jnp.asarray(key.idx_y.numpy()[kidx])], axis=1)
+    tm = read(jnp.asarray(tmpl.numpy()[TEMPLATE_INDEX]), idx)
+    coords = key.coords.numpy()[kidx]
+    windows = key.windows.numpy()[kidx]
+    wd = []
+    for i in range(len(kidx)):
+        rx, ry = positions(jnp.asarray(coords[i]), jnp.asarray(transform[i]))
+        sample = sample_windows_flat(jnp.asarray(windows[i]), rx, ry)
+        wd.append(jnp.abs(sample - tm[i]))
+    return tm, jnp.stack(wd)
+
+
+@pytest.fixture(scope="module")
+def jax_reads(levels):
+    """``_jax_reads`` per level and model, once for every keep fraction."""
+    return {(lvl, model): _jax_reads(lvl, key, tmpl, transform, model)
+            for (lvl, model), (key, tmpl, transform) in levels.items()}
+
+
+def _jax_steps(lvl, key, reads, fraction, model):
+    """The JAX package's steps for each item, in its level's order: the
+    template read and warp diffs of ``reads``, then the two sets'
+    histogram masks and the Hessian. Returns numpy (tmpl, wd, mask,
+    jac_masked, H)."""
+    _, _, select = _jax_fns(lvl, model)
+    tm, wd = reads
+    frac = jnp.broadcast_to(jnp.asarray(fraction, jnp.float32), (4,))
+    mask, jac_masked, hess = select(
+        wd, jnp.asarray(key.jac.numpy()[KEY_INDEX]), frac)
+    return tuple(np.asarray(x) for x in (tm, wd, mask, jac_masked, hess))
+
+
+@pytest.mark.parametrize("per_item", [False, True],
+                         ids=["one fraction", "per-item fraction"])
+def test_plain_matches_jax_steps(levels, jax_reads, per_item):
+    """Every level, both models. Bars: tmpl exact (bytes read as float);
+    the masks equal; jac_masked exact (the same 0/1 and 0.5 products);
+    the Hessian within 1e-5 of the JAX package's largest entry of the item
+    (the two sum 2N products in other orders: torch on the CPU in double,
+    XLA in float32). The fixture's edge rows hold: item 1's diffs all
+    equal, item 2's partly at or above 256."""
+    fraction = FRACTIONS if per_item else np.float32(PARAMS.smallest_fraction)
+    for (lvl, model), (key, tmpl, transform) in levels.items():
+        got = prelude.level_prelude_plain(
+            SPECS[lvl], key, _t(KEY_INDEX), tmpl, _t(TEMPLATE_INDEX),
+            _t(transform), PARAMS, _t(fraction) if per_item else
+            float(fraction), model, return_wd=True)
+        tm_j, wd_j, mask_j, jm_j, hess_j = _jax_steps(
+            lvl, key, jax_reads[lvl, model], fraction, model)
+        tm, jm, hess, wd = (x.numpy() for x in got)
+        where = f"level {lvl} {model}"
+        np.testing.assert_array_equal(tm, tm_j, err_msg=where)
+        mask = prelude.selection_mask(
+            got[3], PARAMS, _t(fraction) if per_item else float(fraction))
+        np.testing.assert_array_equal(mask.numpy(), mask_j, err_msg=where)
+        np.testing.assert_array_equal(jm, jm_j, err_msg=where)
+        scale = np.abs(hess_j).max(axis=(1, 2), keepdims=True)
+        assert (np.abs(hess - hess_j) <= 1e-5 * scale).all(), where
+        assert (wd[1] == 7.0).all(), where
+        assert (wd[2] >= 256).any(), where
+        assert np.abs(wd - wd_j).max() < 1e-3, where
+
+
+def test_cpu_tensors_take_the_plain_version(levels, monkeypatch):
+    """On CPU tensors ``level_prelude`` is the plain version, bit for bit,
+    with no build and no launch; the aligners' preludes go through it."""
+    def refuse(name):
+        raise AssertionError(f"cuda_build.load({name!r}) on the CPU path")
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    before = prelude.level_prelude_kernel.launches
+    for (lvl, model), (key, tmpl, transform) in levels.items():
+        args = (SPECS[lvl], key, _t(KEY_INDEX), tmpl, _t(TEMPLATE_INDEX),
+                _t(transform), PARAMS, _t(FRACTIONS))
+        got = prelude.level_prelude(*args, model)
+        want = prelude.level_prelude_plain(*args, model)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert prelude.level_prelude_kernel.launches == before
+
+
+def test_topk_takes_the_plain_version_by_setting(levels, monkeypatch):
+    """``selection="topk"`` goes to the plain version on any device, off
+    the CPU too (meta tensors here); the histogram selection off the CPU
+    goes to kernel J, never to the plain version."""
+    calls = []
+
+    def plain(*args, **kw):
+        calls.append("plain")
+        return "plain"
+
+    def kernel(*args, **kw):
+        calls.append("kernel")
+        return "kernel"
+
+    monkeypatch.setattr(prelude, "level_prelude_plain", plain)
+    monkeypatch.setattr(prelude, "level_prelude_kernel", kernel)
+    key, tmpl, transform = levels[2, "homography"]
+    meta = LevelKeyData(*(f.to("meta") for f in key))
+    for params, dev_key, want in (
+            (AlignerParams(selection="topk"), meta, "plain"),
+            (AlignerParams(selection="topk"), key, "plain"),
+            (PARAMS, meta, "kernel"), (PARAMS, key, "plain")):
+        got = prelude.level_prelude(
+            SPECS[2], dev_key, _t(KEY_INDEX), tmpl, _t(TEMPLATE_INDEX),
+            _t(transform), params, 0.5, "homography")
+        assert got == want, (params.selection, dev_key.windows.device)
+    assert calls == ["plain", "plain", "kernel", "plain"]
+
+
+def test_kernel_wrapper_refuses(levels):
+    """The exact-count selection, another dtype, shape or layout, the CPU
+    and meta devices: the wrapper raises before any build or launch, no
+    fallback."""
+    before = prelude.level_prelude_kernel.launches
+    key, tmpl, transform = levels[2, "similarity"]
+    spec = SPECS[2]
+    kidx, tidx, tr = _t(KEY_INDEX), _t(TEMPLATE_INDEX), _t(transform)
+
+    def call(key=key, tmpl=tmpl, tr=tr, params=PARAMS, model="similarity"):
+        return prelude.level_prelude_kernel(spec, key, kidx, tmpl, tidx, tr,
+                                            params, None, model)
+
+    with pytest.raises(ValueError, match="histogram selection"):
+        call(params=AlignerParams(selection="topk"))
+    with pytest.raises(ValueError, match="jac wants"):
+        call(model="homography")
+    with pytest.raises(ValueError, match="coords wants"):
+        call(key=key._replace(coords=key.coords.double()))
+    with pytest.raises(ValueError, match="transform wants"):
+        call(tr=tr[:, :3])
+    with pytest.raises(ValueError, match="templates wants"):
+        call(tmpl=tmpl[0])
+    with pytest.raises(ValueError, match="contiguous rows"):
+        call(tmpl=tmpl.repeat_interleave(2, dim=2)[:, :, ::2])
+    with pytest.raises(ValueError, match="contiguous keyframe"):
+        call(key=key._replace(jac=key.jac.transpose(0, 1).contiguous()
+                              .transpose(0, 1)))
+    with pytest.raises(ValueError, match="unknown motion model"):
+        call(model="affine")
+    with pytest.raises(ValueError, match="kernel J runs on cuda"):
+        call()
+    with pytest.raises(ValueError, match="kernel J runs on cuda"):
+        call(key=LevelKeyData(*(f.to("meta") for f in key)),
+             tmpl=tmpl.to("meta"), tr=tr.to("meta"))
+    assert prelude.level_prelude_kernel.launches == before
+
+
+def test_source_listed_and_scanned():
+    """The build names the source, and the package glob that
+    tests/test_torch_ops.py's import scan reads finds the module."""
+    assert "prelude" in cuda_build.SOURCES
+    assert (cuda_build.CSRC_DIR / "prelude.cu").exists()
+    assert PKG / "ops" / "prelude.py" in set(PKG.rglob("*.py"))
+
+
+# --------------------------------------------------------------------------
+# A numpy model of csrc/prelude.cu's design
+# --------------------------------------------------------------------------
+
+THREADS, WARPS, BINS, PER_LANE = prelude.THREADS, prelude.THREADS // 32, \
+    tselect.DEFAULT_BINS, 9
+
+
+def _threshold_scan(counts, k):
+    """The kernel's scan of one set's merged counts: lane l holds bins
+    [9 l, 9 l + 9), an exclusive prefix of the lane totals, the first bin
+    whose running count reaches k, the lowest lane with one; else 257."""
+    own = np.zeros((32, PER_LANE), np.int64)
+    flat = own.reshape(-1)
+    flat[:BINS] = counts
+    excl = np.concatenate([[0], np.cumsum(own.sum(axis=1))[:-1]])
+    for lane in range(32):
+        run = excl[lane] + np.cumsum(own[lane])
+        for j in range(PER_LANE):
+            b = lane * PER_LANE + j
+            if b < BINS and np.float32(run[j]) >= k:
+                return b
+    return BINS
+
+
+def _butterfly(lanes):
+    """Each warp's xor-shuffle sums in float64, (WARPS, 32, E) -> (WARPS,
+    E): the value every lane of the warp holds."""
+    v = lanes.astype(np.float64)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[:, np.arange(32) ^ off]
+    return v[:, 0]
+
+
+def kernel_model(wd, jac, fraction, cluster, model):
+    """csrc/prelude.cu's steps after the sample for one item: wd (2, N),
+    jac (R, 2, N) float32. Returns (mask (2, N), jac_masked, hess)."""
+    n = wd.shape[1]
+    rows = jac.shape[0]
+    plan = prelude.launch_plan(1, n, cluster)
+    bins = np.minimum(np.floor(wd), BINS - 1).astype(np.int64)
+    # Pass 1: each CTA's histograms of its slice of both sets.
+    hists = [np.stack([np.bincount(bins[s, lo:hi], minlength=BINS)
+                       for s in range(2)]) for lo, hi in plan.slices()]
+    # Merge in rank order, then one scan a set.
+    merged = np.zeros((2, BINS), np.int64)
+    for h in hists:
+        merged += h
+    k = np.floor(np.float32(n) * np.float32(fraction))
+    thresh = [_threshold_scan(merged[s], k) for s in range(2)]
+    mask = (bins <= np.array(thresh)[:, None]).astype(np.float32)
+    scale = np.float32(0.5) if model == "similarity" else np.float32(1.0)
+    jac_masked = (jac * (mask * scale)[None]).astype(np.float32)
+    # Pass 2: entry e of a CTA is set e >= cnt, keypoint lo + e % cnt; a
+    # thread takes entries t, t + THREADS, ... in order, adding each
+    # float32 product in float64.
+    pairs = [(a, b) for a in range(rows) for b in range(a, rows)]
+    pa, pb = (np.array(x) for x in zip(*pairs))
+    ctas = []
+    for lo, hi in plan.slices():
+        cnt = hi - lo
+        acc = np.zeros((THREADS, len(pairs)), np.float64)
+        for e0 in range(0, 2 * cnt, THREADS):
+            e = np.arange(e0, min(e0 + THREADS, 2 * cnt))
+            s = (e >= cnt).astype(int)
+            nn = lo + np.where(s == 1, e - cnt, e)
+            jv = jac[:, s, nn]                                   # (R, E)
+            term = (jv * mask[s, nn])[pa] * jv[pb]               # (NH, E)
+            acc[e - e0] = acc[e - e0] + term.T.astype(np.float64)
+        warps = _butterfly(acc.reshape(WARPS, 32, len(pairs)))
+        cta = np.zeros(len(pairs), np.float64)
+        for w in range(WARPS):
+            cta = cta + warps[w]
+        ctas.append(cta)
+    total = np.zeros(len(pairs), np.float64)
+    for c in ctas:
+        total = total + c
+    total = total.astype(np.float32)
+    hess = np.zeros((rows, rows), np.float32)
+    for q, (a, b) in enumerate(pairs):
+        hess[a, b] = hess[b, a] = total[q]
+    return mask, jac_masked, hess
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("model", MODELS)
+def test_kernel_design_model_matches_plain(levels, cluster, model):
+    """The numpy model of the kernel's slicing, merge, scan and Hessian
+    order on the plain version's own warp diffs, at level 0 (N = 3072:
+    slices of 3072, 1536, 768 and 384) and on a ragged row of N = 1037
+    with ties and overflow: mask and jac_masked bit-equal to the plain
+    version's, the Hessian within 1e-5 of its largest entry (the plain
+    version sums in another order), symmetric, and the same bits at every
+    cluster size (float64 sums of the float32 products, rounded once)."""
+    key, tmpl, transform = levels[0, model]
+    got = prelude.level_prelude_plain(
+        SPECS[0], key, _t(KEY_INDEX), tmpl, _t(TEMPLATE_INDEX),
+        _t(transform), PARAMS, _t(FRACTIONS), model, return_wd=True)
+    jac = key.jac[_t(KEY_INDEX)].numpy()
+    rng = np.random.default_rng(cluster)
+    rows = jac.shape[1]
+    ragged_wd = np.floor(rng.uniform(0, 300, (2, 1037))).astype(np.float32)
+    ragged_wd[:, ::5] += rng.uniform(0, 1, (2, 208)).astype(np.float32)
+    ragged_jac = rng.normal(0, 3, (rows, 2, 1037)).astype(np.float32)
+    cases = [(got[3].numpy()[i], jac[i], FRACTIONS[i]) for i in range(4)]
+    cases.append((ragged_wd, ragged_jac, np.float32(0.37)))
+    for i, (wd, jc, f) in enumerate(cases):
+        mask, jm, hess = kernel_model(wd, jc, f, cluster, model)
+        want_mask = tselect.histogram_mask(_t(wd), float(f)).numpy()
+        np.testing.assert_array_equal(mask, want_mask, err_msg=str(i))
+        scale = 0.5 if model == "similarity" else 1.0
+        want_jm = (_t(jc) * (_t(want_mask) * scale)[None]).numpy()
+        np.testing.assert_array_equal(jm.view(np.int32),
+                                      want_jm.view(np.int32), err_msg=str(i))
+        if i < 4:
+            np.testing.assert_array_equal(jm, got[1].numpy()[i])
+            want_h = got[2].numpy()[i]
+        else:
+            jmask = _t(jc) * _t(want_mask)[None]
+            want_h = (jmask[:, None] * _t(jc)[None]).sum(dim=(2, 3)).numpy()
+        bound = 1e-5 * np.abs(want_h).max()
+        assert np.abs(hess - want_h).max() <= bound, (i, cluster)
+        assert np.array_equal(hess, hess.T)
+        one_cta = kernel_model(wd, jc, f, 1, model)[2]
+        assert np.array_equal(hess.view(np.int32), one_cta.view(np.int32))
+
+
+def test_launch_plan():
+    """Clusters doubled while the level's CTAs number under TARGET_CTAS
+    and each CTA keeps MIN_SLICE keypoints, at the cells' shapes (the
+    1080p chunk's 128 items, the 4K chunk's 32, a streaming item, G1's
+    864); slices cover [0, N) once."""
+    for items, n, want in ((128, 5184, 2), (128, 480, 1), (32, 20736, 8),
+                           (32, 5184, 8), (32, 1296, 4), (32, 1980, 4),
+                           (32, 480, 1), (1, 5184, 8), (1, 1296, 4),
+                           (864, 5184, 1), (1, 1, 1)):
+        plan = prelude.launch_plan(items, n)
+        assert plan.cluster == want, (items, n)
+        cover = [i for lo, hi in plan.slices() for i in range(lo, hi)]
+        assert cover == list(range(n))
+        assert plan.smem == 4 * plan.slice
+    with pytest.raises(ValueError, match="cluster size"):
+        prelude.launch_plan(1, 10, 3)
+
+
+def test_profile_names_every_hand_kernel():
+    """``apps/profile_chunk.py``'s ``HAND_KERNELS`` names every
+    ``__global__`` function of ``csrc/`` once, kernel J's among them, and
+    charges a per-kernel table's rows to their letters."""
+    import re
+    from video_stabilizer_tpu_torch.apps import profile_chunk
+    symbols = [s for syms in profile_chunk.HAND_KERNELS.values()
+               for s in syms]
+    found = {m for path in cuda_build.CSRC_DIR.glob("*.cu")
+             for m in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                 r"\([^)]*\)\s+)?(\w+)", path.read_text())}
+    assert sorted(symbols) == sorted(found)
+    assert profile_chunk.HAND_KERNELS["J"] == ("prelude_kernel",)
+    totals = {"void (anonymous namespace)::prelude_kernel<4>(Level)":
+              (12.0, 6), "gn_solve_kernel(...)": (5.0, 6),
+              "aten::add": (1.0, 3)}
+    assert profile_chunk.hand_kernel_totals(totals) == {
+        "B": (5.0, 6), "J": (12.0, 6)}

@@ -139,22 +139,35 @@ def _align_stream(al, frames):
     return out
 
 
+@pytest.fixture(scope="module")
+def port_aligns(gray_clip):
+    """The port's VideoAligner over the gray clip, once per setting of
+    phase_correlate: {phase: [(meas, ok), ...]}."""
+    runs = {}
+    for phase in (False, True):
+        tparams = params_from_jax_dict(dataclasses.asdict(
+            jcfg.AlignerParams(phase_correlate=phase)))
+        runs[phase] = _align_stream(aligner.VideoAligner(tparams,
+                                                         device="cpu"),
+                                    gray_clip)
+    return runs
+
+
 @pytest.mark.parametrize("phase", [False, True])
-def test_video_aligner_matches_jax(gray_clip, phase):
+def test_video_aligner_matches_jax(gray_clip, port_aligns, phase):
     jparams = jcfg.AlignerParams(phase_correlate=phase)
     want = _align_stream(jaligner.VideoAligner(jparams), gray_clip)
-    got = _align_stream(aligner.VideoAligner(
-        params_from_jax_dict(dataclasses.asdict(jparams)), device="cpu"),
-        gray_clip)
+    got = port_aligns[phase]
     assert not got[0][1] and sum(ok for _, ok in got) >= N - 2
     _assert_meas_close(got, want)
 
 
-def test_streaming_matches_clip_path(gray_clip):
+def test_streaming_matches_clip_path(gray_clip, port_aligns):
     """Every align is one independent item in either form
     (test_batch.py:28-43 holds the JAX package's to 1e-5)."""
-    got = _align_stream(aligner.VideoAligner(PARAMS.aligner, device="cpu"),
-                        gray_clip)
+    assert PARAMS.aligner == params_from_jax_dict(dataclasses.asdict(
+        jcfg.AlignerParams(phase_correlate=False)))
+    got = port_aligns[False]
     meas, ok = align_clip(gray_clip, PARAMS.aligner, device="cpu")
     np.testing.assert_array_equal([o for _, o in got], ok.numpy())
     np.testing.assert_allclose(np.array([m for m, _ in got]),
@@ -183,11 +196,17 @@ def jax_stream(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def port_stream(jax_stream):
+def port_stream(jax_stream, tmp_path_factory):
+    """The port's VideoStabilizer over the same clip, checkpointed to a
+    file after 10 frames."""
+    frames = jax_stream["frames"]
     rec = []
     stab = stabilizer.VideoStabilizer(PARAMS, device="cpu")
-    out = _run(stab, jax_stream["frames"], rec)
-    return dict(out=out, rec=rec, stab=stab)
+    out = _run(stab, frames[:HALF], rec)
+    path = str(tmp_path_factory.mktemp("ckpt") / "port_stab.npz")
+    checkpoint.save_stabilizer(path, stab)
+    out += _run(stab, frames[HALF:], rec)
+    return dict(out=out, rec=rec, stab=stab, path=path)
 
 
 def test_stabilizer_matches_jax(jax_stream, port_stream):
@@ -232,32 +251,24 @@ def test_resume_from_jax_checkpoint(jax_stream):
     _assert_outputs_close(out, jax_stream["out_resumed"])
 
 
-def test_jax_resumes_from_port_checkpoint(jax_stream, port_stream,
-                                         tmp_path):
+def test_jax_resumes_from_port_checkpoint(jax_stream, port_stream):
     """The other way round: the JAX package's load_stabilizer takes the
     file the port wrote after 10 frames and carries on as the port does."""
-    frames = jax_stream["frames"]
-    stab = stabilizer.VideoStabilizer(PARAMS, device="cpu")
-    _run(stab, frames[:HALF], [])
-    path = str(tmp_path / "port_stab.npz")
-    checkpoint.save_stabilizer(path, stab)
     rec = []
-    out = _run(jcheckpoint.load_stabilizer(path, JPARAMS), frames[HALF:],
-               rec)
+    out = _run(jcheckpoint.load_stabilizer(port_stream["path"], JPARAMS),
+               jax_stream["frames"][HALF:], rec)
     _assert_meas_close(rec, port_stream["rec"][HALF:])
     _assert_outputs_close(out, port_stream["out"][-HALF:])
 
 
-def test_own_round_trip_bit_identical(jax_stream, port_stream, tmp_path):
+def test_own_round_trip_bit_identical(jax_stream, port_stream):
     """Saved mid-stream and restored, the port gives the outputs of the
     uninterrupted run bit for bit (as test_checkpoint.py:39)."""
     frames = jax_stream["frames"]
-    stab = stabilizer.VideoStabilizer(PARAMS, device="cpu")
-    out = _run(stab, frames[:HALF], [])
-    path = str(tmp_path / "stab.npz")
-    checkpoint.save_stabilizer(path, stab)
-    out += _run(checkpoint.load_stabilizer(path, PARAMS, device="cpu"),
-                frames[HALF:], [])
+    out = _run(checkpoint.load_stabilizer(port_stream["path"], PARAMS,
+                                          device="cpu"), frames[HALF:], [])
+    # The outputs of the first 10 frames come from the run before the save.
+    out = port_stream["out"][:len(port_stream["out"]) - len(out)] + out
     assert len(out) == len(port_stream["out"])
     for a, b in zip(out, port_stream["out"]):
         np.testing.assert_array_equal(a, b)

@@ -127,22 +127,27 @@ def _captured_items(solve_name, module, clip, params, model):
     return calls
 
 
+@pytest.fixture(scope="module")
+def captured_items(gray_clip):
+    """Kernel B's and C's (args, kwargs) at every level of 8 frames'
+    aligns, each captured once: {"B": ..., "C": ...}."""
+    clip = gray_clip[:8]
+    return {"B": _captured_items("gn_solve", aligner, clip,
+                                 tcfg.AlignerParams(), "similarity"),
+            "C": _captured_items("gn8_solve", ha, clip,
+                                 tcfg.AlignerParams(threshold=0.1),
+                                 "homography")}
+
+
 @pytest.mark.parametrize("kernel", ["B", "B fixed 3", "C"])
-def test_plain_per_item_threshold_equals_items_alone(gray_clip, kernel):
+def test_plain_per_item_threshold_equals_items_alone(captured_items, kernel):
     """Kernel B's and C's plain versions with one threshold per item give,
     for every item, the bits of that item run alone with its threshold as
     a scalar, at every level of 8 frames' aligns (threshold 0 stops no
     loop, 0.5 px stops most after a step or two)."""
-    clip = gray_clip[:8]
-    if kernel == "C":
-        calls = _captured_items("gn8_solve", ha, clip,
-                                tcfg.AlignerParams(threshold=0.1),
-                                "homography")
-        solve = gn8_mod.gn8_solve_plain
-    else:
-        calls = _captured_items("gn_solve", aligner, clip,
-                                tcfg.AlignerParams(), "similarity")
-        solve = gn_mod.gn_solve_plain
+    calls = captured_items[kernel[0]]
+    solve = (gn8_mod.gn8_solve_plain if kernel == "C"
+             else gn_mod.gn_solve_plain)
     # The per-item operands: key_index, tmpl, jac_masked, hinv, t_init.
     per_item = (1, 2, 3, 4, 9)
     extra = dict(fixed_iters=3) if kernel == "B fixed 3" else {}

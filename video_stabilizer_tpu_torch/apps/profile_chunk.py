@@ -20,7 +20,9 @@ graph that the entry points replay on the card.
 
 Per kernel: the device time and count of every kernel, copy and memset,
 summed from the trace's events directly (the profiler's ``key_averages``
-over a chunk's tens of thousands of events is far slower).
+over a chunk's tens of thousands of events is far slower); then one line
+with the port's hand kernels A-J (``HAND_KERNELS``: kernel J, select's
+prelude, is ``prelude_kernel``) and their device time.
 
 By source: each device event is linked to the runtime call that launched
 it by its correlation id, and its time goes to the innermost Python frame
@@ -42,6 +44,15 @@ from collections import defaultdict
 import numpy as np
 
 PACKAGE = "video_stabilizer_tpu_torch/"
+# The port's hand kernels (csrc/*.cu) by the symbol of their __global__
+# functions: the per-kernel table's names hold it, and the summary line
+# under the table charges each kernel's device time to its letter.
+HAND_KERNELS = {
+    "A": ("warp_kernel",), "B": ("gn_solve_kernel",),
+    "C": ("gn8_solve_kernel",), "D": ("tvl1_wave_kernel", "tvl1_any_kernel"),
+    "E": ("pinv4_kernel", "pinv8_kernel"), "F": ("accum_kernel",),
+    "G": ("gray_kernel",), "H": ("pyr_down_kernel", "pyr_down_wide_kernel"),
+    "I": ("keyframe_kernel",), "J": ("prelude_kernel",)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 UNATTRIBUTED = "<no frame under video_stabilizer_tpu_torch/>"
@@ -160,7 +171,23 @@ def summarize(path: str, by_source: bool, top: int) -> dict:
     else:
         totals = summarize_ops(events)
         print_table(f"{what} by kernel", totals, top)
+        print("hand kernels: " + ", ".join(
+            f"{letter} {us / 1e3:.3f} ms x{n}"
+            for letter, (us, n) in hand_kernel_totals(totals).items()))
     return totals
+
+
+def hand_kernel_totals(totals: dict) -> dict:
+    """{letter: (microseconds, count)} of the hand kernels in a per-kernel
+    table (``HAND_KERNELS``' symbols), the ones present."""
+    out = {}
+    for letter, symbols in HAND_KERNELS.items():
+        rows = [v for name, v in totals.items()
+                if any(sym in name for sym in symbols)]
+        if rows:
+            out[letter] = (sum(us for us, _ in rows),
+                           sum(n for _, n in rows))
+    return out
 
 
 def main(argv=None):

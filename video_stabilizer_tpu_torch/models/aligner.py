@@ -33,17 +33,18 @@ from video_stabilizer_tpu_torch import transforms as T
 from video_stabilizer_tpu_torch.config import (
     AlignerParams, pyramid_shapes, tile_size_for)
 from video_stabilizer_tpu_torch.device import resolve_device
-from video_stabilizer_tpu_torch.ops.argmax import tile_argmax_flat_index
+from video_stabilizer_tpu_torch.ops import prelude
 from video_stabilizer_tpu_torch.ops.gn_solve import gn_solve, item_thresholds
 from video_stabilizer_tpu_torch.ops.keyframe import (
     LevelKeyData, keyframe_levels)
 from video_stabilizer_tpu_torch.ops.linalg import regularized_pinv_sym4
 from video_stabilizer_tpu_torch.ops.patches import (
-    sample_windows_flat, warp_rel_positions_flat, window_origins_flat,
-    window_size)
+    window_origins_flat, window_size)
 from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
-from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
+# The plain prelude's steps, re-exported under their old module.
+from video_stabilizer_tpu_torch.ops.prelude import (  # noqa: F401
+    selection_mask, template_intensities)
 from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
 
@@ -124,66 +125,24 @@ def _compute_keyframe(key_imgs, specs) -> Tuple[LevelKeyData, ...]:
     return keyframe_levels(list(key_imgs), specs, "similarity")
 
 
-def template_intensities(spec: LevelSpec, key: LevelKeyData, key_index,
-                         templates, template_index):
-    """(B, 2, N) f32 template intensities at each item's keyframe argmax
-    pixels; ``templates`` (M, h, w) u8, picked by ``template_index``."""
-    w, h = spec.width, spec.height
-    n = spec.ht * spec.wt
-    bsz = key_index.shape[0]
-    idx = torch.stack([key.idx_x, key.idx_y], dim=1)[key_index]
-    pos = tile_argmax_flat_index(idx, w, spec.tile).reshape(bsz, 2 * n)
-    flat_tmpl = templates.reshape(templates.shape[0], h * w)
-    tmpl = flat_tmpl[template_index[:, None], pos].reshape(bsz, 2, n)
-    return tmpl.to(torch.float32)
-
-
-def selection_mask(wd, params: AlignerParams, fraction=None):
-    """The smallest-fraction keypoints of each (item, set) row of ``wd``
-    (B, 2, N) as a 0/1 mask, by ``params.selection`` (aligner.py:203-213):
-    the histogram threshold ("mask") with ``fraction`` (a float, a 0-d or a
-    (B,) tensor; ``params.smallest_fraction`` if None), or the exact count
-    ("topk"), whose count is static: it always takes
-    ``params.smallest_fraction``, as the JAX package's does."""
-    if params.selection == "topk":
-        return topk_mask(wd, params.smallest_fraction)
-    if fraction is None:
-        fraction = params.smallest_fraction
-    if isinstance(fraction, torch.Tensor) and fraction.dim() == 1:
-        fraction = fraction[:, None]
-    return histogram_mask(wd, fraction)
-
-
 def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
                    template_index, transform, params: AlignerParams,
                    fraction=None):
     """Everything of one level before the GN loop, at the incoming transform:
     template intensities, warp-diff selection (alignment.cpp:409-431, centre
-    convention W*0.5; keep ``fraction`` as ``selection_mask`` takes it), the
-    Hessian over both selected sets and its regularized inverse
-    (aligner.py:326-345). Returns (tmpl (B, 2, N),
+    convention W*0.5; keep ``fraction`` as ``selection_mask`` takes it) and
+    the Hessian over both selected sets (``ops.prelude``: kernel J on the
+    card; the plain version for ``selection="topk"``), then its regularized
+    inverse (kernel E) (aligner.py:316-345). Returns (tmpl (B, 2, N),
     jac_masked (B, 4, 2, N) with the ICA X/Y-set average folded in,
     hinv (B, 4, 4), ox, oy)."""
-    w, h = spec.width, spec.height
-    p = key.windows.shape[1]
-    tmpl = template_intensities(spec, key, key_index, templates,
-                                template_index)
-    jac = key.jac[key_index]                                  # (B, 4, 2, N)
+    tmpl, jac_masked, hess = prelude.level_prelude(
+        spec, key, key_index, templates, template_index, transform, params,
+        fraction, "similarity")
+    hinv = regularized_pinv_sym4(hess)
     ox, oy = window_origins_flat(spec.ht, spec.wt, spec.tile, spec.margin,
                                  device=transform.device)
-
-    t_ul0 = T.center_to_ul(transform, w, h)[:, None, None, :]
-    rel_x0, rel_y0 = warp_rel_positions_flat(
-        key.coords[key_index, 0], key.coords[key_index, 1], t_ul0, ox, oy, p)
-    wd = torch.abs(sample_windows_flat(key.windows, rel_x0, rel_y0,
-                                       key_index=key_index) - tmpl)
-    mask = selection_mask(wd, params, fraction)               # (B, 2, N)
-
-    jm = jac * mask[:, None]
-    hess = (jm[:, :, None] * jac[:, None, :]).sum(dim=(3, 4))   # (B, 4, 4)
-    hinv = regularized_pinv_sym4(hess)
-    jac_masked = jac * (mask * 0.5)[:, None]
-    return tmpl, jac_masked.contiguous(), hinv.contiguous(), ox, oy
+    return tmpl, jac_masked, hinv.contiguous(), ox, oy
 
 
 def _align_level(spec: LevelSpec, key: LevelKeyData, key_index, templates,

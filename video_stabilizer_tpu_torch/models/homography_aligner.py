@@ -29,17 +29,16 @@ import torch
 
 from video_stabilizer_tpu_torch.config import AlignerParams, StabilizerParams
 from video_stabilizer_tpu_torch.models.aligner import (
-    LevelKeyData, LevelSpec, per_item_params, selection_mask,
-    template_intensities)
+    LevelKeyData, LevelSpec, per_item_params)
 from video_stabilizer_tpu_torch.models.batch import (
     _align_clip_jit, _stabilize_clip_jit, _stabilize_streams_jit, align_clip,
     stabilize_clip, stabilize_clip_core, stabilize_streams, warp_delayed)
+from video_stabilizer_tpu_torch.ops import prelude
 from video_stabilizer_tpu_torch.ops.gn8_solve import (
-    gn8_solve, warp_rel_positions_h)
+    gn8_solve, normalized_keypoints)
 from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels
 from video_stabilizer_tpu_torch.ops.linalg import regularized_pinv_sym4
-from video_stabilizer_tpu_torch.ops.patches import (
-    sample_windows_flat, window_origins_flat)
+from video_stabilizer_tpu_torch.ops.patches import window_origins_flat
 from video_stabilizer_tpu_torch.utils.spans import span
 
 # The homography keyframe carries the similarity one's fields; only ``jac``
@@ -56,41 +55,23 @@ def _compute_keyframe_h(key_imgs, specs):
     return keyframe_levels(list(key_imgs), specs, "homography")
 
 
-def normalized_keypoints(key: LevelKeyData, spec: LevelSpec):
-    """(u, v) (K, 2, N): the keypoints in centered width-normalized
-    coordinates, as ``_warp_rel_h`` forms them (homography_aligner.py:
-    118-119)."""
-    w_l, h_l = float(spec.width), float(spec.height)
-    u = (key.coords[:, 0] - w_l * 0.5) / w_l
-    v = (key.coords[:, 1] - h_l * 0.5) / w_l
-    return u.contiguous(), v.contiguous()
-
-
 def _level_prelude_h(spec: LevelSpec, key: LevelKeyData, key_index,
                      templates, template_index, p, params: AlignerParams,
                      fraction=None):
     """Template intensities, warp-diff selection at the incoming ``p`` (keep
     ``fraction`` as ``aligner.selection_mask`` takes it), the 8x8 Hessian
-    and its regularized inverse (homography_aligner.py:126-149).
-    Returns (tmpl (B, 2, N), jac_masked (B, 8, 2, N), hinv (B, 8, 8),
-    u, v (K, 2, N), ox, oy)."""
-    p_size = key.windows.shape[1]
-    tmpl = template_intensities(spec, key, key_index, templates,
-                                template_index)
-    jac = key.jac[key_index]                                  # (B, 8, 2, N)
+    (``ops.prelude``: kernel J on the card; the plain version for
+    ``selection="topk"``) and its regularized inverse (kernel E)
+    (homography_aligner.py:126-149). Returns (tmpl (B, 2, N), jac_masked
+    (B, 8, 2, N), hinv (B, 8, 8), u, v (K, 2, N), ox, oy)."""
+    tmpl, jac_masked, hess = prelude.level_prelude(
+        spec, key, key_index, templates, template_index, p, params,
+        fraction, "homography")
+    hinv = regularized_pinv_sym4(hess)
     ox, oy = window_origins_flat(spec.ht, spec.wt, spec.tile, spec.margin,
                                  device=p.device)
     u, v = normalized_keypoints(key, spec)
-    rel_x0, rel_y0 = warp_rel_positions_h(
-        p[:, None, None, :], u[key_index], v[key_index], spec.width,
-        spec.height, ox, oy, p_size)
-    wd = torch.abs(sample_windows_flat(key.windows, rel_x0, rel_y0,
-                                       key_index=key_index) - tmpl)
-    mask = selection_mask(wd, params, fraction)               # (B, 2, N)
-    jac_masked = jac * mask[:, None]
-    hess = (jac_masked[:, :, None] * jac[:, None, :]).sum(dim=(3, 4))
-    hinv = regularized_pinv_sym4(hess)
-    return (tmpl, jac_masked.contiguous(), hinv.contiguous(), u, v, ox, oy)
+    return tmpl, jac_masked, hinv.contiguous(), u, v, ox, oy
 
 
 def _align_level_h(spec: LevelSpec, key: LevelKeyData, key_index, templates,

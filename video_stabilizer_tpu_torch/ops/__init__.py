@@ -1,9 +1,9 @@
 """Compute ops of the PyTorch port: plain PyTorch, and the hand-written
-CUDA kernels A-I (``warp_kernel``, ``gn_solve``, ``gn8_solve``, ``tvl1``,
+CUDA kernels A-J (``warp_kernel``, ``gn_solve``, ``gn8_solve``, ``tvl1``,
 ``linalg``'s pseudo-inverse, ``accum``, ``gray``, ``pyr_down``,
-``keyframe``) built from
-``csrc/`` at first use. The names exported here are those of
-``video_stabilizer_tpu.ops``."""
+``keyframe``, ``prelude``) built from ``csrc/`` at first use. The names
+exported here are those of ``video_stabilizer_tpu.ops``; the ``prelude``
+module (kernel J) has no counterpart there."""
 
 from video_stabilizer_tpu_torch.ops.lanczos import lanczos2, lanczos2_exact
 from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down, build_pyramid
@@ -31,6 +31,8 @@ from video_stabilizer_tpu_torch.ops.phase_corr import phase_correlate
 from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
 from video_stabilizer_tpu_torch.ops.linalg import (
     eigh_sym, regularized_pinv_sym4)
+# Kernel J's module, select's prelude: no JAX counterpart to mirror.
+from video_stabilizer_tpu_torch.ops import prelude  # noqa: F401
 
 __all__ = [
     "lanczos2", "lanczos2_exact",

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 SOURCES = ("warp", "gn_solve", "gn8_solve", "tvl1", "jacobi", "accum", "gray",
-           "pyr_down", "keyframe")
+           "pyr_down", "keyframe", "prelude")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

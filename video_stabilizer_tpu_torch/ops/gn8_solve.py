@@ -57,6 +57,16 @@ def launch_plan(items: int, n: int) -> LaunchPlan:
     return make_plan(items, n, cluster, threads, CACHE_FLOATS)
 
 
+def normalized_keypoints(key, spec):
+    """(u, v) (K, 2, N): the keypoints in centered width-normalized
+    coordinates, as ``_warp_rel_h`` forms them (homography_aligner.py:
+    118-119)."""
+    w_l, h_l = float(spec.width), float(spec.height)
+    u = (key.coords[:, 0] - w_l * 0.5) / w_l
+    v = (key.coords[:, 1] - h_l * 0.5) / w_l
+    return u.contiguous(), v.contiguous()
+
+
 def warp_rel_positions_h(p, u, v, width: int, height: int, ox, oy,
                          psize: int):
     """Clamped window positions of normalized keypoints (u, v) (..., N)

@@ -124,12 +124,14 @@ def _kernel_wrappers():
     from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels_kernel
     from video_stabilizer_tpu_torch.ops.linalg import (
         regularized_pinv_sym4_kernel)
+    from video_stabilizer_tpu_torch.ops.prelude import level_prelude_kernel
     from video_stabilizer_tpu_torch.ops.pyr_down import pyr_down_kernel
     from video_stabilizer_tpu_torch.ops.tvl1 import tvl1_smooth_kernel
     from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
     return (gn_solve, gn8_solve, warp_frames, tvl1_smooth_kernel,
             regularized_pinv_sym4_kernel, accum_scan_kernel,
-            bgr_to_gray_kernel, pyr_down_kernel, keyframe_levels_kernel)
+            bgr_to_gray_kernel, pyr_down_kernel, keyframe_levels_kernel,
+            level_prelude_kernel)
 
 
 def launch_counts() -> dict:
