@@ -2,8 +2,15 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --digests [--package-root DIR]
 
-Run from the root of the repository. Phases:
+Run from the root of the repository. ``--package-root DIR`` runs the
+script on the package under DIR (another commit unpacked there) instead of
+its own; ``--digests`` runs only J1, J5, J2, J6, J7 and J3's replayed paths
+and prints their digest lines (sha256 of each path's outputs, measurements,
+flags and carried state, the keyframe windows as (P, P, N) whatever layout
+the package keeps), so one call can hold two commits' paths byte for byte.
+Phases:
 
   1. Build the port's CUDA kernels from ``video_stabilizer_tpu_torch/csrc``
      (one nvcc per source, all at once) and print what ptxas reports for
@@ -188,8 +195,13 @@ Run from the root of the repository. Phases:
      the plain version, the byte bound (each input read once: a
      keyframe's coords, jac and idx once for each keyframe in use, the 16
      taps and the outputs for each item) and the taps counted as 32-byte
-     sectors; and each chunk's sums. No single PyTorch call computes this
-     prelude.
+     sectors twice: in the JAX package's (P, P, N) windows (a sector a
+     tap) and in the port's keypoint-major ones (the sectors each patch's
+     4 rows of 4 bytes touch at their device addresses); and each chunk's
+     sums; (c)'s device time a level and summed. Printed first: the
+     registers a thread of each form
+     (``cudaFuncGetAttributes``) and the CTAs an SM holds. No single
+     PyTorch call computes this prelude.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -229,7 +241,8 @@ Run from the root of the repository. Phases:
      which it differs from itself is held to phase 9's bars instead);
      outputs, meas, succ, valid and the carried state byte-equal; the
      first chunk's returned values unchanged after the later chunks ran.
-     Prints the capture and instantiate time, the graph pool's bytes, the
+     Prints the replayed chunks' digest line, the capture and instantiate
+     time, the graph pool's bytes, the
      peak memory, the replayed chunk's host-clock time over 20 chunks
      (median, min, max, spread) beside the un-captured chunks' of the
      phase, the device-busy share and the copies of 3 replays under
@@ -252,7 +265,8 @@ Run from the root of the repository. Phases:
      (an output in which it differs from itself is held to phase 9's bars
      instead), then the first call (eager run and capture) and 5 replays:
      outputs, meas and success byte-equal to the un-captured call, the
-     first call's values unchanged after the replays; kernels A and B
+     first call's values unchanged after the replays (the last replay's
+     digest line printed); kernels A and B
      launched in every replay, G once, H once per level below the first
      and I twice (the zero carry and the keyframes). Prints the
      first call's, the capture's and
@@ -330,7 +344,8 @@ J10. The chunk programs' memory, and long replay. (a)
      below 0.6.
  J7. ``run_combos`` (align, accumulate and FIR warp) on G1's inputs: the
      un-captured call twice, the first call and 3 replays, outputs, meas
-     and ok byte-equal; timed beside G1's un-captured align and FIR.
+     and ok byte-equal (the last replay's digest line printed); timed
+     beside G1's un-captured align and FIR.
  J8. ``median_jitter_px_device_impl`` on J7's outputs (27 x 21 1080p
      pairs): the un-captured call twice, the first call and 3 replays,
      byte-equal f32, the out/in ratios equal G1 (d)'s; timed.
@@ -377,9 +392,10 @@ J10. The chunk programs' memory, and long replay. (a)
      run under torch.profiler (device busy share).
  J3. A third fresh ``VideoStabilizer`` over S1's frames with every key
      already captured: no new capture; the outputs, measurements and
-     flags of both replayed runs byte-equal to S1's un-captured run; the
-     per-frame median and p90 over frames 12-47 beside the un-captured
-     run's.
+     flags of both replayed runs byte-equal to S1's un-captured run (its
+     digest line printed, the carried aligner state and accumulator
+     included); the per-frame median and p90 over frames 12-47 beside the
+     un-captured run's.
  S2. Streaming vs chunked on the card: S1's first 32 frames against
      ``stabilize_stream_chunked`` (16-frame chunks): ok equal,
      measurements within 1e-5, >= 99.5 % of output pixels within 1 LSB
@@ -579,12 +595,14 @@ SEL_WD_GAP = 2.0 ** -10
 # per (keyframe, template) pair in use and (set, keypoint) the template
 # byte; per (item, set, keypoint) the 16 window taps (at most the
 # keyframe's whole P x P window), and written 4 of tmpl and 4 R of
-# jac_masked. Counted as 32-byte sectors, each tap costs a sector of its
-# own. Its float32 operations per (item, set, keypoint): the position
-# (similarity 10, homography 24 with u and v), clamp and floor 8, eight
-# Lanczos2 weights 128, their normalizer 7, the 4x4 bf16 taps 100, the
-# divide, |sample - tmpl| 2, the bin 2, the mask 2, jac_masked R, and the
-# Hessian's R masked rows and R (R + 1) / 2 products and sums.
+# jac_masked. Counted as 32-byte sectors: in the JAX package's (P, P, N)
+# windows each tap costs a sector of its own; in the port's keypoint-major
+# (N, P, P) ones a patch costs the sectors its 4 rows of 4 bytes touch
+# (``sel_sectors``). Its float32 operations per (item, set, keypoint): the
+# position (similarity 10, homography 24 with u and v), clamp and floor
+# 8, eight Lanczos2 weights 128, their normalizer 7, the 4x4 bf16 taps
+# 100, the divide, |sample - tmpl| 2, the bin 2, the mask 2, jac_masked
+# R, and the Hessian's R masked rows and R (R + 1) / 2 products and sums.
 SEL_KEY_BYTES = {4: 28, 8: 44}
 SEL_OUT_BYTES = {4: 20, 8: 36}
 SEL_TAPS = 16
@@ -1083,7 +1101,7 @@ def gn_bytes(args, t_out, iters):
     ox, oy, initial transform) and a threshold per item."""
     windows, key_index, *per_item = args[:5]
     fx, fy, ox, oy, t_init = args[5:10]
-    k, p, _, n = windows.shape
+    k, n, p, _ = windows.shape
     iters_per_key = torch.zeros(k, dtype=torch.float64,
                                 device=iters.device).index_add_(
         0, key_index.long(), iters.double())
@@ -1126,7 +1144,7 @@ def plan_sweep(module, solve_with_plan, args, kw) -> str:
     ``launch_plan``. Every plan must launch: a refused one raises."""
     from video_stabilizer_tpu_torch.ops.gn_solve import (
         CLUSTER_SIZES, make_plan)
-    items, n = args[-1].shape[0], args[0].shape[3]
+    items, n = args[-1].shape[0], args[0].shape[1]
     out = []
     for cs in CLUSTER_SIZES:
         for threads in module.THREADS:
@@ -1171,7 +1189,7 @@ def check_gn(cap):
     worst = 0.0
     rows = []
     for args, kw in calls:
-        p, n = args[0].shape[1], args[0].shape[3]
+        n, p = args[0].shape[1], args[0].shape[3]
         t_g, c_g, d_g, i_g = gn_solve(*args, **kw)
         t_w, c_w, d_w, i_w = gn_solve_plain(*args, **kw)
         level = f"{kw['width']}x{kw['height']} (P={p}, N={n}, " \
@@ -1303,7 +1321,7 @@ def check_gn_fixed(cap):
         bound_share = dict(bytes=0.0, operations=0.0)
         for args, kw in calls:
             kwf = dict(kw, fixed_iters=k)
-            p, n = args[0].shape[1], args[0].shape[3]
+            n, p = args[0].shape[1], args[0].shape[3]
             level = (f"K={k} {kw['width']}x{kw['height']} (P={p}, N={n}, "
                      f"{args[-1].shape[0]} items)")
             (t_g, _, _, i_g), gap = gn_compare(args, kwf, level,
@@ -1501,7 +1519,7 @@ def check_gn8(cap):
     rows = []
     for (args, kw), (pargs, pkw) in zip(calls, persp):
         w, h = kw["width"], kw["height"]
-        p_size, n = args[0].shape[1], args[0].shape[3]
+        n, p_size = args[0].shape[1], args[0].shape[3]
         level = f"{w}x{h} (P={p_size}, N={n})"
         gaps, conv_equal, p67_gap, medians = [], True, 0.0, None
         n_items, n_fine, same_iter_gap = 0, 0, 0.0
@@ -1647,7 +1665,7 @@ def check_4k_content(params_4k, dev):
     persp_items = torch.arange(1, CHUNK, device=dev)
     for args, kw in calls:
         w, h = kw["width"], kw["height"]
-        level = f"4K content {w}x{h} (N={args[0].shape[3]})"
+        level = f"4K content {w}x{h} (N={args[0].shape[1]})"
         p_g, c_g, _, i_g = gn8_solve(*args, **kw)
         p_w, c_w, _, i_w = gn8_solve_plain(*args, **kw)
         same = bool((c_g == c_w).all())
@@ -1675,7 +1693,7 @@ def check_4k_content(params_4k, dev):
           f"{len(calls)} kernel B launches at 4K ({levels} levels)")
     for args, kw in calls:
         gn_compare(args, kw, f"4K similarity {kw['width']}x{kw['height']} "
-                   f"(N={args[0].shape[3]}, {args[-1].shape[0]} items)")
+                   f"(N={args[0].shape[1]}, {args[-1].shape[0]} items)")
 
 
 def tvl1_call_args(call):
@@ -2655,12 +2673,51 @@ def check_keyframe(params, params_4k, dev):
     return entries.get(KEY_ENTRY), entries.get(KEY_H_ENTRY)
 
 
+def sel_positions(args):
+    """The clamped window positions (rel_x, rel_y), (B, 2, N) each, of one
+    level's kernel J call, formed as the plain version forms them."""
+    from video_stabilizer_tpu_torch import transforms as T
+    from video_stabilizer_tpu_torch.ops import gn8_solve, patches
+    spec, key, kidx, _, _, transform, _, _, model = args
+    p, kidx = key.windows.shape[-1], kidx.long()
+    ox, oy = patches.window_origins_flat(spec.ht, spec.wt, spec.tile,
+                                         spec.margin, device=kidx.device)
+    if model == "similarity":
+        t_ul = T.center_to_ul(transform, spec.width,
+                              spec.height)[:, None, None, :]
+        return patches.warp_rel_positions_flat(
+            key.coords[kidx, 0], key.coords[kidx, 1], t_ul, ox, oy, p)
+    u, v = gn8_solve.normalized_keypoints(key, spec)
+    return gn8_solve.warp_rel_positions_h(
+        transform[:, None, None, :], u[kidx], v[kidx], spec.width,
+        spec.height, ox, oy, p)
+
+
+def sel_sectors(args) -> int:
+    """The 32-byte sectors the 4x4 tap patches of one level's call touch
+    in its keypoint-major windows at their device addresses: a patch's 4
+    rows of 4 bytes, each sector counted once a patch."""
+    spec, key, kidx = args[:3]
+    n, p = spec.ht * spec.wt, key.windows.shape[-1]
+    rx, ry = sel_positions(args)
+    nidx = torch.arange(n, device=rx.device)
+    first = (key.windows.data_ptr()
+             + ((kidx.long()[:, None, None] * n + nidx) * p
+                + torch.floor(ry).long() - 1) * p
+             + torch.floor(rx).long() - 1)                     # (B, 2, N)
+    rows = first[..., None] + torch.arange(4, device=rx.device) * p
+    ends = torch.cat([rows // 32, (rows + 3) // 32], dim=-1).sort(-1).values
+    return int((1 + (ends.diff(dim=-1) != 0).sum(-1)).sum())
+
+
 def sel_bound(args):
     """Kernel J's roofline bound on one level's call (``SEL_KEY_BYTES``):
-    (bound ms, bound_by, the taps counted as 32-byte sectors ms)."""
+    (bound ms, bound_by, the taps counted as 32-byte sectors of the JAX
+    package's (P, P, N) windows (16 a patch) ms, the same counted in the
+    port's keypoint-major windows (``sel_sectors``) ms)."""
     spec, key, kidx, templates, tidx, transform, _, fraction, _ = args
     n, bsz = spec.ht * spec.wt, kidx.shape[0]
-    p, rows = key.windows.shape[1], key.jac.shape[1]
+    p, rows = key.windows.shape[-1], key.jac.shape[1]
     kidx = kidx.long()
     uses = torch.bincount(kidx, minlength=key.windows.shape[0])
     taps = float(torch.clamp(uses * 2 * SEL_TAPS, max=p * p).sum()) * n
@@ -2672,8 +2729,10 @@ def sel_bound(args):
     total = (2 * n * (keys * SEL_KEY_BYTES[rows] + pairs
                       + bsz * SEL_OUT_BYTES[rows]) + taps + per_item)
     ms, by = roofline(total, bsz * 2 * n * SEL_OPS[rows])
-    sectors = total - taps + bsz * 2 * n * SEL_TAPS * 32
-    return ms, by, sectors / HBM_BYTES_PER_S * 1e3
+    lanes = total - taps + bsz * 2 * n * SEL_TAPS * 32
+    rows_major = total - taps + sel_sectors(args) * 32
+    return (ms, by, lanes / HBM_BYTES_PER_S * 1e3,
+            rows_major / HBM_BYTES_PER_S * 1e3)
 
 
 def sel_one_item(args, item=0):
@@ -2786,7 +2845,7 @@ def sel_lobes(args):
         args
     dev = key.windows.device
     one = LevelKeyData(*(f[:1].clone() for f in key))
-    p = one.windows.shape[1]
+    p = one.windows.shape[-1]
     ox, oy = patches.window_origins_flat(spec.ht, spec.wt, spec.tile,
                                          spec.margin, device=dev)
     if model == "similarity":
@@ -2800,15 +2859,15 @@ def sel_lobes(args):
         u, v = gn8_solve.normalized_keypoints(one, spec)
         rx, ry = gn8_solve.warp_rel_positions_h(
             t[:, None, None, :], u, v, spec.width, spec.height, ox, oy, p)
-    win = torch.zeros_like(one.windows[0])
-    n = torch.arange(win.shape[2], device=dev)
+    win = torch.zeros_like(one.windows[0])            # (N, P, P)
+    n = torch.arange(win.shape[0], device=dev)
     sign = (-1, 1, 1, -1)
     for s in range(2):
         x0 = torch.floor(rx[0, s]).long() - 1
         y0 = torch.floor(ry[0, s]).long() - 1
         for a in range(4):
             for b in range(4):
-                win[y0 + a, x0 + b, n] = 255 if sign[a] * sign[b] > 0 else 0
+                win[n, y0 + a, x0 + b] = 255 if sign[a] * sign[b] > 0 else 0
     one.windows[0] = win
     items = 8
     frames = torch.zeros((2, spec.height, spec.width), dtype=torch.uint8,
@@ -2881,20 +2940,28 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
     (homography)."""
     from video_stabilizer_tpu_torch.models.aligner import level_specs
     from video_stabilizer_tpu_torch.ops.prelude import (
-        launch_plan, level_prelude_kernel)
+        THREADS, kernel_attributes, launch_plan, level_prelude_kernel)
     from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
 
     plain = PLAIN[SEL_NAME]
     worst, all_pass, plan_same = 0.0, True, True
     entries = {}
+    slice0 = max(launch_plan(a[2].shape[0], a[0].ht * a[0].wt).slice
+                 for a in calls_1080p + calls_4k)
+    regs, ctas = kernel_attributes(slice0)
+    log(f"  kernel J's registers a thread (cudaFuncGetAttributes numRegs): "
+        f"4x4 form {regs[0]}, 8x8 form {regs[1]}; CTAs of {THREADS} "
+        f"threads an SM at the chunks' largest slice ({slice0}): "
+        f"{ctas[0]} and {ctas[1]}")
     log("  kernel J | input | level | B (keyframes) x N | model | plan "
         "(cluster x slice) | bars | kernel ms | device ms | plain ms | "
-        "bound ms (bytes) | sectors ms | device / bound")
+        "bound ms (bytes) | sectors ms, (P, P, N) | sectors ms, (N, P, P) "
+        "| device / bound")
     for what, calls, name, replaces in (
             ("(a) 1080p chunk", calls_1080p, SEL_ENTRY, SEL_REPLACES),
             ("(b) 4K chunk", calls_4k, SEL_H_ENTRY, SEL_H_REPLACES)):
         totals = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                      sector_ms=0.0)
+                      lane_ms=0.0, sector_ms=0.0)
         # The level loop runs coarse to fine; the table goes fine first.
         for args in sorted(calls, key=lambda a: -a[0].width):
             spec, key, kidx, *_, model = args
@@ -2908,7 +2975,7 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
             ms = cuda_ms(lambda: level_prelude_kernel(*args), 50)
             device_ms = graph_ms(lambda: level_prelude_kernel(*args), 50)
             plain_ms = cuda_ms(lambda: plain(*args), 5)
-            bound_ms, bound_by, sector_ms = sel_bound(args)
+            bound_ms, bound_by, lane_ms, sector_ms = sel_bound(args)
             # Every cluster size: the same bytes (the float64 Hessian sums
             # make the result the plan's no matter), and its device time.
             ref = level_prelude_kernel(*args)
@@ -2927,19 +2994,22 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
                 f"{n} | {model} | {plan.cluster} x {plan.slice} | "
                 f"{'pass' if ok else 'FAIL'}: {sel_row(r)} | {ms:.4f} | "
                 f"{device_ms:.4f} | {plain_ms:.3f} | {bound_ms:.4f} "
-                f"({bound_by}) | {sector_ms:.4f} | "
+                f"({bound_by}) | {lane_ms:.4f} | {sector_ms:.4f} | "
                 f"{device_ms / bound_ms:.2f} | device ms by cluster x slice: "
                 + ", ".join(by_plan))
             for k, v in (("ms", ms), ("device_ms", device_ms),
                          ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                         ("sector_ms", sector_ms)):
+                         ("lane_ms", lane_ms), ("sector_ms", sector_ms)):
                 totals[k] += v
         log(f"  {what}, all {len(calls)} levels: kernel "
             f"{totals['ms']:.4f} ms, device {totals['device_ms']:.4f}, "
             f"plain {totals['plain_ms']:.3f}, bound {totals['bound_ms']:.4f}"
-            f" (bytes; {totals['sector_ms']:.4f} with the taps as sectors), "
-            f"device / bound "
-            f"{totals['device_ms'] / max(totals['bound_ms'], 1e-12):.2f}")
+            f" (bytes; with the taps as 32-byte sectors "
+            f"{totals['sector_ms']:.4f} in the keypoint-major windows, "
+            f"{totals['lane_ms']:.4f} in (P, P, N) ones), device / bound "
+            f"{totals['device_ms'] / max(totals['bound_ms'], 1e-12):.2f}, "
+            f"device / sectors "
+            f"{totals['device_ms'] / max(totals['sector_ms'], 1e-12):.2f}")
         entries[name] = dict(
             name=name, route="cuda",
             source="video_stabilizer_tpu_torch/csrc/prelude.cu",
@@ -2969,6 +3039,7 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
         by_width[min(by_width, key=lambda w: abs(w - 480))],
         by_width_4k[min(by_width_4k, key=lambda w: abs(w - 480))],
         (frames, ragged_specs, params.aligner), dev)]
+    one_frame_ms = 0.0
     for what, args in others:
         r = sel_compare(args)
         ok = sel_passes(r)
@@ -2978,8 +3049,16 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
             ok &= r["overflow"] > 0
             check(r["overflow"] > 0, f"{what}: {r['overflow']} diffs at or "
                   "above 256")
-        log(f"  {what} | {'pass' if ok else 'FAIL'}: {sel_row(r)}")
+        timed_ms = ""
+        if what.startswith("(c)"):
+            ms = graph_ms(lambda: level_prelude_kernel(*args), 50)
+            one_frame_ms += ms
+            timed_ms = f" | device {ms:.4f} ms"
+        log(f"  {what} | {'pass' if ok else 'FAIL'}: {sel_row(r)}"
+            + timed_ms)
         torch.cuda.empty_cache()
+    log(f"  (c) one streaming item, all {len(calls_1080p)} levels: device "
+        f"{one_frame_ms:.4f} ms")
     check(plan_same, "kernel J gives the same bytes under every cluster "
           "size (1, 2, 4, 8) at every level of both chunks")
     check(all_pass, "kernel J against its plain version at every input: "
@@ -3270,6 +3349,63 @@ def leaves_equal(a, b) -> bool:
         x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
+_KEYPOINT_MAJOR = []
+
+
+def keypoint_major_windows() -> bool:
+    """Whether the imported package keeps its keyframe windows
+    keypoint-major, (..., N, P, P), or as the JAX package does, (..., P,
+    P, N): a probe of its plain window extraction (N = 6, P = 4)."""
+    if not _KEYPOINT_MAJOR:
+        from video_stabilizer_tpu_torch.ops.patches import (
+            extract_tile_windows_flat)
+        shape = extract_tile_windows_flat(
+            torch.zeros((1, 6, 4), dtype=torch.uint8), 2, 1).shape
+        _KEYPOINT_MAJOR.append(tuple(shape[-3:]) == (6, 4, 4))
+    return _KEYPOINT_MAJOR[0]
+
+
+def tree_digest(tree) -> str:
+    """sha256 of every tensor, array and scalar of ``tree`` in order (its
+    dtype, shape and bytes), keyframe windows (a ``windows`` field) as (...,
+    P, P, N) whatever layout the package keeps, so that two packages that
+    differ only in the windows' layout give the same digest."""
+    import hashlib
+    h = hashlib.sha256()
+    major = keypoint_major_windows()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().contiguous()
+            h.update(f"{x.dtype}{tuple(x.shape)}".encode())
+            h.update(x.view(torch.uint8).numpy().tobytes()
+                     if x.numel() else b"")
+        elif isinstance(x, np.ndarray):
+            x = np.ascontiguousarray(x)
+            h.update(f"{x.dtype}{x.shape}".encode() + x.tobytes())
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            for name in x._fields:
+                v = getattr(x, name)
+                if name == "windows" and major:
+                    v = v.movedim(-3, -1)
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        else:
+            h.update(repr(x).encode())
+    walk(tree)
+    return h.hexdigest()
+
+
+def log_digest(tag: str, what: str, tree):
+    log(f"  digest {tag}: sha256 {tree_digest(tree)} ({what}; windows as "
+        "(P, P, N))")
+
+
 def within_bars(name, got, want) -> bool:
     """The bars of phases 9 and 10 for an output on which the un-captured
     path is not deterministic itself: outputs within 1 LSB on >= 99.9 %,
@@ -3282,7 +3418,7 @@ def within_bars(name, got, want) -> bool:
     return bool(torch.equal(got, want))
 
 
-def captured_vs_eager(frames, params, dev, model="similarity"):
+def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
     """J1 / J2: the chunks of ``frames`` through the captured entry point
     against the un-captured composition (``graphs.eager()``), from the same
     fresh state on the same pinned inputs; then the replay's steady time,
@@ -3358,6 +3494,8 @@ def captured_vs_eager(frames, params, dev, model="similarity"):
         check(leaves_equal(states, want_state),
               f"carried state ({len(tensor_leaves(states))} tensors) "
               "byte-equal to the un-captured path")
+    log_digest(tag, f"{len(chunks)} replayed chunks' outputs, meas, succ, "
+               "valid and the carried state", (got, states))
     check(all(torch.equal(a, b) for a, b in zip(first, got[0])),
           "chunk 0's returned values unchanged after chunks 1-"
           f"{len(chunks) - 1} ran")
@@ -3446,7 +3584,7 @@ def captured_1080p(frames, params, dev):
 @phase("J2. the captured 4K config 4 chunk (2 streams x 16 frames) against "
        "the un-captured one, and its replay")
 def captured_4k(frames, params, dev):
-    return captured_vs_eager(frames, params, dev, HOMOGRAPHY)
+    return captured_vs_eager(frames, params, dev, HOMOGRAPHY, "J2")
 
 
 J_CLIP_FRAMES = 32        # J5's and J6's clips: phase 9's / 10's first 32
@@ -3534,7 +3672,7 @@ def program_vs_eager(prog, run, names, replays):
     return out, walls, eager_ms, stats
 
 
-def clip_vs_eager(frames, params, dev, model="similarity"):
+def clip_vs_eager(frames, params, dev, model="similarity", tag="J5"):
     """J5 / J6: ``stabilize_streams`` (``stabilize_streams_homography``),
     which replay ``_stabilize_streams_jit``, on the first J_CLIP_FRAMES
     frames of every stream, captured and replayed, against the un-captured
@@ -3584,6 +3722,7 @@ def clip_vs_eager(frames, params, dev, model="similarity"):
     check(per.get(("level_prelude_kernel", None), 0) == per[(need, None)],
           f"kernel J launched once per level in every replay (as {need})")
     log("  clip " + replay_figures(walls, eager_ms, streams * total))
+    log_digest(tag, "the last replay's outputs, meas and succ", out)
     return walls
 
 
@@ -3596,7 +3735,7 @@ def clip_1080p(frames, params, dev):
 @phase("J6. the captured 4K config 4 clip (stabilize_streams_homography, 2 "
        "streams x 32 frames) against the un-captured one, and its replay")
 def clip_4k(frames, params, dev):
-    return clip_vs_eager(frames, params, dev, HOMOGRAPHY)
+    return clip_vs_eager(frames, params, dev, HOMOGRAPHY, "J6")
 
 
 J_LENGTHS = (32, 24, 16)  # J9 (a): three clip lengths in a row
@@ -4149,7 +4288,8 @@ def permuted_keypoints(one):
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(SEED))
     perm = perm.to(one[0].device)
     out = list(one)
-    for k in (0, 2, 3, 5, 6, 7, 8):  # windows, tmpl, jac, fx, fy, ox, oy
+    out[0] = one[0][:, perm].contiguous()   # windows (K, N, P, P)
+    for k in (2, 3, 5, 6, 7, 8):  # tmpl, jac, fx, fy, ox, oy
         out[k] = one[k][..., perm].contiguous()
     return out
 
@@ -4413,7 +4553,7 @@ def per_item_b(calls):
     worst = 0.0
     iters_by_thr = {v: 0 for v in ITEM_THRESHOLDS}
     for args, kw in calls:
-        p, n = args[0].shape[1], args[0].shape[3]
+        n, p = args[0].shape[1], args[0].shape[3]
         items = args[9].shape[0]
         level = f"{kw['width']}x{kw['height']} (P={p}, N={n}, {items} items)"
         (t_g, c_g, _, i_g) = gn_solve(*args, **kw)
@@ -4465,6 +4605,25 @@ def per_item_b(calls):
                          GN_REPLACES, totals, bound_share, worst)
 
 
+def sweep_inputs(dev):
+    """G1's inputs: (host frames, card clip, card gray, combos, the widened
+    aligner params, the sweep's StabilizerParams, the combos'
+    DynAlignParams)."""
+    from video_stabilizer_tpu_torch.apps import grid_search_align as gsa
+    from video_stabilizer_tpu_torch.config import StabilizerParams
+
+    frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
+    clip = torch.from_numpy(frames).to(dev)
+    gray = torch.from_numpy(gsa.host_gray(frames)).to(dev)
+    combos = gsa.combo_grid()
+    base, line = gsa.widened_aligner()
+    log(f"  {len(combos)} combos x {SWEEP_FRAMES} frames; {line}")
+    params = StabilizerParams(aligner=base, enable_smoother=False,
+                              crop_pixels=gsa.CROP)
+    return (frames, clip, gray, combos, base, params,
+            gsa.dyn_params(combos, dev))
+
+
 @phase("G1 aligner sweep at 1080p: grid_search_align's 27 combos in one "
        "level loop")
 def aligner_sweep(dev):
@@ -4489,15 +4648,7 @@ def aligner_sweep(dev):
     from video_stabilizer_tpu_torch.utils.flow import (
         gray_f32, median_jitter_px_device_impl)
 
-    frames = synth_streams(dev, SWEEP_FRAMES, MAIN_CONTENT, seeds=[SEED])[0][0]
-    clip = torch.from_numpy(frames).to(dev)
-    gray = torch.from_numpy(gsa.host_gray(frames)).to(dev)
-    combos = gsa.combo_grid()
-    base, line = gsa.widened_aligner()
-    log(f"  {len(combos)} combos x {SWEEP_FRAMES} frames; {line}")
-    params = StabilizerParams(aligner=base, enable_smoother=False,
-                              crop_pixels=gsa.CROP)
-    dyn = gsa.dyn_params(combos, dev)
+    frames, clip, gray, combos, base, params, dyn = sweep_inputs(dev)
     levels = len(aligner.level_specs(WIDTH, HEIGHT, base))
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -4625,6 +4776,7 @@ def sweep_replayed(g1):
         ("outputs", "meas", "ok"), J_SWEEP_REPLAYS)
     log(f"  run_combos {replay_figures(walls, eager_ms)}; G1's un-captured "
         f"align {g1['align_ms']:.1f} ms + FIR {g1['warp_ms']:.1f} ms")
+    log_digest("J7", "the last replay's outputs, meas and ok", out)
     return out[0]
 
 
@@ -4676,7 +4828,7 @@ def check_gn8_per_item(cap):
     worst = 0.0
     for (args, kw), (pargs, pkw) in zip(cap["gn8_calls"], cap["persp_calls"]):
         w, h = kw["width"], kw["height"]
-        level = f"{w}x{h} (P={args[0].shape[1]}, N={args[0].shape[3]})"
+        level = f"{w}x{h} (P={args[0].shape[3]}, N={args[0].shape[1]})"
         gaps, conv_equal, p67_gap, median, apart = [], True, 0.0, 0.0, []
         n_items = 0
         for name, (a, k) in (("captured", (args, kw)),
@@ -4719,7 +4871,7 @@ def check_gn8_per_item(cap):
         device_ms = graph_ms(lambda: gn8_solve(*args, **kwc), 10)
         plain_ms = cuda_ms(lambda: gn8_solve_plain(*args, **kwc), 1)
         bytes_moved = gn_bytes(args, p_cap, iters)
-        ops = int(iters.sum()) * 2 * args[0].shape[3] * OPS_PER_SAMPLE
+        ops = int(iters.sum()) * 2 * args[0].shape[1] * OPS_PER_SAMPLE
         bound_ms, bound_by = roofline(bytes_moved, ops)
         bound_share[bound_by] += bound_ms
         log(f"    kernel {ms:.4f} ms (device {device_ms:.4f} ms), plain "
@@ -5065,6 +5217,16 @@ def streaming_path(frames, poses, params, dev):
                 host=host)
 
 
+def stream_digest(run):
+    """J3's digest line: a replayed ``timed_stream`` run's outputs,
+    measurements, flags, carried aligner state and accumulator."""
+    stab = run["stab"]
+    log_digest("J3", "the replayed run's outputs, measurements, flags, the "
+               "carried aligner state and accumulator",
+               (run["outs"], run["meas"], run["ok"], stab.aligner._state,
+                stab._accum))
+
+
 @phase("J3. the streaming path replayed against the un-captured one (S1's "
        "clip, every graph captured)")
 def streaming_replayed(host, poses, params, dev, s1):
@@ -5094,6 +5256,7 @@ def streaming_replayed(host, poses, params, dev, s1):
         check(same_out and same_meas,
               f"{name}: {len(got['outs'])} outputs byte-equal "
               f"{same_out}, measurements and flags byte-equal {same_meas}")
+    stream_digest(run)
     fig, eag = run["figures"], eager["figures"]
     log(f"  replayed | un-captured, frames {STREAM_STEADY}-"
         f"{STREAM_FRAMES - 1} ({STREAM_FRAMES - STREAM_STEADY} frames): "
@@ -5196,7 +5359,7 @@ def check_one_item(s1, crop):
     for lvl in range(levels):
         items = calls[lvl::levels]           # this level of every frame
         kw = items[0][1]
-        p, n = items[0][0][0].shape[1], items[0][0][0].shape[3]
+        n, p = items[0][0][0].shape[1], items[0][0][0].shape[3]
         level = f"{kw['width']}x{kw['height']} (P={p}, N={n})"
         same, d_ab, d_t, iters, ab = True, 0.0, 0.0, [], []
         one_item = all(args[-1].shape[0] == 1 for args, _ in items)
@@ -5645,12 +5808,46 @@ def on_card(params, dev):
           f"measurements, flags byte-equal to the un-captured clip {same}")
 
 
+@phase("digests: J1, J5, J2, J6, J7 and J3 alone, their digest lines")
+def digests_only(params, params_4k, dev):
+    """The replayed paths of J1, J5, J2, J6, J7 and J3 on their phases'
+    inputs, each printing its digest line, and nothing else of the script:
+    run on another commit's package (``--package-root``) it gives the lines
+    to hold this one's against."""
+    for shape, chunks, seeds, prm, runs in (
+            ((HEIGHT, WIDTH), CHUNKS, None, params,
+             (captured_1080p, clip_1080p)),
+            ((H4K, W4K), CHUNKS_4K, list(SEEDS_4K), params_4k,
+             (captured_4k, clip_4k))):
+        frames, _ = synth_streams(dev, CHUNK * chunks, MAIN_CONTENT, *shape,
+                                  seeds=seeds)
+        for run in runs:
+            run(frames, prm, dev)
+        del frames
+        torch.cuda.empty_cache()
+    _, clip, gray, _, _, sweep_params, dyn = sweep_inputs(dev)
+    sweep_replayed(dict(gray=gray, clip=clip, dyn=dyn, params=sweep_params,
+                        align_ms=math.nan, warp_ms=math.nan))
+    del clip, gray
+    frames, poses = synth_streams(
+        dev, STREAM_FRAMES + STREAM_PROFILED, MAIN_CONTENT, seeds=[SEED])
+    host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
+            for f in frames[0, :STREAM_FRAMES]]
+    stream_digest(timed_stream(host, poses[0], params, dev))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # ``--package-root DIR`` runs the script on the package under DIR (an
+    # unpacked commit), ``--digests`` only the paths' digest lines.
+    argv = sys.argv[1:]
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "--package-root" in argv:
+        root = os.path.abspath(argv[argv.index("--package-root") + 1])
+    sys.path.insert(0, root)
     from video_stabilizer_tpu_torch.config import (
         AlignerParams, StabilizerParams)
 
@@ -5672,6 +5869,11 @@ def main() -> int:
         params, aligner=AlignerParams(selection="topk"))
     params_fixed = dataclasses.replace(
         params, aligner=AlignerParams(fixed_iters=FIXED_KS[-1]))
+    if "--digests" in argv:
+        digests_only(params, params_4k, dev)
+        log("chip_smoke: digests " + ("FAILED:\n  " + "\n  ".join(failures)
+                                      if failures else "done"))
+        return 1 if failures else 0
     crop = params.crop_pixels
     synth_on_card(dev)
     kernels = {}

@@ -190,9 +190,11 @@ def test_compute_keyframe_h_matches_jax():
     got = ha._compute_keyframe_h([_t(x)[None] for x in pyr],
                                  aligner.level_specs(W, H, PARAMS))
     for g, w in zip(got, want):
-        for name in ("idx_x", "idx_y", "coords", "windows"):
+        for name in ("idx_x", "idx_y", "coords"):
             np.testing.assert_array_equal(getattr(g, name)[0].numpy(),
                                           np.asarray(getattr(w, name)))
+        np.testing.assert_array_equal(                   # (N, P, P) here
+            g.windows[0].numpy(), np.moveaxis(np.asarray(w.windows), -1, 0))
         assert g.jac.shape == (1,) + w.jac.shape
         jac_w = np.asarray(w.jac)
         assert np.max(np.abs(g.jac[0].numpy() - jac_w)) <= \
@@ -248,7 +250,7 @@ def test_gn8_solve_dispatches_cpu_to_plain():
     """On a CPU tensor the wrapper is the plain version (no launch)."""
     p, n, k, b = 9, 6, 1, 2
     rng = np.random.default_rng(0)
-    args = (_t(rng.integers(0, 256, (k, p, p, n), dtype=np.uint8)),
+    args = (_t(rng.integers(0, 256, (k, n, p, p), dtype=np.uint8)),
             torch.zeros(b, dtype=torch.int64),
             _t(rng.uniform(0, 255, (b, 2, n)).astype(np.float32)),
             _t(rng.normal(size=(b, 8, 2, n)).astype(np.float32)),

@@ -135,7 +135,7 @@ def test_gn_solve_dispatches_cpu_to_plain():
     """On a CPU tensor the wrapper is the plain version (no launch)."""
     p, n, k, b = 9, 6, 1, 2
     rng = np.random.default_rng(0)
-    args = (torch.from_numpy(rng.integers(0, 256, (k, p, p, n),
+    args = (torch.from_numpy(rng.integers(0, 256, (k, n, p, p),
                                           dtype=np.uint8)),
             torch.zeros(b, dtype=torch.int64),
             torch.from_numpy(rng.uniform(0, 255, (b, 2, n)).astype(

@@ -78,10 +78,12 @@ def test_plain_matches_jax(model):
             JPARAMS)
         for g, w in zip(got, want):
             for name in ("idx_x", "idx_y", "coords", "windows"):
+                want_f = np.asarray(getattr(w, name))
+                if name == "windows":       # JAX (P, P, N), the port (N, P, P)
+                    want_f = np.moveaxis(want_f, -1, 0)
                 np.testing.assert_array_equal(
                     getattr(g, name)[k].numpy(),
-                    np.asarray(getattr(w, name)).astype(
-                        getattr(g, name).numpy().dtype))
+                    want_f.astype(getattr(g, name).numpy().dtype))
             jac_w = np.asarray(w.jac, np.float32)
             jac_g = g.jac[k].numpy()
             assert jac_g.shape == jac_w.shape
@@ -287,25 +289,50 @@ def _model_item(img, spec, item):
     return idx, flat
 
 
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm``: byte i of the result is byte (sel >> 4 i) & 7
+    of the 8 bytes of y:x (x's bytes 0-3, y's 4-7)."""
+    both = [(x >> (8 * b)) & 0xFF for b in range(4)] + \
+        [(y >> (8 * b)) & 0xFF for b in range(4)]
+    return sum(both[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
 def _model_windows(flat, spec, item, wins, win_base):
-    """The item's window pieces, stored into the flat buffer ``wins`` whose
-    windows start ``win_base`` bytes past an aligned address: slot (q, s)
-    stores the s-th aligned piece run q touches, from the band."""
+    """The item's windows, stored into the flat buffer ``wins`` whose
+    windows start ``win_base`` bytes past an aligned address, as
+    ``store_windows`` does: where P^2 and the run's address are multiples
+    of 4, slot (q, w) reads the shared words at window bytes 4w .. 4w + 3
+    of tiles 4q .. 4q + 3, transposes them with the kernel's byte permutes
+    and stores one word into each tile's window; else a byte a slot."""
     _, k, i, j0, nj = (int(v) for v in item)
     t, m = spec.tile, spec.margin
     p, n = t + 2 * m, spec.ht * spec.wt
-    span, _, jw, _ = _plan(spec.wt, t, m)
-    piece = 16 if t >= 8 else 4
-    smax = max(2, (span + 2 * piece - 2) // piece)
-    q = np.arange(p * p)
-    r, c = q // p, q % p
-    run = win_base + (k * p * p + q) * n + i * spec.wt + j0
-    off = PAD + (r * t + c % t) * jw + c // t
-    lo = piece * np.arange(smax)[None, :] - (run & (piece - 1))[:, None]
-    pos = lo[..., None] + np.arange(piece)
-    keep = (lo[..., None] < nj) & (pos >= 0) & (pos < nj)
-    dst = run[:, None, None] + pos
-    wins[dst[keep]] = flat[(off[:, None, None] + pos)[keep]]
+    _, _, jw, _ = _plan(spec.wt, t, m)
+    pp = p * p
+    run = win_base + (k * n + i * spec.wt + j0) * pp
+    u = np.arange(pp)
+    off = PAD + (u // p * t + u % p % t) * jw + u % p // t   # band_offset
+    if pp % 4 or run % 4:
+        j = np.arange(nj)[:, None]
+        wins[run + j * pp + u] = flat[off + j]
+        return
+    q = np.arange(-(-nj // 4))[:, None]
+    w = np.arange(pp // 4)[None, :]
+    # v[b]: the word at tile 4q's byte 4w + b, its byte d tile 4q + d's.
+    v = [sum(flat[off[4 * w + b] + 4 * q + d] << (8 * d) for d in range(4))
+         for b in range(4)]
+    lo01, hi01 = _byte_perm(v[0], v[1], 0x5140), _byte_perm(v[0], v[1],
+                                                            0x7362)
+    lo23, hi23 = _byte_perm(v[2], v[3], 0x5140), _byte_perm(v[2], v[3],
+                                                            0x7362)
+    out = [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+           _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+    for d in range(4):
+        keep = np.broadcast_to(4 * q + d < nj, out[d].shape)
+        for b in range(4):
+            dst = run + (4 * q + d) * pp + 4 * w + b
+            wins[np.broadcast_to(dst, keep.shape)[keep]] = \
+                ((out[d] >> (8 * b)) & 0xFF)[keep]
 
 
 def _model_level(img, spec, win_base):
@@ -323,20 +350,22 @@ def _model_level(img, spec, win_base):
     body = wins[win_base:win_base + keys * p * p * n]
     assert (wins[:win_base] == 0xAB).all() and (
         wins[win_base + body.size:] == 0xAB).all()
-    return idx, body.reshape(keys, p, p, n)
+    return idx, body.reshape(keys, n, p, p)
 
 
-WIDE = aligner.LevelSpec(1300, 45, 10, 130, 4, 6)   # 5 spans, 16-byte pieces
+WIDE = aligner.LevelSpec(1300, 45, 10, 130, 4, 6)   # 5 spans, P = 22
 
 
-@pytest.mark.parametrize("level, base", [(0, 1), (1, 2), (2, 3), (3, 5)])
+@pytest.mark.parametrize("level, base", [(0, 4), (1, 2), (2, 0), (3, 8)])
 def test_kernel_design_model_matches_plain(level, base):
     """The kernel's phase-split band, its argmax in 4-tile words (16-bit
     column keys: |d| << 5 | 31 - row, then the tiles' full keys) and its
-    piece stores, run in numpy on tie-heavy and textured keyframes, rebuild
-    the plain version's indices and windows bit for bit, at an unaligned
-    window base: this file's three levels (tiles 4 and 2, 4-byte pieces)
-    and a wide level in spans of 32 tiles (tile 10, 16-byte pieces)."""
+    window stores, run in numpy on tie-heavy and textured keyframes,
+    rebuild the plain version's indices and keypoint-major windows bit for
+    bit: this file's three levels (tiles 4 and 2, P = 16 and 26) and a
+    wide level in spans of 32 tiles (tile 10, P = 22), by word transposes
+    at aligned window bases (a thread's word fixed at P = 16, stepping at
+    P = 22 and 26) and a byte a slot at an unaligned one (level 1)."""
     if level < len(SPECS):
         levels = _pyramid([_tie_heavy(H, W), natural_image(H, W, seed=5)])
         img, spec = levels[level], SPECS[level]

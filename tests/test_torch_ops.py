@@ -7,6 +7,7 @@ card instead of running on the CPU."""
 
 import ast
 import dataclasses
+import functools
 import pathlib
 
 import jax
@@ -102,11 +103,14 @@ def test_take_at_tile_argmax_bit_exact():
 
 @pytest.mark.parametrize("tile,margin", [(6, 3), (4, 12)])
 def test_extract_tile_windows_flat_bit_exact(tile, margin):
+    """The port's keypoint-major (N, P, P) windows are the JAX package's
+    (P, P, N) ones with the tile axis moved first, bit for bit."""
     img = np.random.default_rng(5).integers(0, 256, (38, 53), dtype=np.uint8)
     want = _j_windows(jnp.asarray(img), tile, margin)
     got = patches.extract_tile_windows_flat(_t(img), tile, margin)
     assert got.dtype == torch.uint8
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.moveaxis(np.asarray(want), -1, 0))
 
 
 def test_bgr_to_gray_bit_exact():
@@ -200,14 +204,45 @@ def test_sample_windows_flat_within_bf16_gap():
     rel_x = np.clip(rng.uniform(1.0, p - 2.0, (2, n)), 2.0, hi)
     rel_y = np.clip(rng.uniform(1.0, p - 2.0, (2, n)), 2.0, hi)
     rel_x, rel_y = rel_x.astype(np.float32), rel_y.astype(np.float32)
-    got = patches.sample_windows_flat(_t(np.asarray(wins)), _t(rel_x),
-                                      _t(rel_y)).numpy()
+    got = patches.sample_windows_flat(
+        _t(np.moveaxis(np.asarray(wins), -1, 0)), _t(rel_x),
+        _t(rel_y)).numpy()
     eager = np.asarray(jpatches.sample_windows_flat(wins, rel_x, rel_y))
     assert np.max(np.abs(got - eager)) <= 1e-4
     jitted = np.asarray(
         jax.jit(jpatches.sample_windows_flat)(wins, rel_x, rel_y))
     assert np.max(np.abs(got - jitted)) <= 1.0
     assert np.mean(np.abs(got - jitted)) <= 0.2
+
+
+def test_keypoint_major_windows_and_stacked_sample_match_jax():
+    """The port's (K, N, P, P) windows are the JAX package's tile-grid
+    ``extract_tile_windows`` (Ht, Wt, P, P) with (Ht, Wt) flattened, bit
+    for bit; ``sample_windows_flat`` on them, each row of positions through
+    ``key_index``, is the JAX package's eager sampler on that key's (P, P, N)
+    windows within the sum-order bar of the test above (1e-4). The shapes
+    are the test above's, whose eager JAX operations are compiled."""
+    rng = np.random.default_rng(12)
+    imgs = rng.integers(0, 256, (3, 60, 80), dtype=np.uint8)
+    got = patches.extract_tile_windows_flat(_t(imgs), 8, 6)
+    grid = np.asarray(jax.jit(jax.vmap(functools.partial(
+        jpatches.extract_tile_windows, tile=8, margin=6,
+        out_dtype=jnp.uint8)))(jnp.asarray(imgs)))
+    p, n = grid.shape[-1], grid.shape[1] * grid.shape[2]
+    assert got.shape == (3, n, p, p)
+    np.testing.assert_array_equal(got.numpy(), grid.reshape(3, n, p, p))
+    kidx = np.array([2, 0])
+    hi = np.float32(p - 3.0 - 1e-3)
+    rel_x = np.clip(rng.uniform(1.0, p - 2.0, (2, 2, n)), 2.0, hi)
+    rel_y = np.clip(rng.uniform(1.0, p - 2.0, (2, 2, n)), 2.0, hi)
+    rel_x, rel_y = rel_x.astype(np.float32), rel_y.astype(np.float32)
+    sample = patches.sample_windows_flat(got, _t(rel_x), _t(rel_y),
+                                         key_index=_t(kidx)).numpy()
+    for i, k in enumerate(kidx):
+        want = np.asarray(jpatches.sample_windows_flat(
+            jnp.asarray(np.moveaxis(got[k].numpy(), 0, -1)), rel_x[i],
+            rel_y[i]))
+        assert np.max(np.abs(sample[i] - want)) <= 1e-4
 
 
 def test_config_mirrors_jax():

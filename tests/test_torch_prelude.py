@@ -81,10 +81,10 @@ def _transforms(model):
 
 
 def _lobe_windows(key, spec, model, transform):
-    """(P, P, N) u8 windows with 255 under the taps of positive 2-D weight
+    """(N, P, P) u8 windows with 255 under the taps of positive 2-D weight
     and 0 under the others, at ``transform``'s positions of key 0 of
     ``key``, both sets (the Y set's pattern where they overlap)."""
-    p = key.windows.shape[1]
+    p = key.windows.shape[-1]
     ox, oy = patches.window_origins_flat(spec.ht, spec.wt, spec.tile,
                                          spec.margin)
     if model == "similarity":
@@ -97,15 +97,15 @@ def _lobe_windows(key, spec, model, transform):
         rx, ry = gn8_solve.warp_rel_positions_h(
             _t(transform)[None, None, None, :], u[:1], v[:1], spec.width,
             spec.height, ox, oy, p)
-    win = np.zeros((p, p, spec.ht * spec.wt), np.uint8)
+    win = np.zeros((spec.ht * spec.wt, p, p), np.uint8)
     sign = np.array([-1, 1, 1, -1])
     for s in range(2):
         x0 = np.floor(rx[0, s].numpy()).astype(int) - 1
         y0 = np.floor(ry[0, s].numpy()).astype(int) - 1
         for a in range(4):
             for b in range(4):
-                n = np.arange(win.shape[2])
-                win[y0 + a, x0 + b, n] = 255 if sign[a] * sign[b] > 0 else 0
+                n = np.arange(win.shape[0])
+                win[n, y0 + a, x0 + b] = 255 if sign[a] * sign[b] > 0 else 0
     return _t(win)
 
 
@@ -188,7 +188,7 @@ def _jax_reads(lvl, key, tmpl, transform, model):
                      jnp.asarray(key.idx_y.numpy()[kidx])], axis=1)
     tm = read(jnp.asarray(tmpl.numpy()[TEMPLATE_INDEX]), idx)
     coords = key.coords.numpy()[kidx]
-    windows = key.windows.numpy()[kidx]
+    windows = np.moveaxis(key.windows.numpy()[kidx], 1, -1)   # (B, P, P, N)
     wd = []
     for i in range(len(kidx)):
         rx, ry = positions(jnp.asarray(coords[i]), jnp.asarray(transform[i]))
@@ -343,8 +343,7 @@ def test_source_listed_and_scanned():
 # A numpy model of csrc/prelude.cu's design
 # --------------------------------------------------------------------------
 
-THREADS, WARPS, BINS, PER_LANE = prelude.THREADS, prelude.THREADS // 32, \
-    tselect.DEFAULT_BINS, 9
+THREADS, BINS, PER_LANE = prelude.THREADS, tselect.DEFAULT_BINS, 9
 
 
 def _threshold_scan(counts, k):
@@ -362,15 +361,6 @@ def _threshold_scan(counts, k):
             if b < BINS and np.float32(run[j]) >= k:
                 return b
     return BINS
-
-
-def _butterfly(lanes):
-    """Each warp's xor-shuffle sums in float64, (WARPS, 32, E) -> (WARPS,
-    E): the value every lane of the warp holds."""
-    v = lanes.astype(np.float64)
-    for off in (16, 8, 4, 2, 1):
-        v = v + v[:, np.arange(32) ^ off]
-    return v[:, 0]
 
 
 def kernel_model(wd, jac, fraction, cluster, model):
@@ -393,25 +383,28 @@ def kernel_model(wd, jac, fraction, cluster, model):
     scale = np.float32(0.5) if model == "similarity" else np.float32(1.0)
     jac_masked = (jac * (mask * scale)[None]).astype(np.float32)
     # Pass 2: entry e of a CTA is set e >= cnt, keypoint lo + e % cnt; a
-    # thread takes entries t, t + THREADS, ... in order, adding each
-    # float32 product in float64.
+    # round stages THREADS entries, and thread (group g, entry q) adds the
+    # float32 product q of the round's entries g, g + GROUPS, ... in
+    # order to its float64 sum; the CTA sums its groups in order.
     pairs = [(a, b) for a in range(rows) for b in range(a, rows)]
     pa, pb = (np.array(x) for x in zip(*pairs))
+    groups = THREADS // len(pairs)
     ctas = []
     for lo, hi in plan.slices():
         cnt = hi - lo
-        acc = np.zeros((THREADS, len(pairs)), np.float64)
+        acc = np.zeros((groups, len(pairs)), np.float64)
         for e0 in range(0, 2 * cnt, THREADS):
             e = np.arange(e0, min(e0 + THREADS, 2 * cnt))
             s = (e >= cnt).astype(int)
             nn = lo + np.where(s == 1, e - cnt, e)
             jv = jac[:, s, nn]                                   # (R, E)
-            term = (jv * mask[s, nn])[pa] * jv[pb]               # (NH, E)
-            acc[e - e0] = acc[e - e0] + term.T.astype(np.float64)
-        warps = _butterfly(acc.reshape(WARPS, 32, len(pairs)))
+            term = ((jv * mask[s, nn])[pa] * jv[pb]).T           # (E, NH)
+            for i0 in range(0, len(e), groups):
+                part = term[i0:i0 + groups].astype(np.float64)
+                acc[:len(part)] = acc[:len(part)] + part
         cta = np.zeros(len(pairs), np.float64)
-        for w in range(WARPS):
-            cta = cta + warps[w]
+        for g in range(groups):
+            cta = cta + acc[g]
         ctas.append(cta)
     total = np.zeros(len(pairs), np.float64)
     for c in ctas:
@@ -471,9 +464,9 @@ def test_launch_plan():
     and each CTA keeps MIN_SLICE keypoints, at the cells' shapes (the
     1080p chunk's 128 items, the 4K chunk's 32, a streaming item, G1's
     864); slices cover [0, N) once."""
-    for items, n, want in ((128, 5184, 2), (128, 480, 1), (32, 20736, 8),
-                           (32, 5184, 8), (32, 1296, 4), (32, 1980, 4),
-                           (32, 480, 1), (1, 5184, 8), (1, 1296, 4),
+    for items, n, want in ((128, 5184, 2), (128, 480, 2), (32, 20736, 8),
+                           (32, 5184, 8), (32, 1296, 8), (32, 1980, 8),
+                           (32, 480, 4), (1, 5184, 8), (1, 1296, 8),
                            (864, 5184, 1), (1, 1, 1)):
         plan = prelude.launch_plan(items, n)
         assert plan.cluster == want, (items, n)

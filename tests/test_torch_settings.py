@@ -159,7 +159,7 @@ def test_fixed_iters_zero_and_converging_forms():
     at K = the converging loop's own count the two forms agree."""
     r = np.random.default_rng(2)
     p, n, bsz = 12, 40, 3
-    args = (torch.tensor(r.integers(0, 256, (2, p, p, n)), dtype=torch.uint8),
+    args = (torch.tensor(r.integers(0, 256, (2, n, p, p)), dtype=torch.uint8),
             torch.tensor([0, 1, 1]),
             torch.tensor(r.uniform(0, 255, (bsz, 2, n)), dtype=torch.float32),
             torch.tensor(r.normal(0, 2e-3, (bsz, 4, 2, n)),

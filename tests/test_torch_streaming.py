@@ -283,6 +283,31 @@ def test_leaf_order_is_jax_pytree_order():
     assert [x.dtype for x in mine] == [np.asarray(x).dtype for x in leaves]
 
 
+def test_jax_checkpoint_loads_and_saves_back_byte_equal(tmp_path):
+    """An aligner checkpoint the JAX package wrote (random leaves, its
+    (P, P, N) windows) loads into the port, whose windows are keypoint-major
+    (N, P, P), and the port saves it back byte-equal, leaf for leaf."""
+    jstate = jaligner.init_state(W, H, JPARAMS.aligner)
+    leaves, treedef = jax.tree.flatten(jstate)
+    r = np.random.default_rng(9)
+    leaves = [r.integers(0, 200, np.shape(x)).astype(np.asarray(x).dtype)
+              for x in leaves]
+    jpath, path = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jcheckpoint.save_aligner_state(jpath, jax.tree.unflatten(treedef, leaves))
+    template = aligner.init_state(W, H, PARAMS.aligner, device="cpu")
+    got = checkpoint.load_aligner_state(jpath, template)
+    win = len(got.pyramid) + 4                   # level 0's windows
+    np.testing.assert_array_equal(got.key[0].windows[0].numpy(),
+                                  np.moveaxis(leaves[win], -1, 0))
+    checkpoint.save_aligner_state(path, got)
+    with np.load(jpath) as a, np.load(path) as b:
+        assert int(a["n"]) == int(b["n"]) == len(leaves)
+        for i in range(len(leaves)):
+            x, y = a[f"leaf_{i}"], b[f"leaf_{i}"]
+            assert (x.dtype, x.shape) == (y.dtype, y.shape), i
+            assert x.tobytes() == y.tobytes(), i
+
+
 def test_float_windows_load_as_u8_and_must_be_integral():
     """Windows that were bf16 in the JAX package's state come as float32."""
     state = aligner.init_state(W, H, PARAMS.aligner, device="cpu")
@@ -292,8 +317,8 @@ def test_float_windows_load_as_u8_and_must_be_integral():
     leaves[win] = r.integers(0, 256, leaves[win].shape).astype(np.float32)
     got = checkpoint.state_from_leaves(leaves, state)
     assert got.key[0].windows.dtype == torch.uint8
-    np.testing.assert_array_equal(got.key[0].windows[0].numpy(),
-                                  leaves[win])
+    np.testing.assert_array_equal(                   # file (P, P, N)
+        got.key[0].windows[0].permute(1, 2, 0).numpy(), leaves[win])
     leaves[win][0, 0, 0] = 0.5
     with pytest.raises(ValueError, match="not all integers"):
         checkpoint.state_from_leaves(leaves, state)

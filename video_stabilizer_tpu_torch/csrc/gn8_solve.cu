@@ -33,10 +33,11 @@
 // host never syncs inside a level.
 //
 // Bound on an H100: bytes. chip_smoke.gn_bytes counts the 16 useful bytes
-// of window taps per keypoint and set, but each tap costs its own 32-byte
-// sector (below), so an iteration over all items of 4K level 0 touches
-// most of the keyframes' windows (18 keyframes x 21.2 MB), more than
-// the 50 MB L2 holds: level 0 is bound by those device-memory bytes. The
+// of window taps per keypoint and set; read from the keypoint-major
+// windows they cost 4 row reads, 3-4 32-byte sectors (below), and an
+// iteration over all items of 4K level 0 still touches sectors of most of
+// the keyframes' windows (18 keyframes x 21.2 MB), more than the 50 MB L2
+// holds: level 0 is bound by those device-memory bytes. The
 // coarse levels are bound by latency: a launch lasts as long as its
 // slowest item's serial iterations. What the design does about each part
 // of an iteration:
@@ -65,12 +66,12 @@
 //   - Tail: lanes run the eight dt rows, the nine entries of H(p) H(dt)
 //     and the four corners (two IEEE divisions each) in parallel; a
 //     butterfly of shuffles takes the corner maximum.
-// The window taps stay in the JAX package's (K, P, P, N) layout: a
-// keypoint's taps lie N bytes apart, so each costs its own sector. A
-// keypoint-major copy would touch 4 sectors per sample instead of 16, but
-// writing it once per keyframe and level moves about as many bytes as it
-// would save at level 0. Built with -fmad=false so the products and sums
-// round where the JAX package's do; divisions are IEEE (no fast math). Only the order of the
+// The windows are keypoint-major, (K, N, P, P) (kernel I writes them so):
+// a keypoint's 4x4 taps are 4 rows of 4 bytes of its own window, one
+// aligned 32-byte sector a row at P = 32, where the JAX package's (P, P, N)
+// put each tap N bytes from the next, a sector each (lanczos_taps.cuh).
+// Built with -fmad=false so the products and sums round where the JAX
+// package's do; divisions are IEEE (no fast math). Only the order of the
 // sum over keypoints differs.
 
 #include <cooperative_groups.h>
@@ -121,7 +122,7 @@ __device__ __forceinline__ void warp_corner_h(const float p[NP], int i,
 
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS) gn8_solve_kernel(
-    const uint8_t* __restrict__ windows,    // (K, P, P, N)
+    const uint8_t* __restrict__ windows,    // (K, N, P, P)
     const int64_t* __restrict__ key_index,  // (B,)
     const float* __restrict__ tmpl,         // (B, 2, N)
     const float* __restrict__ jacm,         // (B, 8, 2, N)
@@ -153,7 +154,7 @@ __global__ void __launch_bounds__(THREADS) gn8_solve_kernel(
   const int cached = pl.cached;
 
   const size_t key = (size_t)key_index[item];
-  const uint8_t* win = windows + key * P * P * N;
+  const uint8_t* win = windows + key * N * P * P;
   const float* uk = u_all + key * 2 * N;
   const float* vk = v_all + key * 2 * N;
   const float* tm = tmpl + (size_t)item * 2 * N;
@@ -218,8 +219,8 @@ __global__ void __launch_bounds__(THREADS) gn8_solve_kernel(
         const float wy = ny / den * lv.width + lv.cy;
         const float rx = clampf(wx - q[0], 2.0f, lv.rel_hi);
         const float ry = clampf(wy - q[1], 2.0f, lv.rel_hi);
-        const float residual =
-            q[6 + s] - lanczos_window_sample(win, rx, ry, P, N, n);
+        const float residual = q[6 + s] - lanczos_window_sample(
+            win + (size_t)n * P * P, rx, ry, P);
 #pragma unroll
         for (int k = 0; k < NP; ++k) acc[k] += q[8 + k * 2 + s] * residual;
       }

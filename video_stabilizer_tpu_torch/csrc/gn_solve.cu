@@ -36,10 +36,11 @@
 // lockstep across items, and the host never syncs inside a level.
 //
 // Bound on an H100: bytes. chip_smoke.gn_bytes counts the 16 useful bytes
-// of window taps per keypoint and set, but each tap costs its own 32-byte
-// sector (below), so an iteration over all items of 1080p level 0 touches
-// most of the keyframes' windows (72 keyframes x 5.3 MB), more than
-// the 50 MB L2 holds: level 0 is bound by those device-memory bytes. The
+// of window taps per keypoint and set; read from the keypoint-major
+// windows they cost 4 row reads, 3-4 32-byte sectors (below), and an
+// iteration over all items of 1080p level 0 still touches sectors of most
+// of the keyframes' windows (72 keyframes x 5.3 MB), more than the 50 MB
+// L2 holds: level 0 is bound by those device-memory bytes. The
 // coarse levels are bound by latency: a launch lasts as long as its
 // slowest item's serial iterations. What the design does about each part
 // of an iteration:
@@ -66,13 +67,12 @@
 //     memory alive until all have read it.
 //   - Tail: lanes run the four dt rows and the four corners in parallel;
 //     a butterfly of shuffles takes the corner maximum.
-// The window taps stay in the JAX package's (K, P, P, N) layout: a
-// keypoint's taps lie N bytes apart, so each costs its own sector. A
-// keypoint-major copy would touch 4 sectors per sample instead of 16, but
-// writing it once per keyframe and level moves about as many bytes as it
-// would save at level 0. Built with -fmad=false so the products and sums
-// round where the JAX package's do; only the order of the sum over
-// keypoints differs.
+// The windows are keypoint-major, (K, N, P, P) (kernel I writes them so):
+// a keypoint's 4x4 taps are 4 rows of 4 bytes of its own window, one
+// aligned 32-byte sector a row at P = 32, where the JAX package's (P, P, N)
+// put each tap N bytes from the next, a sector each (lanczos_taps.cuh).
+// Built with -fmad=false so the products and sums round where the JAX
+// package's do; only the order of the sum over keypoints differs.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -118,7 +118,7 @@ __device__ __forceinline__ void warp_corner(const float t[NP], int i,
 }
 
 __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
-    const uint8_t* __restrict__ windows,  // (K, P, P, N)
+    const uint8_t* __restrict__ windows,  // (K, N, P, P)
     const int64_t* __restrict__ key_index,  // (B,)
     const float* __restrict__ tmpl,       // (B, 2, N)
     const float* __restrict__ jacm,       // (B, 4, 2, N)
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
   const int cached = pl.cached;
 
   const size_t key = (size_t)key_index[item];
-  const uint8_t* win = windows + key * P * P * N;
+  const uint8_t* win = windows + key * N * P * P;
   const float* fxk = fx + key * 2 * N;
   const float* fyk = fy + key * 2 * N;
   const float* tm = tmpl + (size_t)item * 2 * N;
@@ -210,8 +210,8 @@ __global__ void __launch_bounds__(THREADS) gn_solve_kernel(
         const float wyp = b * fxv + (1.0f + a) * fyv + tyu;
         const float rx = clampf(wxp - q[0], 2.0f, lv.rel_hi);
         const float ry = clampf(wyp - q[1], 2.0f, lv.rel_hi);
-        const float residual =
-            q[6 + s] - lanczos_window_sample(win, rx, ry, P, N, n);
+        const float residual = q[6 + s] - lanczos_window_sample(
+            win + (size_t)n * P * P, rx, ry, P);
 #pragma unroll
         for (int k = 0; k < NP; ++k) acc[k] += q[8 + k * 2 + s] * residual;
       }

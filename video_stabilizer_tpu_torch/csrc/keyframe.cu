@@ -30,8 +30,9 @@
 //     the double rounded to float, the homography's division by w as a
 //     multiply by the float32 reciprocal, as torch divides a tensor by a
 //     Python float there);
-//   windows (K, P, P, N) u8: window n = (i, j), pixel (r, c) = a[i t - m +
-//     r][j t - m + c], clamped at the image's own edges.
+//   windows (K, N, P, P) u8, keypoint-major: window n = (i, j), P rows of P
+//     contiguous bytes, pixel (r, c) = a[i t - m + r][j t - m + c], clamped
+//     at the image's own edges.
 // Each output is contiguous and written at its given address (the wrapper
 // points it at row `offset` of the caller's set); nothing else is written.
 // chip_smoke.py phase I holds the kernel to the plain version bit for bit.
@@ -46,8 +47,8 @@
 // where the item's shared memory would pass SMEM_TARGET. The items of all
 // levels form one list, level 0's first, and one launch runs it, a block an
 // item in the list's order: the small levels fill the tail of level 0's
-// waves, a level of one frame costs no launch of its own, and neighbouring
-// items, whose window runs share sectors, run at the same time. A block
+// waves, a level of one frame costs no launch of its own, and an item's
+// windows are one contiguous run of (span tiles) P^2 bytes. A block
 //   - loads its band's P source rows and (span tiles) t + 2m columns into
 //     shared memory, edge-clamped (rows by choosing the source row), 16
 //     bytes a lane from aligned loads (bytes at the ends), in a phase-split
@@ -63,15 +64,20 @@
 //     takes the largest (|d|, 1023 - index), reads the sign of the winner's
 //     difference from the band and writes idx, coords and the Jacobian
 //     rows;
-//   - stores the windows: P x P runs of (span tiles) bytes, each as the
-//     aligned pieces it covers, 16 bytes (five shared-memory words and four
-//     funnel shifts a store) where t >= 8, else 4 (two words and a shift),
-//     words or bytes at the ends where a piece leaves the run.
+//   - stores the windows: in the phase-split layout window byte u = r P +
+//     c of 4 neighbouring tiles is one 4-byte run of shared memory (line r
+//     t + c % t, bytes c / t on), so a thread takes 4 tiles and one word w
+//     of their windows: it reads the 4 runs of bytes u = 4w .. 4w + 3 (a
+//     funnel shift of two words each), transposes the 4x4 bytes with 8
+//     __byte_perm and stores one word into each tile's window; a warp's
+//     lanes take consecutive words, so each store instruction writes 128
+//     contiguous bytes. Where P^2 is not a multiple of 4 or the run is not
+//     4-byte aligned, a byte a thread.
 // Measured on the card (PERF.md): this beat persistent blocks that copied
 // the next band by cp.async under the current one's stores (the copies hid
-// nothing, the second buffer cost occupancy and the items' order lost the
-// writes' locality), and building the layout from 4-byte loads by byte
-// permutes; a thread a tile column of 4 tiles beat one a column of one.
+// nothing, the second buffer cost occupancy), and building the layout from
+// 4-byte loads by byte permutes; a thread a tile column of 4 tiles beat one
+// a column of one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,9 +115,7 @@ struct Level {
   int span, spans;   // tiles an item, items a tile row
   int jw;            // shared bytes of one (row, phase) line of the band
   int keys_at;       // shared offset of the argmax's column keys
-  int piece;         // bytes a window slot stores: 16 where t >= 8, else 4
-  int smax;          // slots a window run: (span + 2 piece - 2) / piece, >= 2
-  uint32_t div_smax, div_p, div_t;  // __umulhi magics
+  uint32_t div_p, div_t;  // __umulhi magics
   Scalars s;
 };
 
@@ -369,62 +373,77 @@ __device__ void argmax_tiles(const Level& L, const Band& B,
   }
 }
 
-// The windows: plane q = (r, c) holds the item's nj tiles at [q N + n0,
-// q N + n0 + nj) of keyframe k, from band line (r, c % t) at byte c / t
-// on. Slot (q, s) stores the s-th aligned piece (16 or 4
-// bytes, L.piece) the run touches: one store inside the run, words or
-// bytes at its ends.
+// The shared byte offset of window byte u = r P + c of the item's tile 0
+// (tile j's is j bytes on).
+__device__ __forceinline__ int band_offset(const Level& L, int u) {
+  const int r = (int)__umulhi((uint32_t)u, L.div_p);
+  const int c = u - r * L.p;
+  const int cd = (int)__umulhi((uint32_t)c, L.div_t);
+  return PAD + (r * L.t + c - cd * L.t) * L.jw + cd;
+}
+
+// The windows of the item's nj tiles, one run of nj P^2 bytes from window
+// n0 = i wt + j0 of keyframe k on. Slot (q, w): tiles 4q .. 4q + 3, word w
+// of each one's window; the slots a thread takes step by THREADS, so (q,
+// w) steps by (dq, dw) and w's 4 offsets change only where dw is not 0.
 __device__ void store_windows(const Level& L, const Band& B,
+                              const uint8_t* smem,
                               const uint32_t* smem_words, int tid) {
-  const int t = L.t, p = L.p, jw = L.jw, nj = B.nj;
-  uint8_t* const win = L.windows + B.k * (long long)p * p * L.n
-                       + B.i * L.wt + B.j0;
-  const int piece = L.piece, smax = L.smax;
-  const int slots = p * p * smax;
-  for (int e = tid; e < slots; e += THREADS) {
-    const int q = (int)__umulhi((uint32_t)e, L.div_smax);
-    const int sidx = e - q * smax;
-    const int r = (int)__umulhi((uint32_t)q, L.div_p);
-    const int cq = q - r * p;
-    const int cd = (int)__umulhi((uint32_t)cq, L.div_t);
-    uint8_t* const run = win + (long long)q * L.n;
-    const int lo = piece * sidx - (int)((uintptr_t)run & (piece - 1));
-    if (lo >= nj) continue;
-    const int o = PAD + (r * t + cq - cd * t) * jw + cd + lo;
-    const uint32_t* const sw = smem_words + (o >> 2);
-    const int sh = 8 * (o & 3);
-    uint8_t* const dst = run + lo;
-    if (piece == 4) {
-      const uint32_t v = __funnelshift_r(sw[0], sw[1], sh);
-      if (lo >= 0 && lo + 4 <= nj) {
-        *reinterpret_cast<uint32_t*>(dst) = v;
-      } else {
+  const int pp = L.p * L.p, nj = B.nj;
+  uint8_t* const win =
+      L.windows + ((long long)B.k * L.n + B.i * L.wt + B.j0) * pp;
+  if ((pp & 3) == 0 && ((uintptr_t)win & 3) == 0) {
+    const int words = pp >> 2;
+    const int slots = ((nj + 3) >> 2) * words;
+    const int dq = THREADS / words, dw = THREADS - dq * words;
+    int q = tid / words, w = tid - q * words;
+    int o[4];
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          if (lo + bb >= 0 && lo + bb < nj) dst[bb] = (uint8_t)(v >> (8 * bb));
-        }
+    for (int b = 0; b < 4; ++b) o[b] = band_offset(L, 4 * w + b);
+    for (int e = tid; e < slots; e += THREADS) {
+      // v[b]'s byte d: tile 4q + d's byte 4w + b.
+      uint32_t v[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int ob = o[b] + 4 * q;
+        v[b] = word_at(smem_words, ob >> 2, 8 * (ob & 3));
       }
-      continue;
-    }
-    uint32_t v[4];
+      const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140);
+      const uint32_t hi01 = __byte_perm(v[0], v[1], 0x7362);
+      const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140);
+      const uint32_t hi23 = __byte_perm(v[2], v[3], 0x7362);
+      const uint32_t out[4] = {__byte_perm(lo01, lo23, 0x5410),
+                               __byte_perm(lo01, lo23, 0x7632),
+                               __byte_perm(hi01, hi23, 0x5410),
+                               __byte_perm(hi01, hi23, 0x7632)};
+      uint32_t* const dst =
+          reinterpret_cast<uint32_t*>(win + (long long)(4 * q) * pp) + w;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) v[u] = __funnelshift_r(sw[u], sw[u + 1], sh);
-    if (lo >= 0 && lo + 16 <= nj) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-      continue;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int lw = lo + 4 * u;
-      if (lw >= 0 && lw + 4 <= nj) {
-        *reinterpret_cast<uint32_t*>(dst + 4 * u) = v[u];
-      } else {
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          if (lw + bb >= 0 && lw + bb < nj)
-            dst[4 * u + bb] = (uint8_t)(v[u] >> (8 * bb));
-        }
+      for (int d = 0; d < 4; ++d) {
+        if (4 * q + d < nj) dst[(long long)d * words] = out[d];
       }
+      q += dq;
+      if (dw != 0) {
+        w += dw;
+        if (w >= words) {
+          w -= words;
+          ++q;
+        }
+#pragma unroll
+        for (int b = 0; b < 4; ++b) o[b] = band_offset(L, 4 * w + b);
+      }
+    }
+    return;
+  }
+  const int dj = THREADS / pp, du = THREADS - dj * pp;
+  int j = tid / pp, u = tid - j * pp;
+  for (int e = tid; e < nj * pp; e += THREADS) {
+    win[(long long)j * pp + u] = smem[band_offset(L, u) + j];
+    j += dj;
+    u += du;
+    if (u >= pp) {
+      u -= pp;
+      ++j;
     }
   }
 }
@@ -444,7 +463,7 @@ __global__ void __launch_bounds__(THREADS)
   argmax_columns(L, B, smem_words, keys, tid);
   __syncthreads();
   argmax_tiles(L, B, smem + PAD, keys, S.homography != 0, tid);
-  store_windows(L, B, smem_words, tid);
+  store_windows(L, B, smem, smem_words, tid);
 }
 
 uint32_t umulhi_magic(int d) {
@@ -466,12 +485,6 @@ int plan_level(Level& L) {
     if (smem <= SMEM_TARGET || L.span == 1) break;
   }
   L.spans = (L.wt + L.span - 1) / L.span;
-  // 16-byte pieces were faster on the card at t = 10 and 20, 4-byte ones
-  // at t = 2 and 4 (PERF.md).
-  L.piece = t >= 8 ? 16 : 4;
-  // 2 at least: the magic needs d > 1.
-  L.smax = max(2, (L.span + 2 * L.piece - 2) / L.piece);
-  L.div_smax = umulhi_magic(L.smax);
   L.div_p = umulhi_magic(L.p);
   L.div_t = umulhi_magic(t);
   return smem;

@@ -43,32 +43,49 @@
 // set, keypoint) 1 template byte and the 16 window taps read, and 4 bytes
 // of tmpl and 4 R of jac_masked written. Items share keyframes (a 1080p
 // chunk's 128 items read 72), so this comes to about 0.05 ms a 1080p
-// chunk (6 levels) or a 4K chunk (32 items, 7 levels) at 3.35 TB/s. Each
-// tap lies N bytes from the next, so each costs its own 32-byte sector:
-// counted as sectors the taps come to about 1.6 GB at the 1080p chunk.
+// chunk (6 levels) or a 4K chunk (32 items, 7 levels) at 3.35 TB/s. The
+// windows are keypoint-major, (K, N, P, P): a keypoint's 16 taps are 4
+// rows of 4 bytes of its own window, one aligned 32-byte sector a row at P
+// = 32 (levels 0 and 1), 3 or 4 sectors a patch at the coarser P, where
+// the JAX package's (P, P, N) layout cost a sector a tap (about 1.6 GB at
+// the 1080p chunk).
 //
 // The design. An item is a thread-block cluster of 1-8 CTAs (the plan's
 // cluster size, ops/prelude.py::launch_plan), CTA r taking keypoints
 // [r slice, (r + 1) slice) of both sets, so a level of few items still
 // spreads over the card:
-//   - pass 1: a thread an entry (set-major within the slice), its position,
-//     sample, template byte and wd; tmpl (and wd) go out, the entry's bin
-//     stays in dynamic shared memory as u16, and an integer shared atomic
-//     adds it to its set's 257-bin histogram (integer adds: the order does
-//     not matter);
+//   - pass 1: a lane a keypoint, a warp 32 consecutive ones, both sets
+//     back to back: both sets' coords, argmax indices and template bytes
+//     read first (read-only loads, __ldg, so none waits on a store), then
+//     the positions, the two 4x4 patches of the keypoint's window and wd.
+//     A patch is 4 rows of 4 bytes (a row from two aligned words,
+//     lanczos_taps.cuh); 4 lanes read the 4 rows of one keypoint's patch,
+//     so one load instruction covers 8 patches and touches 8-16 128-byte
+//     lines, not 32 (the L1 serves a warp's load a line at a time), and
+//     the rows go back to their lane through shared memory. tmpl (and wd)
+//     go out, each entry's bin stays in dynamic shared memory as u16, and
+//     an integer shared atomic adds it to its set's 257-bin histogram
+//     (integer adds: the order does not matter);
 //   - merge: cluster.sync; every CTA sums the cluster's histograms through
 //     DSMEM in rank order, and warp s scans set s's bins (9 a lane, a
 //     shuffle scan of the lane sums, a ballot for the first bin that
 //     reaches k);
-//   - pass 2: a thread an entry again, the mask from its bin; jac_masked
-//     goes out, and the R (R + 1) / 2 distinct Hessian entries accumulate
-//     in registers, each float32 product (jac_i * mask) * jac_j added in
-//     float64;
-//   - Hessian: each warp by a butterfly of shuffles, each CTA over its
-//     warps in order, the cluster's rank 0 over the CTAs in rank order
-//     through DSMEM, all in float64, rounded to float32 once at the end;
-//     a last cluster.sync keeps every CTA's shared memory alive until
-//     rank 0 has read it.
+//   - pass 2, in rounds of THREADS entries: a thread an entry reads its R
+//     jac rows (all R loads before the first store), writes jac_masked and
+//     stages the rows and the mask in shared memory; then the R (R + 1) /
+//     2 distinct Hessian entries are dealt to THREADS / NH groups of NH
+//     threads, thread (g, h) adding entry h's float32 product (jac_a *
+//     mask) * jac_b of the staged entries g, g + THREADS / NH, ... to one
+//     float64 sum. A thread holds one double, not NH: the 8x8 form kept
+//     36 in registers (124 a thread, 2 CTAs an SM) in the first design;
+//   - Hessian: each CTA's groups in order, the cluster's rank 0 over the
+//     CTAs in rank order through DSMEM, all in float64, rounded to float32
+//     once at the end; a last cluster.sync keeps every CTA's shared memory
+//     alive until rank 0 has read it.
+// Measured on the card (PERF.md, kernel J, the 1080p chunk's 6 levels): a
+// lane a patch read 0.345 ms, 4 lanes a patch 0.316, the loads ahead of
+// the stores 0.262; warp-aggregated histogram adds (__match_any_sync) and
+// 6 or 8 CTAs an SM (40 or 32 registers) were slower.
 // No float atomics: a launch is deterministic, as the captured programs'
 // byte-equal replays need. The float64 sums make the Hessian the float32
 // rounding of the exact sum of the products (but where that lies within
@@ -90,12 +107,14 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+// Both forms hold 4 CTAs an SM (64 registers a thread at most).
+constexpr int MIN_CTAS = 4;
 constexpr int BINS = 257;          // 0..255 and the overflow bin 256
 constexpr int BINS_PER_LANE = 9;   // 32 x 9 >= 257
 constexpr int KEEP_ALL = BINS;     // the threshold when no bin reaches k
 
 struct Level {
-  const uint8_t* windows;          // (K, P, P, N)
+  const uint8_t* windows;          // (K, N, P, P)
   const float* coords;             // (K, 2 xy, 2 sets, N)
   const float* jac;                // (K, R, 2, N)
   const int32_t* idx_x;            // (K, ht, wt)
@@ -145,15 +164,31 @@ __device__ __forceinline__ void warp_position(const float* q, float fx,
   ry = clampf(wy - oy, 2.0f, L.rel_hi);
 }
 
+// The Hessian's distinct entry i (row-major over a <= b) as its (a, b).
 template <int R>
-__global__ void __launch_bounds__(THREADS) prelude_kernel(const Level L) {
+__device__ __forceinline__ void hess_entry(int i, int& a, int& b) {
+  a = 0;
+  while (i >= R - a) {
+    i -= R - a;
+    ++a;
+  }
+  b = a + i;
+}
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+    prelude_kernel(const Level L) {
   constexpr int NH = R * (R + 1) / 2;  // distinct Hessian entries
+  constexpr int GROUPS = THREADS / NH; // threads summing one entry
+  constexpr int ST = R + 1;            // a staged entry: jac rows, mask
   extern __shared__ uint16_t s_bin[];  // (2 x slice) entry bins
   __shared__ int s_hist[2 * BINS];     // this CTA's histograms
   __shared__ int s_count[2 * BINS];    // the cluster's
   __shared__ int s_thresh[2];
-  __shared__ double s_warp[WARPS][NH];
+  __shared__ float s_stage[THREADS * ST];
+  __shared__ double s_part[GROUPS * NH];
   __shared__ double s_cta[NH];
+  __shared__ __align__(16) uint32_t s_rows[WARPS][32][4];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = L.cluster;
@@ -170,7 +205,8 @@ __global__ void __launch_bounds__(THREADS) prelude_kernel(const Level L) {
   __syncthreads();
 
   const size_t key = (size_t)L.key_index[item];
-  const uint8_t* win = L.windows + key * L.p * L.p * N;
+  const size_t pp = (size_t)L.p * L.p;
+  const uint8_t* win = L.windows + key * N * pp;
   const float* fxk = L.coords + key * 4 * N;  // [xy][set][n]
   const int32_t* idx_x = L.idx_x + key * N;
   const int32_t* idx_y = L.idx_y + key * N;
@@ -180,28 +216,59 @@ __global__ void __launch_bounds__(THREADS) prelude_kernel(const Level L) {
 #pragma unroll
   for (int k = 0; k < R; ++k) q[k] = L.transform[(size_t)item * R + k];
 
-  // Pass 1: position, sample, template byte, wd and its bin.
-  for (int e = tid; e < 2 * cnt; e += THREADS) {
-    const int s = e >= cnt;
-    const int n = lo + (s ? e - cnt : e);
+  // Pass 1: a lane a keypoint, a warp 32 consecutive ones, both sets:
+  // position, the 4 rows of the keypoint's patch (read by 4 lanes, one row
+  // each, so a load instruction covers 8 patches; passed back through
+  // s_rows), the sample, template byte, wd and its bin. A lane past the
+  // slice shadows its warp's first keypoint and stores nothing.
+  uint32_t (*const rows_of)[4] = s_rows[warp];
+  for (int i0 = warp * 32; i0 < cnt; i0 += THREADS) {
+    const int i = i0 + lane;
+    const bool live = i < cnt;
+    const int n = lo + (live ? i : i0);
     const int ty = n / L.wt;
     const int tx = n - ty * L.wt;
-    float rx, ry;
-    warp_position<R>(q, fxk[s * N + n], fxk[2 * N + s * N + n],
-                     (float)(tx * L.t - L.margin),
-                     (float)(ty * L.t - L.margin), L, rx, ry);
-    const float sample = lanczos_window_sample(win, rx, ry, L.p, N, n);
-    const int idx = s ? idx_y[n] : idx_x[n];
-    const int py = ty * L.t + idx / L.t;
-    const int px = tx * L.t + idx % L.t;
-    const float tv = (float)frame[(size_t)py * L.w + px];
-    const float d = fabsf(sample - tv);
-    const size_t out = ((size_t)item * 2 + s) * N + n;
-    L.tmpl[out] = tv;
-    if (L.wd != nullptr) L.wd[out] = d;
-    const int bin = (int)fminf(floorf(d), (float)(BINS - 1));
-    s_bin[e] = (uint16_t)bin;
-    atomicAdd(&s_hist[s * BINS + bin], 1);
+    const float ox = (float)(tx * L.t - L.margin);
+    const float oy = (float)(ty * L.t - L.margin);
+    // Both sets' inputs up front (read-only loads, so none waits on the
+    // other set's stores): coords, argmax indices, template bytes.
+    float fx[2], fy[2], tvs[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      fx[s] = __ldg(fxk + s * N + n);
+      fy[s] = __ldg(fxk + 2 * N + s * N + n);
+      const int idx = __ldg((s ? idx_y : idx_x) + n);
+      const int py = ty * L.t + idx / L.t;
+      const int px = tx * L.t + idx % L.t;
+      tvs[s] = (float)__ldg(frame + (size_t)py * L.w + px);
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      float rx, ry;
+      warp_position<R>(q, fx[s], fy[s], ox, oy, L, rx, ry);
+      const float tv = tvs[s];
+      const TapPatch tp = tap_patch(rx, ry);
+      const int first = n * L.p * L.p + tp.iy0 * L.p + tp.ix0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int src = 8 * k + (lane >> 2);
+        const int at = __shfl_sync(gn::FULL, first, src);
+        rows_of[src][lane & 3] = load_bytes4(win + at + (lane & 3) * L.p);
+      }
+      __syncwarp();
+      const uint4 r4 = *reinterpret_cast<const uint4*>(rows_of[lane]);
+      __syncwarp();
+      const uint32_t rows[4] = {r4.x, r4.y, r4.z, r4.w};
+      const float sample = patch_sample(tp, rows);
+      if (!live) continue;
+      const float d = fabsf(sample - tv);
+      const size_t out = ((size_t)item * 2 + s) * N + n;
+      L.tmpl[out] = tv;
+      if (L.wd != nullptr) L.wd[out] = d;
+      const int bin = (int)fminf(floorf(d), (float)(BINS - 1));
+      s_bin[s * cnt + i] = (uint16_t)bin;
+      atomicAdd(&s_hist[s * BINS + bin], 1);
+    }
   }
 
   // Merge: the cluster's counts, in rank order, then one scan a set.
@@ -254,52 +321,56 @@ __global__ void __launch_bounds__(THREADS) prelude_kernel(const Level L) {
   }
   __syncthreads();
 
-  // Pass 2: the mask, jac_masked and the Hessian's partial sums.
+  // Pass 2: a thread an entry stages its jac rows and mask and writes
+  // jac_masked; then thread (group g, entry h) adds the products of entry
+  // h of the staged entries g, g + GROUPS, ... in float64.
   const int th0 = s_thresh[0];
   const int th1 = s_thresh[1];
   const float* jk = L.jac + key * R * 2 * N;
   float* jm_out = L.jac_masked + (size_t)item * R * 2 * N;
-  double h[NH];
+  const int grp = tid / NH;
+  int ha, hb;
+  hess_entry<R>(tid - grp * NH, ha, hb);
+  double acc = 0.0;
+  for (int base = 0; base < 2 * cnt; base += THREADS) {
+    const int e = base + tid;
+    if (e < 2 * cnt) {
+      const int s = e >= cnt;
+      const int n = lo + (s ? e - cnt : e);
+      const float m = (int)s_bin[e] <= (s ? th1 : th0) ? 1.0f : 0.0f;
+      const float mj = R == 4 ? m * 0.5f : m;
+      float* st = s_stage + tid * ST;
+      // Every row's load issued before the first store.
+      float j[R];
 #pragma unroll
-  for (int i = 0; i < NH; ++i) h[i] = 0.0;
-  for (int e = tid; e < 2 * cnt; e += THREADS) {
-    const int s = e >= cnt;
-    const int n = lo + (s ? e - cnt : e);
-    const float m = (int)s_bin[e] <= (s ? th1 : th0) ? 1.0f : 0.0f;
-    const float mj = R == 4 ? m * 0.5f : m;
-    float j[R];
+      for (int r = 0; r < R; ++r)
+        j[r] = __ldg(jk + (size_t)(r * 2 + s) * N + n);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      j[r] = jk[(size_t)(r * 2 + s) * N + n];
-      jm_out[(size_t)(r * 2 + s) * N + n] = j[r] * mj;
+      for (int r = 0; r < R; ++r) {
+        jm_out[(size_t)(r * 2 + s) * N + n] = j[r] * mj;
+        st[r] = j[r];
+      }
+      st[R] = m;
     }
-    int c = 0;
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const float ja = j[a] * m;
-#pragma unroll
-      for (int b = a; b < R; ++b) h[c++] += (double)(ja * j[b]);
+    __syncthreads();
+    const int staged = min(THREADS, 2 * cnt - base);
+    if (grp < GROUPS) {
+      for (int i = grp; i < staged; i += GROUPS) {
+        const float* st = s_stage + i * ST;
+        const float ja = st[ha] * st[R];
+        acc += (double)(ja * st[hb]);
+      }
     }
+    __syncthreads();
   }
 
-  // Hessian: warps, then the CTA's warps in order, then the cluster's CTAs
-  // in rank order.
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    double v = h[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(gn::FULL, v, off);
-    h[i] = v;
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < NH; ++i) s_warp[warp][i] = h[i];
-  }
+  // Hessian: the groups of the CTA in order, then the cluster's CTAs in
+  // rank order.
+  if (grp < GROUPS) s_part[grp * NH + (tid - grp * NH)] = acc;
   __syncthreads();
   if (tid < NH) {
     double v = 0.0;
-    for (int w = 0; w < WARPS; ++w) v += s_warp[w][tid];
+    for (int g = 0; g < GROUPS; ++g) v += s_part[g * NH + tid];
     s_cta[tid] = v;
   }
   if (cs > 1) {
@@ -313,15 +384,11 @@ __global__ void __launch_bounds__(THREADS) prelude_kernel(const Level L) {
       const double* src = cs > 1 ? cluster.map_shared_rank(s_cta, r) : s_cta;
       v += src[tid];
     }
-    int a = 0, rem = tid;
-    while (rem >= R - a) {
-      rem -= R - a;
-      ++a;
-    }
-    const int b = a + rem;
-    float* hb = L.hess + (size_t)item * R * R;
-    hb[a * R + b] = (float)v;
-    hb[b * R + a] = (float)v;
+    int a, b;
+    hess_entry<R>(tid, a, b);
+    float* hm = L.hess + (size_t)item * R * R;
+    hm[a * R + b] = (float)v;
+    hm[b * R + a] = (float)v;
   }
   // No CTA leaves while rank 0 may still read its partial.
   if (cs > 1) cluster.sync();
@@ -362,6 +429,25 @@ struct PreludeArgs {
   float cx, cy, inv_w, wf, rel_hi;
 };
 
+// The registers a thread of each form takes and the CTAs of the launch's
+// block size an SM holds with `slice` keypoints a CTA (its dynamic shared
+// memory): regs[0], ctas[0] for the similarity's R = 4, [1] for R = 8.
+// Returns a cudaError_t.
+extern "C" int vs_prelude_attributes(int slice, int* regs, int* ctas) {
+  void (*const forms[2])(const Level) = {prelude_kernel<4>,
+                                         prelude_kernel<8>};
+  for (int i = 0; i < 2; ++i) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, forms[i]);
+    if (err != cudaSuccess) return (int)err;
+    regs[i] = attr.numRegs;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas[i], forms[i], THREADS, (size_t)2 * slice * sizeof(uint16_t));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 // One level for `batch` items; homography: 0 for the similarity's R = 4
 // rows, 1 for the homography's R = 8. Returns a cudaError_t
 // (cudaErrorInvalidValue for a shape the kernel does not take).
@@ -369,7 +455,8 @@ extern "C" int vs_level_prelude(const PreludeArgs* a, int homography,
                                 void* stream) {
   if (a->batch < 1 || a->n < 1 || a->p < 5 || a->t < 1 || a->wt < 1 ||
       a->cluster < 1 || a->cluster > 8 || a->slice < 1 ||
-      (long long)a->slice * a->cluster < a->n)
+      (long long)a->slice * a->cluster < a->n ||
+      (long long)a->n * a->p * a->p > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const Level L{(const uint8_t*)a->windows,
                 (const float*)a->coords,

@@ -276,7 +276,7 @@ def init_state(width: int, height: int, params: AlignerParams,
                               device=dev),
             coords=torch.zeros((1, 2, 2, n), device=dev),
             jac=torch.zeros((1, 4, 2, n), device=dev),
-            windows=torch.zeros((1, p, p, n), dtype=torch.uint8,
+            windows=torch.zeros((1, n, p, p), dtype=torch.uint8,
                                 device=dev)))
     return AlignerState(pyramid=pyramid, key=tuple(key), curr_idx=0,
                         frames_seen=0)

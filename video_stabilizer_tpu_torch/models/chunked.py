@@ -283,9 +283,10 @@ def stream_state_from_numpy(d, model: str = "similarity",
     numpy arrays (e.g. ``jax.tree.map(np.asarray, state)``), or from a
     mapping with the same field names; ``model`` names the family that
     built it (its keyframes' ``LevelKeyDataH`` carry the same fields as
-    ``LevelKeyData``, with an 8-row Jacobian). A single stream (scalar
-    ``pairs_seen``) gets a leading stream axis of 1; a stacked batch of
-    streams keeps its leading axis."""
+    ``LevelKeyData``, with an 8-row Jacobian); the keyframes' windows move
+    from the JAX package's (P, P, N) to the port's (N, P, P). A single
+    stream (scalar ``pairs_seen``) gets a leading stream axis of 1; a
+    stacked batch of streams keeps its leading axis."""
     dev = resolve_device(device)
     npar = model_ops(model)["nparams"]
     got = np.shape(_field(d, "accum"))[-1]
@@ -306,7 +307,8 @@ def stream_state_from_numpy(d, model: str = "similarity",
                      idx_y=conv(_field(k, "idx_y"), torch.int32),
                      coords=conv(_field(k, "coords"), torch.float32),
                      jac=conv(_field(k, "jac"), torch.float32),
-                     windows=conv(_field(k, "windows"), torch.uint8))
+                     windows=conv(np.moveaxis(np.asarray(
+                         _field(k, "windows")), -1, -3), torch.uint8))
         for k in _field(pair, "key"))
     return StreamState(
         pair=PairCarry(key_pyr=tuple(conv(p, torch.uint8)

@@ -85,7 +85,7 @@ def gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u, v, ox,
     """Plain PyTorch version of kernel C: the masked XLA loop of
     ``_align_level_h``, batched over items, each with its own threshold."""
     thr = item_thresholds(threshold, p_init.shape[0], p_init.device)
-    psize = windows.shape[1]
+    psize = windows.shape[-1]
     kidx = key_index.to(torch.int64)
     ui, vi = u[kidx], v[kidx]                            # (B, 2, N)
     w_l, h_l = float(width), float(height)
@@ -121,10 +121,10 @@ def gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u, v, ox,
 
 
 def _check(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy, p_init):
-    k, p, _, n = windows.shape
+    k, n, p, _ = windows.shape
     bsz = p_init.shape[0]
     want = {
-        "windows": (windows, (k, p, p, n), torch.uint8),
+        "windows": (windows, (k, n, p, p), torch.uint8),
         "key_index": (key_index, (bsz,), None),
         "tmpl": (tmpl, (bsz, 2, n), torch.float32),
         "jac_masked": (jac_masked, (bsz, 8, 2, n), torch.float32),
@@ -151,7 +151,7 @@ def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
     """Run one level's whole 8-DOF GN loop for every item.
 
     Args:
-      windows: (K, P, P, N) u8 keyframe sampling windows.
+      windows: (K, N, P, P) u8 keyframe sampling windows.
       key_index: (B,) integer keyframe of each item.
       tmpl: (B, 2, N) f32 template intensities.
       jac_masked: (B, 8, 2, N) f32 masked Jacobian rows.
@@ -171,7 +171,7 @@ def gn8_solve(windows, key_index, tmpl, jac_masked, hinv, u, v, ox, oy,
                p_init)
         return gn8_solve_plain(windows, key_index, tmpl, jac_masked, hinv, u,
                                v, ox, oy, p_init, **kwargs)
-    plan = launch_plan(p_init.shape[0], windows.shape[3])
+    plan = launch_plan(p_init.shape[0], windows.shape[1])
     return gn8_solve_with_plan(plan, windows, key_index, tmpl, jac_masked,
                                hinv, u, v, ox, oy, p_init, **kwargs)
 
@@ -188,7 +188,7 @@ def gn8_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
     if dev.type != "cuda":
         raise ValueError(f"kernel C runs on cuda, not {dev}")
     bsz = p_init.shape[0]
-    _, p, _, n = windows.shape
+    _, n, _, p = windows.shape
     if ((plan.items, plan.n) != (bsz, n) or plan.threads not in THREADS
             or plan.cluster not in CLUSTER_SIZES):
         raise ValueError(f"{plan} does not fit {bsz} items of {n} keypoints")

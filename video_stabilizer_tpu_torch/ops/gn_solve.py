@@ -130,7 +130,7 @@ def gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox,
     threshold (true with no step), iters = fixed_iters."""
     fixed = fixed_iters >= 0
     thr = item_thresholds(threshold, t_init.shape[0], t_init.device)
-    p = windows.shape[1]
+    p = windows.shape[-1]
     kidx = key_index.to(torch.int64)
     fxi, fyi = fx[kidx], fy[kidx]                       # (B, 2, N)
     cx, cy = width * 0.5, height * 0.5
@@ -172,10 +172,10 @@ def gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox,
 
 def _check(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
            t_init):
-    k, p, p2, n = windows.shape
+    k, n, p, _ = windows.shape
     bsz = t_init.shape[0]
     want = {
-        "windows": (windows, (k, p, p, n), torch.uint8),
+        "windows": (windows, (k, n, p, p), torch.uint8),
         "key_index": (key_index, (bsz,), None),
         "tmpl": (tmpl, (bsz, 2, n), torch.float32),
         "jac_masked": (jac_masked, (bsz, 4, 2, n), torch.float32),
@@ -204,7 +204,7 @@ def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
     iterations (see ``gn_solve_plain``).
 
     Args:
-      windows: (K, P, P, N) u8 keyframe sampling windows.
+      windows: (K, N, P, P) u8 keyframe sampling windows.
       key_index: (B,) integer keyframe of each item.
       tmpl: (B, 2, N) f32 template intensities.
       jac_masked: (B, 4, 2, N) f32 masked, set-averaged Jacobian rows.
@@ -224,7 +224,7 @@ def gn_solve(windows, key_index, tmpl, jac_masked, hinv, fx, fy, ox, oy,
                t_init)
         return gn_solve_plain(windows, key_index, tmpl, jac_masked, hinv, fx,
                               fy, ox, oy, t_init, **kwargs)
-    plan = launch_plan(t_init.shape[0], windows.shape[3])
+    plan = launch_plan(t_init.shape[0], windows.shape[1])
     return gn_solve_with_plan(plan, windows, key_index, tmpl, jac_masked,
                               hinv, fx, fy, ox, oy, t_init, **kwargs)
 
@@ -241,7 +241,7 @@ def gn_solve_with_plan(plan: LaunchPlan, windows, key_index, tmpl,
     if dev.type != "cuda":
         raise ValueError(f"kernel B runs on cuda, not {dev}")
     bsz = t_init.shape[0]
-    _, p, _, n = windows.shape
+    _, n, _, p = windows.shape
     if ((plan.items, plan.n) != (bsz, n) or plan.threads not in THREADS
             or plan.cluster not in CLUSTER_SIZES):
         raise ValueError(f"{plan} does not fit {bsz} items of {n} keypoints")

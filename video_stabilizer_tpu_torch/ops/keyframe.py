@@ -43,7 +43,7 @@ class LevelKeyData(NamedTuple):
     idx_y: torch.Tensor
     coords: torch.Tensor   # (K, 2 xy, 2 sets, N) float32 keypoint coords
     jac: torch.Tensor      # (K, 4 or 8, 2 sets, N) float32 Jacobian rows
-    windows: torch.Tensor  # (K, P, P, N) uint8 sampling windows
+    windows: torch.Tensor  # (K, N, P, P) uint8 sampling windows
 
 
 def jacobian_rows(model: str) -> int:
@@ -209,7 +209,7 @@ def _out_shapes(spec, rows):
     return (((spec.ht, spec.wt), torch.int32), ((spec.ht, spec.wt),
                                                  torch.int32),
             ((2, 2, n), torch.float32), ((rows, 2, n), torch.float32),
-            ((p, p, n), torch.uint8))
+            ((n, p, p), torch.uint8))
 
 
 def _check_out(out, imgs, specs, model, offset):

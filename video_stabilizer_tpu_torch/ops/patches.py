@@ -3,11 +3,17 @@ into the keyframe image.
 
 Keypoints live one per tile, so once per keyframe a (P, P) window around
 every tile is cut out (P = tile + 2*margin, repeat-edge padded) and each
-warped sample becomes a weighted sum inside its own window. Layout
-(P, P, N), with the tile grid N = Ht*Wt on the minor axis as in the JAX
-package (``video_stabilizer_tpu.ops.patches``). The tile-grid layout
-(..., Ht, Wt, P, P) of ``extract_tile_windows`` and its dense-weight
-sampler ``sample_windows`` are the gather-free oracles of ``ops/sparse.py``'s
+warped sample becomes a weighted sum inside its own window. The port
+stores them keypoint-major, (N, P, P) with N = Ht*Wt: window n is P rows of
+P contiguous bytes, the order of the JAX package's ``extract_tile_windows``
+(patches.py:41, (Ht, Wt, P, P)) with (Ht, Wt) flattened. A keypoint's 4x4
+Lanczos2 taps are then 4 short rows of one window, a few 32-byte sectors on
+the card. (The JAX package's ``extract_tile_windows_flat`` puts N on the
+minor axis, (P, P, N), for the TPU's 128 lanes; there each tap of a
+keypoint lies N bytes from the next. The checkpoint file keeps that
+layout: ``utils/checkpoint.py`` converts.) The tile-grid layout (..., Ht,
+Wt, P, P) of ``extract_tile_windows`` and its dense-weight sampler
+``sample_windows`` are the gather-free oracles of ``ops/sparse.py``'s
 ``*_windows`` forms, as in the JAX package (patches.py:41-238).
 """
 
@@ -41,14 +47,12 @@ def _tile_windows(img, tile: int, margin: int):
 
 
 def extract_tile_windows_flat(img, tile: int, margin: int):
-    """(..., H, W) u8 -> (..., P, P, Ht*Wt) u8 windows: the same pixels, bit
-    for bit, as the JAX package's one-hot matmul construction."""
+    """(..., H, W) u8 -> (..., Ht*Wt, P, P) u8 windows, keypoint-major: the
+    same pixels, bit for bit, as the JAX package's (P, P, Ht*Wt) one-hot
+    matmul construction with its tile axis moved first."""
     wins = _tile_windows(img, tile, margin)
-    lead = wins.shape[:-4]
-    nd = wins.dim()
     p = wins.shape[-1]
-    wins = wins.permute(*range(len(lead)), nd - 2, nd - 1, nd - 4, nd - 3)
-    return wins.reshape(lead + (p, p, -1)).contiguous()
+    return wins.reshape(wins.shape[:-4] + (-1, p, p)).contiguous()
 
 
 def extract_tile_windows(img, tile: int, margin: int,
@@ -124,10 +128,10 @@ def tap_weights(rel):
 
 
 def sample_windows_flat(windows, rel_x, rel_y, key_index=None):
-    """Weight-normalized Lanczos2 sample of the (P, P, N) windows.
+    """Weight-normalized Lanczos2 sample of the (N, P, P) windows.
 
     Args:
-      windows: (P, P, N) u8, or (K, P, P, N) u8 with ``key_index``.
+      windows: (N, P, P) u8, or (K, N, P, P) u8 with ``key_index``.
       rel_x, rel_y: (..., N) clamped window positions.
       key_index: with stacked windows, a (...,) int64 tensor naming the
         window stack each row of positions samples (broadcast over the
@@ -137,19 +141,19 @@ def sample_windows_flat(windows, rel_x, rel_y, key_index=None):
     bf16 as in ``patches.sample_windows_flat`` (patches.py:157-162) — and
     the sums in float32. Only the 4x4 taps that can carry weight are read.
     """
-    p, n = windows.shape[-3], windows.shape[-1]
+    n, p = windows.shape[-3], windows.shape[-1]
     y0, wy = tap_weights(rel_y)                        # (..., N, 4)
     x0, wx = tap_weights(rel_x)
     ar = torch.arange(NTAPS, device=windows.device)
     rows = y0[..., :, None] + ar                       # (..., N, 4)
     cols = x0[..., :, None] + ar
     nidx = torch.arange(n, device=windows.device)
-    flat = (rows[..., :, :, None] * p + cols[..., :, None, :]) * n \
-        + nidx[:, None, None]                          # (..., N, 4, 4)
+    flat = (nidx[:, None, None] * p + rows[..., :, :, None]) * p \
+        + cols[..., :, None, :]                        # (..., N, 4, 4)
     if key_index is not None:
         kidx = key_index.reshape(key_index.shape
                                  + (1,) * (flat.dim() - key_index.dim()))
-        flat = flat + kidx * (p * p * n)
+        flat = flat + kidx * (n * p * p)
     vals = windows.reshape(-1)[flat.reshape(-1)].reshape(flat.shape)
     bf = torch.bfloat16
     prod = (vals.to(bf) * wy[..., :, None].to(bf)) * wx[..., None, :].to(bf)

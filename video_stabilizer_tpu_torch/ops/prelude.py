@@ -47,12 +47,13 @@ from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
 # TARGET_CTAS (about two an SM of the H100's 132) and each CTA keeps at
 # least MIN_SLICE keypoints (the histogram merge, the scans and the
 # barriers cost a CTA the same whatever its slice holds). On the H100 this
-# plan was the fastest cluster size, or within 6 % of it, at every level
-# of the 1080p and 4K chunks (PERF.md, kernel J). The kernel's outputs are
-# the same bytes under every plan.
+# plan was the fastest cluster size, or within a few % of it, at every
+# level of the 1080p and 4K chunks (PERF.md, kernel J: 2 CTAs an item at
+# every 1080p level, 8 at 4K down to N = 1296, 4 at N = 480). The
+# kernel's outputs are the same bytes under every plan.
 THREADS = 256
 TARGET_CTAS = 256
-MIN_SLICE = 300
+MIN_SLICE = 100
 
 
 class LaunchPlan(NamedTuple):
@@ -157,7 +158,7 @@ def level_prelude_plain(spec, key, key_index, templates, template_index,
     """
     rows = jacobian_rows(model)
     w, h = spec.width, spec.height
-    p = key.windows.shape[1]
+    p = key.windows.shape[-1]
     tmpl = template_intensities(spec, key, key_index, templates,
                                 template_index)
     jac = key.jac[key_index]                                  # (B, R, 2, N)
@@ -241,13 +242,13 @@ def level_prelude_kernel(spec, key, key_index, templates, template_index,
                          f"{params.selection!r} (its plain version does)")
     rows = jacobian_rows(model)
     dev = key.windows.device
-    keys, p = key.windows.shape[0], key.windows.shape[1]
+    keys, p = key.windows.shape[0], key.windows.shape[-1]
     n = spec.ht * spec.wt
     bsz = transform.shape[0]
     if p != spec.tile + 2 * spec.margin:
         raise ValueError(f"kernel J: windows of {p} for tile {spec.tile}, "
                          f"margin {spec.margin}")
-    _want("windows", key.windows, (keys, p, p, n), torch.uint8, dev)
+    _want("windows", key.windows, (keys, n, p, p), torch.uint8, dev)
     _want("coords", key.coords, (keys, 2, 2, n), torch.float32, dev)
     _want("jac", key.jac, (keys, rows, 2, n), torch.float32, dev)
     _want("idx_x", key.idx_x, (keys, spec.ht, spec.wt), torch.int32, dev)
@@ -306,6 +307,19 @@ def level_prelude_kernel(spec, key, key_index, templates, template_index,
                            f"P {p}): CUDA error {err}")
     level_prelude_kernel.launches += 1
     return (tmpl, jac_masked, hess) + ((wd,) if return_wd else ())
+
+
+def kernel_attributes(slice_: int):
+    """((registers a thread of the 4x4 form, of the 8x8 form), (CTAs of
+    THREADS threads an SM of each at ``slice_`` keypoints a CTA)), as the
+    card reports them (``cudaFuncGetAttributes``, the occupancy API)."""
+    regs, ctas = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+    fn = cuda_build.load("prelude").vs_prelude_attributes
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.c_int(slice_), regs, ctas)
+    if err != 0:
+        raise RuntimeError(f"kernel J's attributes: CUDA error {err}")
+    return tuple(regs), tuple(ctas)
 
 
 @functools.cache

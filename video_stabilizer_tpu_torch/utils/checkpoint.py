@@ -16,9 +16,11 @@ pyramid levels:
   - ``curr_idx`` and ``frames_seen``, 0-d int32.
 
 The port's keyframe data carries a leading K = 1 axis that the file does
-not. The JAX package stores bfloat16 windows (its Pallas GN kernel's
-operand, aligner.py:126-127) as float32 (checkpoint.py:23-30); they load as
-u8 and must hold integers.
+not, and keeps its windows keypoint-major, (N, P, P) (``ops/patches.py``):
+the file keeps the JAX package's (P, P, N), so the windows are permuted on
+the way out and back in. The JAX package stores bfloat16 windows (its
+Pallas GN kernel's operand, aligner.py:126-127) as float32
+(checkpoint.py:23-30); they load as u8 and must hold integers.
 """
 
 from __future__ import annotations
@@ -36,12 +38,19 @@ from video_stabilizer_tpu_torch.models.aligner import (
 KEY_FIELDS = LevelKeyData._fields
 
 
+def _file_field(name: str, x: torch.Tensor) -> torch.Tensor:
+    """One keyframe's field as the file holds it: the windows (N, P, P) as
+    (P, P, N), every other field as it is."""
+    return x.permute(1, 2, 0) if name == "windows" else x
+
+
 def leaf_shapes(state: AlignerState) -> list[tuple]:
     """The shapes of ``state``'s leaves in the JAX package's pytree
     order."""
     shapes = [tuple(p.shape) for p in state.pyramid]
     for kd in state.key:
-        shapes += [tuple(getattr(kd, f).shape[1:]) for f in KEY_FIELDS]
+        shapes += [tuple(_file_field(f, getattr(kd, f)[0]).shape)
+                   for f in KEY_FIELDS]
     return shapes + [(), ()]
 
 
@@ -49,13 +58,17 @@ def state_leaves(state: AlignerState) -> list[np.ndarray]:
     """``state`` as numpy leaves in the JAX package's pytree order."""
     leaves = [p.cpu().numpy() for p in state.pyramid]
     for kd in state.key:
-        leaves += [getattr(kd, f)[0].cpu().numpy() for f in KEY_FIELDS]
+        leaves += [np.ascontiguousarray(
+            _file_field(f, getattr(kd, f)[0]).cpu().numpy())
+            for f in KEY_FIELDS]
     return leaves + [np.asarray(state.curr_idx, np.int32),
                      np.asarray(state.frames_seen, np.int32)]
 
 
-def _to_tensor(arr, like: torch.Tensor, what: str):
+def _to_tensor(arr, like: torch.Tensor, what: str, name: str = ""):
     arr = np.asarray(arr)
+    if name == "windows":
+        arr = np.moveaxis(arr, -1, 0)        # (P, P, N) -> (N, P, P)
     if like.dtype == torch.uint8 and arr.dtype != np.uint8:
         # bfloat16 windows stored as float32: exact only if integral.
         if not (np.array_equal(arr, np.round(arr))
@@ -87,7 +100,8 @@ def state_from_leaves(leaves, template: AlignerState) -> AlignerState:
     for lvl, kd in enumerate(template.key):
         base = n_levels + 5 * lvl
         key.append(LevelKeyData(*(
-            _to_tensor(leaves[base + j], getattr(kd, f), f"leaf {base + j}")
+            _to_tensor(leaves[base + j], getattr(kd, f), f"leaf {base + j}",
+                       f)
             for j, f in enumerate(KEY_FIELDS))))
     return AlignerState(pyramid=pyramid, key=tuple(key),
                         curr_idx=int(leaves[-2]), frames_seen=int(leaves[-1]))
