@@ -926,7 +926,8 @@ def capture(params, dev):
             states, chunk1, params, WIDTH, HEIGHT)
     t_ul = T.center_to_ul(accums, WIDTH, HEIGHT, minus_one=True)
     torch.cuda.synchronize()
-    return dict(warp_frames=delayed.reshape(-1, HEIGHT, WIDTH, 3),
+    return dict(warp_frames=delayed.batch().flatten(0, 1),
+                warp_segments=delayed,
                 warp_ts=t_ul.reshape(-1, 4).contiguous(),
                 gn_calls=[(c.args, c.kwargs) for c in spy.call_args_list],
                 tvl1_calls=[(c.args, c.kwargs)
@@ -940,14 +941,16 @@ def capture(params, dev):
 
 
 def warp_compare(frames, ts, crop, interp="bilinear", model="similarity",
-                 group=16):
-    """(max |diff| LSB, share of pixels equal) between kernel A and its
+                 group=16, got=None):
+    """(max |diff| LSB, share of pixels equal) between kernel A's output on
+    (B, H, W, C) ``frames`` (``got``, else its contiguous form's) and its
     plain version on the card, the plain version ``group`` frames at a
     time."""
     from video_stabilizer_tpu_torch.ops.warp_kernel import (
         warp_frames, warp_frames_plain)
     form = dict(interp=interp, model=model)
-    got = warp_frames(frames, ts, crop, **form)
+    if got is None:
+        got = warp_frames(frames, ts, crop, **form)
     max_err, n_equal = 0, 0
     for i in range(0, frames.shape[0], group):
         want = warp_frames_plain(frames[i:i + group], ts[i:i + group], crop,
@@ -956,6 +959,83 @@ def warp_compare(frames, ts, crop, interp="bilinear", model="similarity",
         max_err = max(max_err, int(diff.max()))
         n_equal += int((diff == 0).sum())
     return max_err, n_equal / got.numel()
+
+
+def segment_compare(segs, ts, crop, group=16, **form):
+    """(output, max |diff| LSB, share of pixels equal) of kernel A's
+    segment form on the card against its plain version on the same frames
+    copied into one batch."""
+    from video_stabilizer_tpu_torch.ops.warp_kernel import (
+        warp_frame_segments)
+    got = warp_frame_segments(*segs, ts, crop, **form)
+    return (got, *warp_compare(segs.batch().flatten(0, 1), ts, crop,
+                               group=group, got=got, **form))
+
+
+def check_segments(cap, crop, group, short=True, **form):
+    """Kernel A's segment form on a captured chunk's delayed frames, where
+    they lie (the carried tail and the chunk), held bit for bit to its
+    plain version and to the contiguous form's output; with ``short`` also
+    a chunk of 4 < lag frames (the tail alone) and the clip's strided
+    segment (the first tc frames of the joined [tail | chunk] clip). Then
+    the device time of the segment form beside the contiguous form's.
+    Returns (max |diff|, segment ms, its device ms, contiguous ms)."""
+    from video_stabilizer_tpu_torch.ops.warp_kernel import (
+        FrameSegments, warp_frame_segments, warp_frames)
+
+    segs, ts, frames = cap["warp_segments"], cap["warp_ts"], cap[
+        "warp_frames"]
+    streams, lag = segs.seg0.shape[:2]
+    tc = segs.n_out
+    contiguous = warp_frames(frames, ts, crop, **form)
+    cases = {f"the chunk as segments ({streams} streams, a tail of {lag}, "
+             f"a chunk of {tc})": (segs, ts, contiguous)}
+    clip = far = None
+    if short:
+        short_ts = ts.view(streams, tc, -1)[:, :4].flatten(0, 1).contiguous()
+        clip = torch.cat([segs.seg0, segs.seg1], dim=1)
+        cases[f"a chunk of 4 < lag {lag} (the tail alone)"] = (
+            FrameSegments(segs.seg0, segs.seg1[:, :4], 4), short_ts, None)
+        cases[f"the clip's strided segment (the first {tc} of "
+              f"{lag + tc})"] = (FrameSegments(clip, None, tc), ts,
+                                 contiguous)
+        # Two streams of one frame 2^32 + 3 bytes apart: 64-bit offsets.
+        step = 2 ** 32 + 3
+        far = torch.empty(step + frames[0].numel(), dtype=torch.uint8,
+                          device=frames.device).as_strided(
+            (2, 1) + tuple(frames.shape[1:]),
+            (step, frames[0].numel()) + frames[0].stride())
+        far.copy_(frames[:2, None])
+        cases["two frames 2^32 + 3 bytes apart"] = (
+            FrameSegments(far, None, 1), ts[:2].contiguous(), None)
+    worst = 0
+    for name, (sg, t, same_as) in cases.items():
+        got, max_err, equal = segment_compare(sg, t, crop, group, **form)
+        same = same_as is None or torch.equal(got, same_as)
+        check(max_err == 0 and equal == 1.0 and same,
+              f"segment form, {name}: max |diff| {max_err} LSB, "
+              f"{equal * 100:.4f} % equal"
+              + ("" if same_as is None else
+                 f"; equal to the contiguous form's output: {same}"))
+        worst = max(worst, max_err)
+        del got
+    del contiguous, cases, far
+
+    def seg():
+        return warp_frame_segments(*segs, ts, crop, **form)
+
+    def cont():
+        return warp_frames(frames, ts, crop, **form)
+    seg_ms, seg_dev = cuda_ms(seg, 10), graph_ms(seg, 10)
+    cont_ms, cont_dev = cuda_ms(cont, 10), graph_ms(cont, 10)
+    line = (f"  segment form {seg_ms:.3f} ms (device {seg_dev:.3f} ms), "
+            f"contiguous form {cont_ms:.3f} ms (device {cont_dev:.3f} ms)")
+    if clip is not None:
+        clip_dev = graph_ms(lambda: warp_frame_segments(clip, None, tc, ts,
+                                                        crop, **form), 10)
+        line += f", the clip's strided segment device {clip_dev:.3f} ms"
+    log(line)
+    return worst, seg_ms, seg_dev, cont_ms
 
 
 RAGGED = (3, 437, 1033)   # frames, rows, columns: partial tiles both ways
@@ -1032,8 +1112,7 @@ def grid_sample_ms(frames, ts, crop, reps):
 
 @phase("kernel A: output warp vs its plain version (1080p, similarity)")
 def check_warp(cap, crop, dev):
-    from video_stabilizer_tpu_torch.ops.warp_kernel import (
-        warp_frames, warp_frames_plain)
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames_plain
 
     frames, ts = cap["warp_frames"], cap["warp_ts"]
     bsz = frames.shape[0]
@@ -1055,8 +1134,7 @@ def check_warp(cap, crop, dev):
           f"similarity + Lanczos2 (4 frames, random similarity): max |diff| "
           f"{max_l} LSB, {equal_l * 100:.4f} % equal")
     max_ragged = warp_ragged(dev, "similarity")
-
-    ms = cuda_ms(lambda: warp_frames(frames, ts, crop), 10)
+    max_seg, ms, device_ms, cont_ms = check_segments(cap, crop, 16)
 
     def plain():
         for i in range(0, bsz, 16):
@@ -1066,14 +1144,16 @@ def check_warp(cap, crop, dev):
     library_ms = grid_sample_ms(frames, ts, crop, 5)
     bound_ms, bound_by, gb, gflop = warp_bound(frames, ts, crop, "bilinear",
                                                "similarity")
-    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, grid_sample "
+    log(f"  kernel (segment form) {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"grid_sample "
         f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
         f"{gb:.3f} GB, {gflop:.2f} GFLOP); kernel / grid_sample "
         f"{ms / library_ms:.2f}, kernel / bound {ms / bound_ms:.1f}")
     return dict(name="warp_frames[similarity,bilinear]", route="cuda",
                 source="video_stabilizer_tpu_torch/csrc/warp.cu",
                 replaces=WARP_REPLACES,
-                max_abs_err=max(max_err, max_rnd, max_ragged), ms=ms,
+                max_abs_err=max(max_err, max_rnd, max_ragged, max_seg),
+                ms=ms, device_ms=device_ms, contiguous_ms=cont_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -1417,7 +1497,8 @@ def capture_4k(params, dev):
     log(f"  perspective pairs: {int(failed.sum())} of {n} failed; found p "
         f"within {[float(f'{e:.1e}') for e in err]} of the true p")
     torch.cuda.synchronize()
-    return dict(warp_frames=delayed.reshape(-1, H4K, W4K, 3),
+    return dict(warp_frames=delayed.batch().flatten(0, 1),
+                warp_segments=delayed,
                 warp_ts=accums.reshape(-1, 8).contiguous(), gn8_calls=calls,
                 persp_calls=persp, tvl1_calls=tvl1_calls,
                 pinv_calls=pinv_calls, accum_calls=accum_calls,
@@ -1426,8 +1507,7 @@ def capture_4k(params, dev):
 
 @phase("kernel A: output warp vs its plain version (4K, homography)")
 def check_warp_4k(cap, crop, dev):
-    from video_stabilizer_tpu_torch.ops.warp_kernel import (
-        warp_frames, warp_frames_plain)
+    from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames_plain
 
     form = dict(interp="lanczos2", model=HOMOGRAPHY)
     frames, ts = cap["warp_frames"], cap["warp_ts"]
@@ -1453,22 +1533,24 @@ def check_warp_4k(cap, crop, dev):
           f"{equal_b * 100:.4f} % equal")
     del sub
     max_ragged = warp_ragged(dev, HOMOGRAPHY)
-
-    ms = cuda_ms(lambda: warp_frames(frames, ts, crop, **form), 10)
+    max_seg, ms, device_ms, cont_ms = check_segments(cap, crop, 4,
+                                                     short=False, **form)
 
     def plain():
         for i in range(0, bsz, 4):
             warp_frames_plain(frames[i:i + 4], ts[i:i + 4], crop, **form)
     plain_ms = cuda_ms(plain, 1)
     bound_ms, bound_by, gb, gflop = warp_bound(frames, ts, crop, **form)
-    log(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms ({bound_by}: {gb:.3f} GB, {gflop:.1f} GFLOP), "
+    log(f"  kernel (segment form) {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {gb:.3f} GB, {gflop:.1f} "
+        "GFLOP), "
         f"kernel / bound {ms / bound_ms:.1f}; no library call: grid_sample "
         "has no Lanczos2")
     return dict(name="warp_frames[homography,lanczos2]", route="cuda",
                 source="video_stabilizer_tpu_torch/csrc/warp.cu",
                 replaces=WARP_REPLACES,
-                max_abs_err=max(max_err, max_rnd, max_ragged), ms=ms,
+                max_abs_err=max(max_err, max_rnd, max_ragged, max_seg),
+                ms=ms, device_ms=device_ms, contiguous_ms=cont_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
 
@@ -4159,7 +4241,7 @@ def check_fir(states, chunk, params, dev):
 
     _, delayed, accums, *_ = chunked.stabilize_chunk_core(
         states, chunk.to(dev), params, WIDTH, HEIGHT)
-    frames = delayed.reshape(-1, HEIGHT, WIDTH, 3).contiguous()
+    frames = delayed.batch().flatten(0, 1)
     ts = T.center_to_ul(accums, WIDTH, HEIGHT,
                         minus_one=True).reshape(-1, 4).contiguous()
     rb = resolve_residual_bound(params, WIDTH, HEIGHT)
@@ -4226,7 +4308,7 @@ def check_fir_4k(states, chunk, params, dev):
 
     _, delayed, accums, *_ = chunked.stabilize_chunk_core(
         states, chunk.to(dev), params, W4K, H4K, HOMOGRAPHY)
-    frames = delayed.reshape(-1, H4K, W4K, 3).contiguous()
+    frames = delayed.batch().flatten(0, 1)
     ts = accums.reshape(-1, 8).contiguous()
     rb = resolve_residual_bound(params, W4K, H4K)
 
@@ -5347,7 +5429,7 @@ def check_one_item(s1, crop):
     from video_stabilizer_tpu_torch.ops.gn_solve import (
         OPS_PER_SAMPLE, gn_solve, gn_solve_plain, launch_plan)
     from video_stabilizer_tpu_torch.ops.warp_kernel import (
-        warp_frames, warp_frames_plain)
+        warp_frame_segments, warp_frames, warp_frames_plain)
 
     calls, levels = s1["gn_calls"], s1["levels"]
     check(len(calls) == levels * STREAM_CAPTURED,
@@ -5425,13 +5507,21 @@ def check_one_item(s1, crop):
           f"{len(warps)} streaming frames, calls {forms}: max |diff| "
           f"{max_err} LSB, at least {equal * 100:.4f} % equal per frame")
     (frame, ts, c), _ = warps[0]
+    seg = warp_frame_segments(frame[None], None, 1, ts, c)
+    check(torch.equal(seg, warp_frames(frame, ts, c)),
+          "the frame as a one-frame segment: kernel A's segment form gives "
+          "the contiguous form's bytes")
+    del seg
     ms = cuda_ms(lambda: warp_frames(frame, ts, c), 20)
     device_ms = graph_ms(lambda: warp_frames(frame, ts, c), 20)
+    seg_device_ms = graph_ms(
+        lambda: warp_frame_segments(frame[None], None, 1, ts, c), 20)
     plain_ms = cuda_ms(lambda: warp_frames_plain(frame, ts, c), 2)
     library_ms = grid_sample_ms(frame, ts, c, 20)
     bound_ms, bound_by, gb, gflop = warp_bound(frame, ts, c, "bilinear",
                                                "similarity")
-    log(f"  one frame: kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
+    log(f"  one frame: kernel {ms:.4f} ms (device {device_ms:.4f} ms; as a "
+        f"one-frame segment {seg_device_ms:.4f} ms), "
         f"plain {plain_ms:.3f} ms, grid_sample {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {gb * 1e3:.2f} MB, {gflop:.3f} "
         f"GFLOP); device / bound {device_ms / bound_ms:.1f}")
@@ -5652,7 +5742,7 @@ def latency_chain(dev):
 
 
 @phase("P4. apps/profile_chunk.py on one 1080p chunk (8 x 16 frames): per "
-       "kernel, --parse-only, --by-source")
+       "kernel, --parse-only, --by-source, --copies")
 def tool_profile():
     from video_stabilizer_tpu_torch.apps import profile_chunk
 
@@ -5678,6 +5768,9 @@ def tool_profile():
               f"({time.perf_counter() - t0:.1f} s)")
         by_src, _, _ = run_tool(profile_chunk.main,
                                 args + ["--parse-only", "--by-source"])
+        copies, _, _ = run_tool(profile_chunk.main,
+                                args + ["--parse-only", "--copies"])
+    copy_report(copies)
     total = sum(us for us, _ in totals.values())
     events = sum(n for _, n in totals.values())
     hand = profile_chunk.hand_kernel_totals(totals)
@@ -5717,6 +5810,31 @@ def tool_profile():
           f"--by-source: {mine / 1e3:.1f} of {total / 1e3:.1f} ms of device "
           f"time ({100 * mine / max(total, 1e-9):.1f} %) on frames under "
           f"{profile_chunk.PACKAGE}")
+
+
+def copy_report(copies):
+    """Log the chunk's device copies (``profile_chunk.py --copies``: by
+    source frame, issuing operator and its input shapes) with their total,
+    and check that kernel A reads the delayed frames where they lie: no
+    copy under ``batch.warp_delayed`` or ``batch._warp_frames``, and no
+    concatenation of frames under ``chunked.stabilize_chunk_core`` (its one
+    frame copy is the new tail's)."""
+    log(f"  device copies in the chunk: "
+        f"{sum(us for us, _ in copies.values()) / 1e3:.3f} ms, "
+        f"{sum(n for _, n in copies.values())} copies at {len(copies)} "
+        "sites:")
+    for site, (us, n) in sorted(copies.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {us / 1e3:8.3f} ms x{n:<4d} {site}")
+    warp = [k for k in copies
+            if "/models/batch.py" in k and ("): warp_delayed " in k
+                                            or "): _warp_frames " in k)]
+    frames = f"{HEIGHT}, {WIDTH}, 3]"
+    cat = [k for k in copies if "): stabilize_chunk_core " in k
+           and "aten::cat" in k and frames in k]
+    check(not warp and not cat,
+          f"no copy of the delayed frames: {len(warp)} copy sites under "
+          f"warp_delayed / _warp_frames, {len(cat)} frame concatenations "
+          "under stabilize_chunk_core")
 
 
 @phase("P5. the scale-out modules on the card: graft_entry, the one-card "
@@ -6066,9 +6184,11 @@ def main() -> int:
         k["launches"] = path_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Kernels B-I also give their device time beside the wrapper's ms; D,
-    # E and F their dependent-chain bound beside the roofline one.
-    extra = ("device_ms", "chain_bound_ms")
+    # Kernels A-I also give their device time beside the wrapper's ms (A's
+    # chunked forms: of the segment form the path runs, and the contiguous
+    # form's wrapper ms); D, E and F their dependent-chain bound beside the
+    # roofline one.
+    extra = ("device_ms", "chain_bound_ms", "contiguous_ms")
     print(json.dumps({"kernels": [
         {k: kern[k] for k in keys + extra if k in keys or k in kern}
         for kern in kernels.values()]}))

@@ -62,17 +62,56 @@ def test_synth_clip_translation_path_and_poses():
     assert not poses[:, :2].any()
 
 
-def test_chunked_matches_clip_path():
+@pytest.mark.parametrize("chunk_size", [2, N // 2])
+def test_chunked_matches_clip_path(chunk_size):
     """Exact: every align of the port is an independent item, so chunking
-    changes only how many items share a launch (test_chunked.py:28-50)."""
+    changes only how many items share a launch (test_chunked.py:28-50).
+    Chunks of 2 frames are shorter than the lag (4): each chunk's delayed
+    frames all come from the carried tail, and the new tail is the old
+    one shifted, then the chunk."""
     frames = _clip(seed=51)
     out_u, meas_u, ok_u = batch.stabilize_clip(frames, PARAMS, device="cpu")
     out_c, meas_c, ok_c = chunked.stabilize_stream_chunked(
-        frames, PARAMS, chunk_size=N // 2, device="cpu")
+        frames, PARAMS, chunk_size=chunk_size, device="cpu")
     np.testing.assert_array_equal(ok_u.numpy(), ok_c)
     np.testing.assert_allclose(meas_u.numpy(), meas_c, atol=1e-6)
     assert out_c.shape == tuple(out_u.shape) == (N - 4, H - 16, W - 16, 3)
     assert np.mean(_lsb_diff(out_u.numpy(), out_c) <= 1) > 0.999
+
+
+@pytest.mark.parametrize("tc", [2, 8])
+def test_chunk_state_owns_its_frame_tail(tc):
+    """``stabilize_chunk_core`` leaves the delayed frames where they lie
+    (the carried tail, then the chunk) and copies the new tail: it equals
+    positions tc.. of [tail | chunk] (tc < lag shifts the old tail), shares
+    no memory with the caller's frames, and a caller that overwrites its
+    frame buffer after a call leaves the next chunk's outputs as they
+    were."""
+    frames = torch.from_numpy(_clip(seed=57, n=3 * tc))[None]
+    state = chunked.init_stream_state(W, H, PARAMS, 3, 1, "cpu")
+    state = chunked.stabilize_chunk_streams(state, frames[:, :tc],
+                                            PARAMS)[0]
+    chunk = frames[:, tc:2 * tc].clone()
+    new, delayed, *_ = chunked.stabilize_chunk_core(state, chunk, PARAMS, W,
+                                                    H)
+    joined = torch.cat([state.frame_tail, chunk], dim=1)
+    assert torch.equal(new.frame_tail, joined[:, tc:])
+    assert torch.equal(delayed.batch(), joined[:, :tc])
+    assert delayed.seg0 is state.frame_tail and delayed.seg1 is chunk
+
+    def shares(a, b):
+        sa, sb = a.untyped_storage(), b.untyped_storage()
+        return (sa.data_ptr() < sb.data_ptr() + sb.nbytes()
+                and sb.data_ptr() < sa.data_ptr() + sa.nbytes())
+    after = frames[:, 2 * tc:]
+    want = chunked.stabilize_chunk_streams(new, after, PARAMS)[1]
+    buf = chunk.clone()
+    carried = chunked.stabilize_chunk_streams(state, buf, PARAMS)[0]
+    assert not shares(new.frame_tail, chunk)
+    assert not shares(carried.frame_tail, buf)
+    buf.zero_()
+    assert torch.equal(chunked.stabilize_chunk_streams(carried, after,
+                                                       PARAMS)[1], want)
 
 
 def test_chunked_stabilizer_class():

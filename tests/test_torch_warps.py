@@ -35,7 +35,8 @@ from video_stabilizer_tpu_torch.config import params_from_jax_dict
 from video_stabilizer_tpu_torch.models import batch, chunked, stabilizer
 from video_stabilizer_tpu_torch.ops import (
     fast_warp, lanczos, linalg, patches, sparse, warp)
-from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames_plain
+from video_stabilizer_tpu_torch.ops.warp_kernel import (
+    FrameSegments, warp_frame_segments, warp_frames_plain)
 from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 from conftest import natural_image
 
@@ -281,6 +282,90 @@ def test_kernel_a_plain_within_two_lsb_of_oracle_under_rotation():
                                         border="zero"))
         diff = np.abs(got - want)
         assert np.mean(diff <= 2) > 0.999, (interp, np.mean(diff <= 2))
+
+
+# ------------------------------------------------ kernel A's segment form
+
+SEG_H, SEG_W, SEG_CROP = 24, 40, 2
+SEG_CASES = {   # (n0, n1, n_out)
+    "n_out>=n0": (4, 6, 8),
+    "n_out<n0": (6, 4, 3),
+    "one_strided_segment": (10, 0, 6),
+}
+
+
+def _segments(streams, n0, n1, seed, channels=3):
+    """Random u8 segments of ``streams`` streams; the first is a strided
+    view (its stream stride two frames longer than its frames), as a
+    clip's ``frames[:, :T - lag]`` is."""
+    r = np.random.default_rng(seed)
+
+    def frames(n):
+        return torch.from_numpy(r.integers(
+            0, 256, (streams, n, SEG_H, SEG_W, channels), dtype=np.uint8))
+    return frames(n0 + 2)[:, :n0], frames(n1) if n1 else None
+
+
+def _seg_transforms(n, model, seed):
+    r = np.random.default_rng(seed)
+    if model == "similarity":
+        scale = [0.01, 0.01, 3.0, 3.0]
+    else:
+        scale = [0.01, 0.01, 3.0 / SEG_W, 0.01, 0.01, 3.0 / SEG_W, 4e-3,
+                 4e-3]
+    return _t(r.uniform(-1, 1, (n, len(scale))) * scale)
+
+
+@pytest.mark.parametrize("case", list(SEG_CASES))
+@pytest.mark.parametrize("streams", [1, 3])
+@pytest.mark.parametrize("interp", ["bilinear", "lanczos2"])
+@pytest.mark.parametrize("model", ["similarity", "homography"])
+def test_warp_frame_segments_plain_equals_the_batch(model, interp, streams,
+                                                    case):
+    """Kernel A's segment form on the CPU (its plain version) gives the
+    bytes of ``warp_frames_plain`` on the frames copied into one batch:
+    output j of stream s warps [seg0 | seg1][s, j], stream-major."""
+    n0, n1, n_out = SEG_CASES[case]
+    seg0, seg1 = _segments(streams, n0, n1, seed=70 + n_out)
+    ts = _seg_transforms(streams * n_out, model, seed=80 + streams)
+    parts = [seg0] + ([seg1] if seg1 is not None else [])
+    batch_ = torch.cat(parts, dim=1)[:, :n_out]
+    assert torch.equal(
+        FrameSegments(seg0, seg1, n_out).batch(), batch_)
+    got = warp_frame_segments(
+        seg0, seg1, n_out, ts, SEG_CROP, interp=interp, model=model)
+    want = warp_frames_plain(batch_.reshape(-1, SEG_H, SEG_W, 3), ts,
+                             SEG_CROP, interp=interp, model=model)
+    assert got.shape == (streams * n_out, SEG_H - 2 * SEG_CROP,
+                         SEG_W - 2 * SEG_CROP, 3)
+    assert torch.equal(got, want)
+
+
+def _bad_segments(what):
+    seg0, seg1 = _segments(2, 4, 6, seed=90)
+    n_out = 8
+    if what == "rows":
+        seg1 = seg1[:, :, 1:]
+    elif what == "columns":
+        seg1 = seg1[:, :, :, 1:].contiguous()
+    elif what == "channels":
+        seg1 = _segments(2, 6, 0, seed=91, channels=4)[0]
+    elif what == "frame_interior":
+        seg0, seg1 = seg0[..., :2], seg1[..., :2]
+    elif what == "too_few_frames":
+        n_out = 11
+    return seg0, seg1, n_out
+
+
+@pytest.mark.parametrize("what", ["rows", "columns", "channels",
+                                  "frame_interior", "too_few_frames"])
+def test_warp_frame_segments_raises(what):
+    """Segments that differ in H, W or C, frames whose (H, W, C) is not
+    contiguous, or fewer frames than outputs: the wrapper raises."""
+    seg0, seg1, n_out = _bad_segments(what)
+    ts = _seg_transforms(2 * n_out, "similarity", seed=92)
+    with pytest.raises(ValueError):
+        warp_frame_segments(seg0, seg1, n_out, ts)
 
 
 # ------------------------------------------------------------- sparse chain

@@ -6,7 +6,7 @@ port (``--by-source``). The port of the JAX package's
 
     python -m video_stabilizer_tpu_torch.apps.profile_chunk [--mode 1080p]
         [--streams 8] [--frames 16] [--logdir output/profile_chunk]
-        [--by-source] [--parse-only] [--device cuda|cpu]
+        [--by-source | --copies] [--parse-only] [--device cuda|cpu]
 
 Two chunks run first (the kernels' build at first use, and the lag
 window); the third runs once as the profiler's warm-up step, then again
@@ -30,11 +30,18 @@ under ``video_stabilizer_tpu_torch/`` that encloses that call on the
 launching thread. A frame is named as torch's Python tracer names it: the
 file, the line its function starts at, and the function.
 
+Copies (``--copies``): the device time of every copy (a kernel or memcpy
+whose name says copy) by its site: the source frame as above, the
+top-level ``aten`` operator that issued it and that operator's input
+shapes (the trace records them), so that two copies in one function tell
+apart.
+
 A trace of a CPU run has no device events: there the top-level ``aten``
 operators stand in for them, each its own launch.
 """
 
 import argparse
+import bisect
 import json
 import os
 import sys
@@ -150,6 +157,47 @@ def summarize_by_source(events) -> dict:
     return {k: tuple(v) for k, v in totals.items()}
 
 
+def _is_copy(e) -> bool:
+    return e.get("cat") == "gpu_memcpy" or "copy" in e["name"].lower()
+
+
+def _issuing_ops(events, launches):
+    """The top-level CPU operator enclosing each launch on its thread (None
+    where none does)."""
+    ops = {}
+    for op in _top_level(_spans(events, "cpu_op")):
+        ops.setdefault((op["pid"], op["tid"]), []).append(op)
+    starts = {k: [op["ts"] for op in v] for k, v in ops.items()}
+    out = []
+    for launch in launches:
+        if launch is None:
+            out.append(None)
+            continue
+        key = (launch["pid"], launch["tid"])
+        i = bisect.bisect_right(starts.get(key, []), launch["ts"]) - 1
+        op = ops[key][i] if i >= 0 else None
+        out.append(op if op is not None and launch["ts"] <= op["ts"]
+                   + op["dur"] else None)
+    return out
+
+
+def summarize_copies(events) -> dict:
+    """{site: (microseconds, count)} of the device copies, a site being
+    "frame | operator input shapes"."""
+    work, launches = device_work(events)
+    totals = defaultdict(lambda: [0.0, 0])
+    for e, frame, op in zip(work, _package_frames(events, launches),
+                            _issuing_ops(events, launches)):
+        if not _is_copy(e):
+            continue
+        what = "<no operator>" if op is None else (
+            f"{op['name']} {op.get('args', {}).get('Input Dims', '')}")
+        t = totals[f"{frame} | {what}".rstrip()]
+        t[0] += e["dur"]
+        t[1] += 1
+    return {k: tuple(v) for k, v in totals.items()}
+
+
 def print_table(title: str, totals: dict, top: int):
     grand = sum(us for us, _ in totals.values())
     print(f"\n== {title}: {len(totals)} distinct, total "
@@ -160,12 +208,16 @@ def print_table(title: str, totals: dict, top: int):
         print(f"{us / 1e3:9.3f} ms  {share:5.1f}%  x{n:<6d} {name[:110]}")
 
 
-def summarize(path: str, by_source: bool, top: int) -> dict:
+def summarize(path: str, by_source: bool, top: int,
+              copies: bool = False) -> dict:
     """Print and return one table of the trace at ``path``."""
     events = load_trace(path)
     on_device = any(e.get("cat") in DEVICE_CATS for e in events)
     what = "device time" if on_device else "CPU operator time (no device)"
-    if by_source:
+    if copies:
+        totals = summarize_copies(events)
+        print_table(f"{what} of copies by site", totals, top)
+    elif by_source:
         totals = summarize_by_source(events)
         print_table(f"{what} by source frame", totals, top)
     else:
@@ -207,13 +259,16 @@ def main(argv=None):
                     help="skip the run; summarize <logdir>/trace.json")
     ap.add_argument("--by-source", action="store_true",
                     help="device time by the port's source frame")
+    ap.add_argument("--copies", action="store_true",
+                    help="device time of copies by source frame, operator "
+                    "and input shapes")
     ap.add_argument("--top", type=int, default=40)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu (the plain versions)")
     args = ap.parse_args(argv)
     path = os.path.join(args.logdir, "trace.json")
     if args.parse_only:
-        return summarize(path, args.by_source, args.top)
+        return summarize(path, args.by_source, args.top, args.copies)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -268,7 +323,7 @@ def main(argv=None):
     # after it in one run: the first 10 kernels of a chunk traced at once
     # were missing), so the same chunk runs once untraced first.
     once = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with profile(activities=activities, with_stack=True,
+    with profile(activities=activities, with_stack=True, record_shapes=True,
                  schedule=once) as prof:
         run(states, inputs[2])
         prof.step()
@@ -282,7 +337,7 @@ def main(argv=None):
           file=sys.stderr)
     os.makedirs(args.logdir, exist_ok=True)
     prof.export_chrome_trace(path)
-    return summarize(path, args.by_source, args.top)
+    return summarize(path, args.by_source, args.top, args.copies)
 
 
 if __name__ == "__main__":

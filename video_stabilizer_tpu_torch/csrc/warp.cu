@@ -5,6 +5,12 @@
 // normalized by its weight sum. One template instance per (model, interp,
 // channel count).
 //
+// The source frames are read where they lie: up to two segments of
+// (stream, frame) strided frames (Segments below), so the chunked path
+// warps its carried frame tail and the new chunk, and the clip path its
+// strided view of the clip, without first copying them into one batch.
+// The output is one contiguous batch.
+//
 // Replaces video_stabilizer_tpu/ops/pallas_warp.py::_warp_kernel
 // (qy_mode="taps"). What it computes: each 216x512 tile of the Pallas grid,
 // in source coordinates (r, c), removes its own integer base (kx, ky): the
@@ -61,10 +67,10 @@
 // ptxas -v (sm_90a, CUDA 12.8; chip_smoke.py phase 1 prints it and fails
 // otherwise): every instance has a 0-byte stack frame and no spills.
 // Registers for C = 1, 2, 3, 4 and static shared memory in bytes:
-//   similarity + bilinear   32 39 40 41   6832 13072 19552 25792
-//   similarity + Lanczos2   35 40 43 48  11600 18432 24992 31824
-//   homography + bilinear   40 48 48 53   6832 13072 19552 25792
-//   homography + Lanczos2   47 48 52 53  11600 18432 24992 31824
+//   similarity + bilinear   39 40 40 43   6832 13072 19552 25792
+//   similarity + Lanczos2   39 40 44 48  11600 18432 24992 31824
+//   homography + bilinear   40 48 48 55   6832 13072 19552 25792
+//   homography + Lanczos2   48 48 54 54  11600 18432 24992 31824
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,9 +176,23 @@ struct Smem {
   int kx, ky, qy;
 };
 
+// Where the source frames lie: S streams of n_out frames each, item
+// b = s * n_out + j. Frame j of stream s is frame j of segment 0 for
+// j < n0, else frame j - n0 of segment 1; each segment is given by its
+// base and its stream and frame strides in bytes, and a frame's rows,
+// pixels and channels are contiguous. Offsets are 64-bit: 8 streams of 26
+// 4K frames span 5.2 GB.
+struct Segments {
+  const uint8_t* base0;
+  const uint8_t* base1;
+  long long stream0, frame0;
+  long long stream1, frame1;
+  int n0, n_out;
+};
+
 template <int MODEL, int INTERP, int C>
 __global__ void __launch_bounds__(THREADS)
-    warp_kernel(const uint8_t* __restrict__ src, const float* __restrict__ ts,
+    warp_kernel(const Segments segs, const float* __restrict__ ts,
                 uint8_t* __restrict__ dst, int H, int W, int crop, int bx0,
                 int by0, float inv_w) {
   using T = Taps<INTERP>;
@@ -188,8 +208,14 @@ __global__ void __launch_bounds__(THREADS)
   const int Ho = H - 2 * crop;
   const int Wo = W - 2 * crop;
   const long long row_bytes = (long long)W * C;
-  const long long src_frame = (long long)(uintptr_t)src +
-                              (long long)b * H * row_bytes;
+  const int s = b / segs.n_out;
+  const int j = b - s * segs.n_out;
+  const bool first = j < segs.n0;
+  const long long src_frame =
+      first ? (long long)(uintptr_t)segs.base0 + s * segs.stream0 +
+                  j * segs.frame0
+            : (long long)(uintptr_t)segs.base1 + s * segs.stream1 +
+                  (j - segs.n0) * segs.frame1;
   const long long dst_frame = (long long)(uintptr_t)dst +
                               (long long)b * Ho * Wo * C;
   const Warp<MODEL> warp(ts + (size_t)Warp<MODEL>::NPAR * b, (float)W,
@@ -364,64 +390,77 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 template <int MODEL, int INTERP, int C>
-void launch(dim3 grid, cudaStream_t stream, const void* src, const void* ts,
-            void* dst, int height, int width, int crop, int bx0, int by0,
-            float inv_w) {
+void launch(dim3 grid, cudaStream_t stream, const Segments& segs,
+            const void* ts, void* dst, int height, int width, int crop,
+            int bx0, int by0, float inv_w) {
   warp_kernel<MODEL, INTERP, C><<<grid, THREADS, 0, stream>>>(
-      (const uint8_t*)src, (const float*)ts, (uint8_t*)dst, height, width,
-      crop, bx0, by0, inv_w);
+      segs, (const float*)ts, (uint8_t*)dst, height, width, crop, bx0, by0,
+      inv_w);
 }
 
 template <int MODEL, int INTERP>
 void launch_form(int channels, dim3 grid, cudaStream_t stream,
-                 const void* src, const void* ts, void* dst, int height,
+                 const Segments& segs, const void* ts, void* dst, int height,
                  int width, int crop, int bx0, int by0, float inv_w) {
   switch (channels) {
     case 1:
-      launch<MODEL, INTERP, 1>(grid, stream, src, ts, dst, height, width,
-                               crop, bx0, by0, inv_w);
+      launch<MODEL, INTERP, 1>(grid, stream, segs, ts, dst, height,
+                               width, crop, bx0, by0, inv_w);
       break;
     case 2:
-      launch<MODEL, INTERP, 2>(grid, stream, src, ts, dst, height, width,
-                               crop, bx0, by0, inv_w);
+      launch<MODEL, INTERP, 2>(grid, stream, segs, ts, dst, height,
+                               width, crop, bx0, by0, inv_w);
       break;
     case 3:
-      launch<MODEL, INTERP, 3>(grid, stream, src, ts, dst, height, width,
-                               crop, bx0, by0, inv_w);
+      launch<MODEL, INTERP, 3>(grid, stream, segs, ts, dst, height,
+                               width, crop, bx0, by0, inv_w);
       break;
     default:
-      launch<MODEL, INTERP, 4>(grid, stream, src, ts, dst, height, width,
-                               crop, bx0, by0, inv_w);
+      launch<MODEL, INTERP, 4>(grid, stream, segs, ts, dst, height,
+                               width, crop, bx0, by0, inv_w);
   }
 }
 
-extern "C" int vs_warp_frames(const void* src, const void* ts, void* dst,
-                              int batch, int height, int width, int channels,
-                              int crop, int model, int interp, float inv_w,
-                              void* stream) {
-  if (channels < 1 || channels > MAX_C || batch < 1 || batch > 65535 ||
-      crop < 0 || height - 2 * crop < 1 || width - 2 * crop < 1 ||
-      model < 0 || model > 1 || interp < 0 || interp > 1)
+// Warps S x n_out frames read from up to two segments (see Segments) into
+// one contiguous (S * n_out, H - 2 crop, W - 2 crop, C) batch; ts holds
+// one transform per output frame, in that order. seg1 may be null where
+// n0 >= n_out. A contiguous (B, H, W, C) batch is the one-segment case:
+// S = 1, n0 = n_out = B.
+extern "C" int vs_warp_segments(const void* seg0, long long stream0,
+                                long long frame0, int n0, const void* seg1,
+                                long long stream1, long long frame1,
+                                int streams, int n_out, const void* ts,
+                                void* dst, int height, int width,
+                                int channels, int crop, int model,
+                                int interp, float inv_w, void* stream) {
+  const long long batch = (long long)streams * n_out;
+  if (channels < 1 || channels > MAX_C || streams < 1 || n_out < 1 ||
+      batch > 65535 || n0 < 0 || (n0 > 0 && seg0 == nullptr) ||
+      (n0 < n_out && seg1 == nullptr) || crop < 0 || height - 2 * crop < 1 ||
+      width - 2 * crop < 1 || model < 0 || model > 1 || interp < 0 ||
+      interp > 1)
     return (int)cudaErrorInvalidValue;
+  const Segments segs{(const uint8_t*)seg0, (const uint8_t*)seg1, stream0,
+                      frame0, stream1, frame1, n0, n_out};
   // Blocks on the BH x BW grid of source coordinates that hold output.
   const int bx0 = crop / BW;
   const int by0 = crop / BH;
   const int bx1 = (width - crop + BW - 1) / BW;
   const int by1 = (height - crop + BH - 1) / BH;
   if (by1 - by0 > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(bx1 - bx0, by1 - by0, batch);
+  const dim3 grid(bx1 - bx0, by1 - by0, (unsigned)batch);
   const cudaStream_t st = (cudaStream_t)stream;
   if (model == 0 && interp == BILINEAR)
-    launch_form<0, BILINEAR>(channels, grid, st, src, ts, dst, height, width,
-                             crop, bx0, by0, inv_w);
+    launch_form<0, BILINEAR>(channels, grid, st, segs, ts, dst, height,
+                             width, crop, bx0, by0, inv_w);
   else if (model == 0)
-    launch_form<0, LANCZOS2>(channels, grid, st, src, ts, dst, height, width,
-                             crop, bx0, by0, inv_w);
+    launch_form<0, LANCZOS2>(channels, grid, st, segs, ts, dst, height,
+                             width, crop, bx0, by0, inv_w);
   else if (interp == BILINEAR)
-    launch_form<1, BILINEAR>(channels, grid, st, src, ts, dst, height, width,
-                             crop, bx0, by0, inv_w);
+    launch_form<1, BILINEAR>(channels, grid, st, segs, ts, dst, height,
+                             width, crop, bx0, by0, inv_w);
   else
-    launch_form<1, LANCZOS2>(channels, grid, st, src, ts, dst, height, width,
-                             crop, bx0, by0, inv_w);
+    launch_form<1, LANCZOS2>(channels, grid, st, segs, ts, dst, height,
+                             width, crop, bx0, by0, inv_w);
   return (int)cudaGetLastError();
 }

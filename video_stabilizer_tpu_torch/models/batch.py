@@ -66,7 +66,8 @@ from video_stabilizer_tpu_torch.ops.fast_warp import (
     warp_homography_fast, warp_image_fast)
 from video_stabilizer_tpu_torch.ops.keyframe import keyframe_levels
 from video_stabilizer_tpu_torch.ops.pyr_down import build_pyramid
-from video_stabilizer_tpu_torch.ops.warp_kernel import warp_frames
+from video_stabilizer_tpu_torch.ops.warp_kernel import (
+    FrameSegments, warp_frame_segments, warp_frames)
 from video_stabilizer_tpu_torch.utils.graphs import Program
 from video_stabilizer_tpu_torch.utils.spans import span
 
@@ -302,15 +303,23 @@ FIR_GROUP = 8
 
 def _warp_frames(frames, ts, params: StabilizerParams, width: int,
                  height: int, model: str):
-    """(B, H, W, C) u8 frames warped by their (B, P) sampling transforms
-    and cropped by ``params.crop_pixels``: kernel A with the crop fused
-    ("auto", "pallas"), or the global-base FIR warp (ops/fast_warp.py),
-    FIR_GROUP frames at a time, cropped after it ("fir", as the JAX package
-    crops, batch.py:98-100)."""
+    """Frames warped by their (B, P) sampling transforms and cropped by
+    ``params.crop_pixels``. ``frames``: a (B, H, W, C) u8 batch, or
+    ``FrameSegments`` of (S, n, H, W, C) u8 segments (B = S x n_out,
+    stream-major), which kernel A reads where they lie. Kernel A with the
+    crop fused ("auto", "pallas"), or the global-base FIR warp
+    (ops/fast_warp.py), FIR_GROUP frames at a time from the frames copied
+    into one batch, cropped after it ("fir", as the JAX package crops,
+    batch.py:98-100)."""
     c = params.crop_pixels
+    segments = isinstance(frames, FrameSegments)
     if params.output_warp != "fir":
-        return warp_frames(frames.contiguous(), ts.contiguous(), c,
-                           interp=params.output_interp, model=model)
+        form = dict(interp=params.output_interp, model=model)
+        if segments:
+            return warp_frame_segments(*frames, ts.contiguous(), c, **form)
+        return warp_frames(frames.contiguous(), ts.contiguous(), c, **form)
+    if segments:
+        frames = frames.batch().flatten(0, 1)
     fir = warp_image_fast if model == "similarity" else warp_homography_fast
     rb = resolve_residual_bound(params, width, height)
     out = torch.cat([
@@ -338,7 +347,12 @@ def warp_delayed(delayed, accums, params: StabilizerParams, width: int,
     """Warp + crop a batch of delayed frames by their accumulated
     corrections, in ``params.output_interp``: in ONE launch of kernel A, or
     through the FIR warp (``params.output_warp == "fir"``).
-    ``delayed``: (..., H, W[, C]) u8, ``accums``: (..., P). A similarity
+
+    ``delayed``: ``FrameSegments`` of (S, n, H, W[, C]) u8 segments with
+    ``accums`` (S, n_out, P) (the chunked path's carried tail and chunk),
+    or (..., H, W[, C]) u8 with ``accums`` (..., P). Kernel A reads the
+    frames where they lie: a tensor with one or two leading axes (a clip's
+    strided (S, T - lag) view) is one segment, as it is. A similarity
     correction samples through its origin-based form; a homography
     correction is the sampling homography itself
     (homography_aligner.py:392-394)."""
@@ -347,14 +361,20 @@ def warp_delayed(delayed, accums, params: StabilizerParams, width: int,
         t_s = T.center_to_ul(accums, width, height, minus_one=True)
     else:
         t_s = accums
-    squeeze = delayed.shape[-1] != 3 and delayed.dim() == accums.dim() + 1
+    if not isinstance(delayed, FrameSegments):
+        lead = accums.dim() - 1
+        seg = (delayed.flatten(0, lead - 2) if lead > 2
+               else delayed[(None,) * (2 - lead)])
+        delayed = FrameSegments(seg, None, seg.shape[1])
+    squeeze = delayed.seg0.dim() == 4
     if squeeze:
-        delayed = delayed[..., None]
-    batch_shape = delayed.shape[:-3]
-    out = _warp_frames(delayed.reshape((-1,) + delayed.shape[-3:]),
-                       t_s.reshape(-1, t_s.shape[-1]), params, width, height,
-                       model)
-    out = out.reshape(batch_shape + out.shape[1:])
+        delayed = FrameSegments(
+            delayed.seg0[..., None],
+            None if delayed.seg1 is None else delayed.seg1[..., None],
+            delayed.n_out)
+    out = _warp_frames(delayed, t_s.reshape(-1, t_s.shape[-1]), params,
+                       width, height, model)
+    out = out.reshape(accums.shape[:-1] + out.shape[1:])
     return out[..., 0] if squeeze else out
 
 
@@ -362,7 +382,8 @@ def stabilize_clip_core(frames, params: StabilizerParams, width: int,
                         height: int, model: str = "similarity"):
     """Align, smooth and accumulate an (S, T, H, W[, 3]) u8 batch: returns
     (delayed (S, T - lag, ...), accums (S, T - lag, P), meas (S, T, P),
-    success (S, T))."""
+    success (S, T)). ``delayed`` is a strided view of ``frames``, which
+    ``warp_delayed`` hands to kernel A as it is."""
     t_in = frames.shape[1]
     if t_in <= params.lag:
         raise ValueError(

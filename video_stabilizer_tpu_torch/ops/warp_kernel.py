@@ -1,7 +1,9 @@
 """The stabilizer's batched output warp: kernel A of the port.
 
-``warp_frames`` launches ``csrc/warp.cu`` for a CUDA tensor and runs
-``warp_frames_plain`` for a CPU tensor. It replaces
+``warp_frames`` (one contiguous batch) and ``warp_frame_segments`` (frames
+read where they lie, from up to two strided segments: the chunked path's
+carried tail and chunk, a clip's strided view) launch ``csrc/warp.cu`` for
+a CUDA tensor and run ``warp_frames_plain`` for a CPU tensor. It replaces
 ``video_stabilizer_tpu/ops/pallas_warp.py::_warp_kernel`` in each of its
 forms: the sampling transform is a 4-parameter origin-based similarity or
 an 8-parameter normalized homography (``model``), and the interpolation is
@@ -16,6 +18,7 @@ the design meets it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -163,27 +166,115 @@ def warp_frames_plain(frames, ts, crop: int = 0, interp: str = "bilinear",
     return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)
 
 
-def _check(frames, ts, crop, interp, model):
+class FrameSegments(NamedTuple):
+    """S streams of ``n_out`` frames each, read where they lie: frame j of
+    stream s is ``seg0[s, j]`` for j < n0 = ``seg0.shape[1]``, else
+    ``seg1[s, j - n0]``. Each segment is (S, n, H, W[, C]) u8 with any
+    stream and frame strides; ``seg1`` may be None where n0 >= n_out. The
+    chunked path's delayed frames are (carried tail, chunk); a clip's are
+    one strided view of the clip."""
+    seg0: torch.Tensor
+    seg1: torch.Tensor | None
+    n_out: int
+
+    def batch(self):
+        """The (S, n_out, H, W[, C]) frames as one new contiguous tensor."""
+        n0 = self.seg0.shape[1]
+        out = self.seg0.new_empty(self.seg0.shape[:1] + (self.n_out,)
+                                  + self.seg0.shape[2:])
+        out[:, :n0].copy_(self.seg0[:, :self.n_out])
+        if n0 < self.n_out:
+            out[:, n0:].copy_(self.seg1[:, :self.n_out - n0])
+        return out
+
+
+def _check_form(ts, bsz, h, w, c, crop, interp, model, device):
     if model not in MODELS:
         raise ValueError(f"model must be one of {sorted(MODELS)}, got "
                          f"{model!r}")
     if interp not in INTERPS:
         raise ValueError(f"interp must be one of {sorted(INTERPS)}, got "
                          f"{interp!r}")
-    if frames.dtype != torch.uint8 or frames.dim() != 4:
-        raise ValueError(f"frames must be (B, H, W, C) uint8, got "
-                         f"{tuple(frames.shape)} {frames.dtype}")
-    bsz, h, w, c = frames.shape
     npar = MODELS[model][1]
     if ts.shape != (bsz, npar) or ts.dtype != torch.float32:
         raise ValueError(f"ts must be ({bsz}, {npar}) float32, got "
                          f"{tuple(ts.shape)} {ts.dtype}")
-    if ts.device != frames.device:
+    if ts.device != device:
         raise ValueError("frames and ts must be on one device")
     if not 0 <= crop or h - 2 * crop < 1 or w - 2 * crop < 1:
         raise ValueError(f"crop {crop} leaves no output of {h}x{w}")
     if not 1 <= c <= MAX_CHANNELS:
         raise ValueError(f"at most {MAX_CHANNELS} channels, got {c}")
+
+
+def _check(frames, ts, crop, interp, model):
+    if frames.dtype != torch.uint8 or frames.dim() != 4:
+        raise ValueError(f"frames must be (B, H, W, C) uint8, got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    _check_form(ts, *frames.shape, crop, interp, model, frames.device)
+
+
+def _frames_dense(seg) -> bool:
+    """Whether each (H, W, C) frame of ``seg`` is contiguous."""
+    h, w, c = seg.shape[-3:]
+    return all(n == 1 or st == want for n, st, want in
+               zip((h, w, c), seg.stride()[-3:], (w * c, c, 1)))
+
+
+def _check_segments(seg0, seg1, n_out):
+    for name, seg in (("seg0", seg0), ("seg1", seg1)):
+        if seg is None:
+            continue
+        if seg.dtype != torch.uint8 or seg.dim() != 5:
+            raise ValueError(f"{name} must be (S, n, H, W, C) uint8, got "
+                             f"{tuple(seg.shape)} {seg.dtype}")
+        if not _frames_dense(seg):
+            raise ValueError(f"{name}'s frames must be contiguous (H, W, C) "
+                             f"blocks, got strides {seg.stride()}")
+    n1 = 0
+    if seg1 is not None:
+        if (seg1.shape[0] != seg0.shape[0]
+                or seg1.shape[2:] != seg0.shape[2:]):
+            raise ValueError(f"segments {tuple(seg0.shape)} and "
+                             f"{tuple(seg1.shape)} differ in streams or "
+                             "frame shape")
+        if seg1.device != seg0.device:
+            raise ValueError("segments must be on one device")
+        n1 = seg1.shape[1]
+    if not 1 <= n_out <= seg0.shape[1] + n1:
+        raise ValueError(f"{n_out} output frames from segments of "
+                         f"{seg0.shape[1]} and {n1} frames")
+
+
+def _launch(seg0, seg1, n_out, ts, crop, interp, model):
+    """One launch of kernel A on ``n_out`` frames of each stream of the
+    segments; counts it."""
+    streams, n0, h, w, c = seg0.shape
+    lib = cuda_build.load("warp")
+    fn = lib.vs_warp_segments
+    fn.restype = ctypes.c_int
+    # (base, stream stride, frame stride) of each segment, n0 after the
+    # first: csrc/warp.cu vs_warp_segments.
+    seg = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
+    fn.argtypes = seg + [ctypes.c_int] + seg + [ctypes.c_int] * 2 + \
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    second = ((seg1.data_ptr(), seg1.stride(0), seg1.stride(1))
+              if seg1 is not None else (None, 0, 0))
+    out = torch.empty((streams * n_out, h - 2 * crop, w - 2 * crop, c),
+                      dtype=torch.uint8, device=seg0.device)
+    stream = torch.cuda.current_stream(seg0.device).cuda_stream
+    err = fn(seg0.data_ptr(), seg0.stride(0), seg0.stride(1), n0,
+             second[0], second[1], second[2], streams, n_out,
+             ts.data_ptr(), out.data_ptr(), h, w, c, crop,
+             MODELS[model][0], INTERPS[interp], 1.0 / w, stream)
+    if err != 0:
+        raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
+    warp_frames.launches += 1
+    form = (model, interp)
+    warp_frames.form_launches[form] = warp_frames.form_launches.get(form,
+                                                                    0) + 1
+    return out
 
 
 def warp_frames(frames, ts, crop: int = 0, interp: str = "bilinear",
@@ -200,7 +291,9 @@ def warp_frames(frames, ts, crop: int = 0, interp: str = "bilinear",
     Returns:
       (B, H - 2*crop, W - 2*crop, C) u8.
 
-    Each launch adds one to ``warp_frames.launches`` and to
+    On the card the batch is kernel A's one-segment case
+    (``warp_frame_segments``). Each launch adds one to
+    ``warp_frames.launches`` and to
     ``warp_frames.form_launches[(model, interp)]``.
     """
     _check(frames, ts, crop, interp, model)
@@ -211,24 +304,41 @@ def warp_frames(frames, ts, crop: int = 0, interp: str = "bilinear",
                          f"{frames.device}")
     if not (frames.is_contiguous() and ts.is_contiguous()):
         raise ValueError("warp_frames needs contiguous frames and ts")
-    bsz, h, w, c = frames.shape
-    lib = cuda_build.load("warp")
-    fn = lib.vs_warp_frames
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    out = torch.empty((bsz, h - 2 * crop, w - 2 * crop, c), dtype=torch.uint8,
-                      device=frames.device)
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    err = fn(frames.data_ptr(), ts.data_ptr(), out.data_ptr(), bsz, h, w, c,
-             crop, MODELS[model][0], INTERPS[interp], 1.0 / w, stream)
-    if err != 0:
-        raise RuntimeError(f"warp kernel launch failed: CUDA error {err}")
-    warp_frames.launches += 1
-    form = (model, interp)
-    warp_frames.form_launches[form] = warp_frames.form_launches.get(form,
-                                                                    0) + 1
-    return out
+    return _launch(frames[None], None, frames.shape[0], ts, crop, interp,
+                   model)
+
+
+def warp_frame_segments(seg0, seg1, n_out: int, ts, crop: int = 0,
+                        interp: str = "bilinear", model: str = "similarity"):
+    """``warp_frames`` of the first ``n_out`` frames of each stream of
+    ``FrameSegments(seg0, seg1, n_out)``, read where they lie.
+
+    Args:
+      seg0, seg1: (S, n0, H, W, C) and (S, n1, H, W, C) u8 (``seg1`` may be
+        None where n0 >= n_out), any stream and frame strides, each frame's
+        (H, W, C) contiguous.
+      ts: (S * n_out, P) float32, stream-major.
+    Returns:
+      (S * n_out, H - 2*crop, W - 2*crop, C) u8, stream-major.
+
+    On the card one launch of kernel A, counted as ``warp_frames``'
+    launches are; on the CPU the plain version of the frames copied into
+    one batch.
+    """
+    _check_segments(seg0, seg1, n_out)
+    streams, _, h, w, c = seg0.shape
+    _check_form(ts, streams * n_out, h, w, c, crop, interp, model,
+                seg0.device)
+    if seg0.device.type == "cpu":
+        frames = FrameSegments(seg0, seg1, n_out).batch()
+        return warp_frames_plain(frames.flatten(0, 1), ts, crop, interp,
+                                 model)
+    if seg0.device.type != "cuda":
+        raise ValueError(f"warp_frame_segments runs on cuda or cpu, not "
+                         f"{seg0.device}")
+    if not ts.is_contiguous():
+        raise ValueError("warp_frame_segments needs contiguous ts")
+    return _launch(seg0, seg1, n_out, ts, crop, interp, model)
 
 
 def reset_launches():

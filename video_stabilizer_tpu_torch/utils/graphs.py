@@ -23,8 +23,12 @@ once, then replayed:
     host tensor with ``non_blocking=True``: the caller must not overwrite
     it before the stream has read it), replays the graph and returns
     clones of the static outputs. Inputs are never written, and a value
-    returned by one call is never changed by a later call. JAX's
-    ``donate_argnums`` is not mirrored.
+    returned by one call is never changed by a later call. The function
+    reads its static inputs where they lie: the chunk programs' kernel A
+    warps the carried frame tail and the chunk straight from theirs
+    (models/chunked.py). JAX's ``donate_argnums`` is not mirrored, so a
+    carried state, that frame tail included, is copied into the static
+    inputs and its successor cloned out at every call.
   - The kernel wrappers count a launch when their Python runs, which in a
     replay it does not: each capture records the counts' deltas (and takes
     them back, since a capture launches nothing) and every replay adds
