@@ -235,19 +235,25 @@ Phases:
      (bit-exact), subpixel translations (<= 1 LSB) and rotation / zoom
      within the envelope (<= 2 LSB on > 99.9 %); timed beside kernel A and
      grid_sample on the 128 frames.
- J1. The 1080p chunk of phase 9's clip through the captured entry point
-     against the un-captured composition, on the same pinned inputs from
-     the same fresh state: the un-captured path runs twice (any output in
-     which it differs from itself is held to phase 9's bars instead);
-     outputs, meas, succ, valid and the carried state byte-equal; the
-     first chunk's returned values unchanged after the later chunks ran.
-     Prints the replayed chunks' digest line, the capture and instantiate
-     time, the graph pool's bytes, the
-     peak memory, the replayed chunk's host-clock time over 20 chunks
-     (median, min, max, spread) beside the un-captured chunks' of the
-     phase, the device-busy share and the copies of 3 replays under
-     torch.profiler, and the launches per replay (kernels D, F and G once,
-     E and J once per level, I once, H once per level below the first).
+ J1. The 1080p chunk of phase 9's clip through the captured chunk
+     program as a serving loop calls it, donating its state (each call's
+     returned state fed to the next), against the un-captured composition
+     run twice on a copy of the state taken before each donated call, on
+     the same pinned inputs (any output in which it differs from itself is
+     held to phase 9's bars instead): every call's outputs, meas, succ,
+     valid and state byte-equal; the returned state the key's static
+     inputs; the first chunk's returned outputs unchanged after the later
+     chunks ran. Prints the replayed chunks' digest line, the capture and
+     instantiate time, the graph pool's bytes, the peak memory, the static
+     inputs' and outputs' bytes, the replayed chunk's host-clock time over
+     20 chunks (median, min, max, spread) beside the un-captured chunks',
+     the device-busy share and the copies of 3 replays under
+     torch.profiler (beside the DtoD a replay read while the state was
+     copied in and cloned out), and the launches per replay (kernels D, F
+     and G once, E and J once per level, I once, H once per level below
+     the first). Then a state passed again after a later call advanced it
+     must raise, and two chains of one key fed in turn (the streams, and
+     the streams reversed) must each equal their run alone.
  10. The 4K homography path, timed, the same way: 4 chunks on
      bench_configs' content (seeds 5 and 6), kernel C's and kernel A's
      homography + Lanczos2 counts > 0 and kernel B's 0, success >= 0.9,
@@ -301,7 +307,12 @@ J10. The chunk programs' memory, and long replay. (a)
      recently called. Every repeated shape replays, and every replay is
      byte-equal to the un-captured call on the same inputs (outputs,
      meas, success, valid, carried state), after the other keys of the
-     shared pool captured and replayed in between. (b) 1,000 replays of
+     shared pool captured and replayed in between. The stabilizer's calls
+     donate its state, so that state is a kept key's static inputs (counted
+     once). Last, another stabilizer's chunks of 16, 8, 6 and 4 frames drop
+     the 2-frame key while the first keeps its state: the same bar after,
+     that state counted as the caller's, and its next chunk byte-equal to
+     the un-captured one. (b) 1,000 replays of
      tests/test_torch_soak.py's 64x48 two-frame chunk: one capture, the
      card's reserved memory the same after replay 1 and replay 1,000, the
      state finite; the replays' median time.
@@ -3422,6 +3433,10 @@ def device_events(run, reps):
 J_STEADY = {"similarity": 20, HOMOGRAPHY: 8}   # J1's and J2's replays
 J_PROFILED = 3                                 # replays under the profiler
 J_OUTPUTS = ("outputs", "meas", "succ", "valid")
+# A replay's DtoD copies while the chunk programs copied their state in and
+# cloned it out at every call (this script's J1 and J2 then): the figure a
+# donated replay's is read against.
+J_DTOD_BEFORE = {"similarity": "1.50 ms", HOMOGRAPHY: "1.50-1.58 ms"}
 
 
 def leaves_equal(a, b) -> bool:
@@ -3501,15 +3516,21 @@ def within_bars(name, got, want) -> bool:
 
 
 def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
-    """J1 / J2: the chunks of ``frames`` through the captured entry point
-    against the un-captured composition (``graphs.eager()``), from the same
-    fresh state on the same pinned inputs; then the replay's steady time,
-    capture cost, memory, device-busy share and launches per replay."""
+    """J1 / J2: the chunks of ``frames`` through the chunk program as a
+    serving loop calls it, donating its state (each call's state fed to
+    the next), against the un-captured path (``graphs.eager()``) run twice
+    on a copy of the state taken before each donated call, on the same
+    pinned inputs; then the replay's steady time, capture cost, memory,
+    copies, device-busy share and launches per replay, and (J1) two chains
+    in turn and the refusal of an advanced state. A package whose programs
+    do not donate (``--package-root`` on an older tree) runs the same
+    chain through ``stabilize_chunk_streams``."""
     from video_stabilizer_tpu_torch.models import chunked
     from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
     from video_stabilizer_tpu_torch.utils import graphs
 
     prog = chunked._stabilize_chunk_streams_jit
+    donating = bool(getattr(prog, "donate_argnames", ()))
     streams, total, height, width = frames.shape[:4]
     chunks = [torch.from_numpy(np.ascontiguousarray(
         frames[:, c:c + CHUNK])).pin_memory()
@@ -3519,30 +3540,10 @@ def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
         return chunked.init_stream_state(width, height, params, 3, streams,
                                          dev, model=model)
 
-    eager, eager_walls = [], []
-    for _ in range(2):
-        states, outs = fresh(), []
-        with graphs.eager():
-            for c, chunk in enumerate(chunks):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                states, *res = chunked.stabilize_chunk_streams(
-                    states, chunk, params, model)
-                torch.cuda.synchronize()
-                if c:
-                    eager_walls.append((time.perf_counter() - t0) * 1e3)
-                outs.append(res)
-        eager.append((states, outs))
-    unstable = [name for i, name in enumerate(J_OUTPUTS)
-                if not all(torch.equal(a[i], b[i])
-                           for a, b in zip(eager[0][1], eager[1][1]))]
-    if not leaves_equal(eager[0][0], eager[1][0]):
-        unstable.append("state")
-    log(f"  the un-captured path run twice: "
-        + (f"not deterministic in {unstable}" if unstable
-           else "byte-equal in outputs, meas, succ, valid and state"))
-    want_state, want = eager[0]
-    del eager
+    def step(states, chunk):
+        if donating:
+            return prog(states, chunk, params, width, height, model)
+        return chunked.stabilize_chunk_streams(states, chunk, params, model)
 
     graphs.reset([prog])
     torch.cuda.synchronize()
@@ -3550,20 +3551,59 @@ def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
     base_gb = torch.cuda.memory_allocated() / 1e9
     reset_launch_counts()
     states, got = fresh(), []
+    befores = [tree_to(states, "cpu", True)]   # the state before each call
     for c, chunk in enumerate(chunks):
-        states, *res = chunked.stabilize_chunk_streams(states, chunk, params,
-                                                       model)
+        states, *res = step(states, chunk)
         got.append(res)
+        befores.append(tree_to(states, "cpu", True))
         if c == 0:
             first = [x.clone() for x in res]
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    how = "donated" if donating else "copied in and cloned out"
     check(prog.captures == 1 and prog.replays == len(chunks) - 1,
           f"{prog.captures} capture, {prog.replays} replays over "
-          f"{len(chunks)} chunks (the first call captures)")
+          f"{len(chunks)} chunks (the first call captures; the state {how})")
+    in_static = {x.untyped_storage().data_ptr()
+                 for e in prog._cache.values() for x in e.static_in
+                 if x is not None}
+    held = {x.untyped_storage().data_ptr() for x in tensor_leaves(states)}
+    log(f"  the state a call returns lies in the key's static inputs: "
+        f"{held <= in_static}")
+    if donating:
+        check(held <= in_static, "the donated chain's state is the key's "
+              "static inputs, returned uncloned")
+    log_digest(tag, f"{len(chunks)} replayed chunks' outputs, meas, succ, "
+               "valid and the carried state", (got, states))
+
+    # The reference: the un-captured path twice on a copy of each call's
+    # starting state (an output in which it differs from itself is held to
+    # phase 9's / 10's bars instead).
+    eager, eager_walls = [], []
+    for c, chunk in enumerate(chunks):
+        runs = []
+        for k in range(2):
+            copy = tree_to(befores[c], dev, True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with graphs.eager():
+                st, *res = step(copy, chunk)
+            torch.cuda.synchronize()
+            if c or k:
+                eager_walls.append((time.perf_counter() - t0) * 1e3)
+            runs.append((tree_to(st, "cpu"), res))
+            del copy, st
+        eager.append(runs)
+    unstable = [name for i, name in enumerate(J_OUTPUTS)
+                if not all(torch.equal(a[1][i], b[1][i]) for a, b in eager)]
+    if not all(leaves_equal(a[0], b[0]) for a, b in eager):
+        unstable.append("state")
+    log(f"  the un-captured path run twice from each call's state: "
+        + (f"not deterministic in {unstable}" if unstable
+           else "byte-equal in outputs, meas, succ, valid and state"))
     for i, name in enumerate(J_OUTPUTS):
-        pairs = [(g[i], w[i]) for g, w in zip(got, want)]
+        pairs = [(g[i], w[0][1][i]) for g, w in zip(got, eager)]
         if name in unstable:
             check(all(within_bars(name, g, w) for g, w in pairs),
                   f"{name}: within phase 9's / 10's bars of the un-captured "
@@ -3573,21 +3613,24 @@ def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
                   f"{name} of {len(chunks)} chunks byte-equal to the "
                   "un-captured path")
     if "state" not in unstable:
-        check(leaves_equal(states, want_state),
-              f"carried state ({len(tensor_leaves(states))} tensors) "
-              "byte-equal to the un-captured path")
-    log_digest(tag, f"{len(chunks)} replayed chunks' outputs, meas, succ, "
-               "valid and the carried state", (got, states))
+        check(all(leaves_equal(b, w[0][0])
+                  for b, w in zip(befores[1:], eager)),
+              f"the state after each of the {len(chunks)} calls "
+              f"({len(tensor_leaves(states))} tensors) byte-equal to the "
+              "un-captured path's")
     check(all(torch.equal(a, b) for a, b in zip(first, got[0])),
-          "chunk 0's returned values unchanged after chunks 1-"
+          "chunk 0's returned outputs unchanged after chunks 1-"
           f"{len(chunks) - 1} ran")
-    del got, want, want_state, first
+    del got, eager, befores, first
     stats = prog.stats()[0]
     log(f"  capture: first call {stats['first_call_s']:.2f} s (eager "
         f"{stats['eager_s']:.2f} s, capture {stats['capture_s']:.2f} s, "
         f"instantiate {stats['instantiate_s']:.2f} s); graph pool "
         f"{stats['pool_bytes'] / 1e9:.2f} GB; peak device memory "
-        f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before the run)")
+        f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before the run); static "
+        f"inputs {stats['static_in_bytes'] / 1e9:.3f} GB, static outputs "
+        f"{stats['static_out_bytes'] / 1e9:.3f} GB (the state "
+        f"{graphs.storage_nbytes(tensor_leaves(states)) / 1e9:.3f} GB)")
     per_replay = {(f"{k[0]}[{','.join(k[1])}]" if k[1] else k[0]): n
                   for k, n in stats["launches_per_replay"].items()}
     log(f"  launches per replay {per_replay}; this run's counts {launches}")
@@ -3615,8 +3658,7 @@ def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
     walls = []
     for k in range(n):
         t0 = time.perf_counter()
-        states = chunked.stabilize_chunk_streams(
-            states, chunks[k % len(chunks)], params, model)[0]
+        states = step(states, chunks[k % len(chunks)])[0]
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     walls = np.asarray(walls)
@@ -3632,8 +3674,7 @@ def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
 
     def replay():
         nonlocal states
-        states = chunked.stabilize_chunk_streams(states, chunks[0], params,
-                                                 model)[0]
+        states = step(states, chunks[0])[0]
     span, by_name = device_events(replay, J_PROFILED)
     busy = sum(ms for ms, _ in by_name.values())
     events = sum(n for _, n in by_name.values())
@@ -3650,11 +3691,57 @@ def captured_vs_eager(frames, params, dev, model="similarity", tag="J1"):
             f"replay, are {busy / J_PROFILED / med * 100:.1f} % of the "
             f"unprofiled median); copies per replay "
             + ", ".join(f"{k} {v / J_PROFILED:.2f} ms"
-                        for k, v in sorted(copies.items())))
+                        for k, v in sorted(copies.items()))
+            + f" (the state {how}; copied in and cloned out, a replay "
+              f"read {J_DTOD_BEFORE[model]} of DtoD on an NVIDIA H100 80GB "
+              "HBM3 at 700 W)")
     else:
         log("  the profiler recorded no device time: busy share not "
             "measured")
+    if donating and model == "similarity":
+        chains_in_turn(step, fresh, chunks, states)
     return dict(median=med, eager=med_e, walls=walls)
+
+
+def chains_in_turn(step, fresh, chunks, states):
+    """J1's donation checks: a state that a later call has advanced is
+    refused, and two chains of one key fed in turn (phase 9's streams, and
+    the same streams in reverse order) each give byte for byte what they
+    give alone."""
+    stale = states
+    states = step(states, chunks[1])[0]
+    try:
+        step(stale, chunks[1])
+        refused = "no error"
+    except RuntimeError as err:
+        refused = str(err)
+    check("already advanced" in refused,
+          f"a state passed again after a later call advanced it is refused "
+          f"({refused[:120]})")
+    del stale, states
+    flipped = [c.flip(0).contiguous().pin_memory() for c in chunks[:2]]
+    alone = []
+    for feed in (chunks[:2], flipped):
+        st, outs = fresh(), []
+        for chunk in feed:
+            st, *res = step(st, chunk)
+            outs.append(res)
+        alone.append((tree_to(st, "cpu", True), outs))
+        del st
+    a, b, got_a, got_b = fresh(), fresh(), [], []
+    for c in range(2):
+        a, *res_a = step(a, chunks[c])
+        b, *res_b = step(b, flipped[c])
+        got_a.append(res_a)
+        got_b.append(res_b)
+    same = all(
+        leaves_equal(tree_to(st, "cpu"), want[0])
+        and all(torch.equal(g, w) for gs, ws in zip(got, want[1])
+                for g, w in zip(gs, ws))
+        for st, got, want in ((a, got_a, alone[0]), (b, got_b, alone[1])))
+    check(same, "two chains of one key fed in turn (2 chunks each, the "
+          "second on the streams reversed): outputs, meas, succ, valid and "
+          "state byte-equal to each chain alone")
 
 
 @phase("J1. the captured 1080p chunk (8 streams x 16 frames) against the "
@@ -3928,17 +4015,22 @@ def clip_programs(frames, params, dev):
 J10_STREAMS = (8, 6, 4, 8, 6, 4, 8)    # J10 (a): stream counts in a row
 J10_LENGTHS = (16, 8, 16, 8, 6, 4, 2)  # then one stream's chunk lengths
 J10_REPLAYS = 1000                     # J10 (b): the soak's chunk replayed
+# J10 (a), last: another stabilizer's chunk lengths that drop the key of
+# J10_LENGTHS' last one (its kept keys are then 8, 6, 4 and 2, least
+# recently called first).
+J10_EVICTING = (16, 8, 6, 4)
 J10_NAMES = ("state", "outputs", "meas", "succ", "valid")
 # tests/test_torch_soak.py's stream: 64x48, its parameters and content.
 SOAK_H, SOAK_W, SOAK_FRAMES = 48, 64, 1000
 
 
-def tree_to(tree, dev):
-    """A tensor or a nested tuple (NamedTuple) of them, moved to ``dev``."""
+def tree_to(tree, dev, copy=False):
+    """A tensor or a nested tuple (NamedTuple) of them, moved to ``dev``
+    (with ``copy``, copied also where it lies there already)."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(dev)
+        return tree.to(dev, copy=copy)
     if isinstance(tree, tuple):
-        items = [tree_to(x, dev) for x in tree]
+        items = [tree_to(x, dev, copy) for x in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
             items)
     return tree
@@ -3975,7 +4067,9 @@ class HeldMemory:
     program grew at its capture since the pool opened (a dropped key's
     blocks stay in the shared pool while another key holds it), the kept
     keys' static inputs, the other kept keys' static outputs, what the
-    caller holds, and 0.25 GB."""
+    caller holds, and 0.25 GB. A storage counts once: a donated state the
+    caller holds is a kept key's static input, or, once that key was
+    dropped, the caller's alone."""
 
     def __init__(self, prog):
         self.prog = prog
@@ -3984,15 +4078,20 @@ class HeldMemory:
         self.base = torch.cuda.memory_reserved()
         self.peak = 0
 
-    def read(self, caller) -> tuple:
-        """(within the bar, a line for the log)."""
+    def read(self, caller=()) -> tuple:
+        """(within the bar, a line for the log); ``caller``: the tensors
+        the caller holds."""
+        from video_stabilizer_tpu_torch.utils import graphs
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_reserved() - self.base
         stats = self.prog.stats()
         self.peak = max([self.peak] + [s["pool_bytes"] for s in stats])
         largest = max(stats, key=lambda s: s["pool_bytes"])
-        ins = sum(s["static_in_bytes"] for s in stats)
+        static = [x for e in self.prog._cache.values() for x in e.static_in
+                  if x is not None]
+        ins = graphs.storage_nbytes(static)
+        caller = graphs.storage_nbytes(static + list(caller)) - ins
         outs = sum(s["static_out_bytes"] for s in stats)
         if largest["pool_bytes"] == self.peak:
             outs -= largest["static_out_bytes"]
@@ -4007,6 +4106,45 @@ class HeldMemory:
             f"keys' static outputs {outs / 1e9:.2f} + the caller's "
             f"{caller / 1e9:.2f} + {J_HELD_SLACK / 1e9:.2f}); the shared "
             f"pool's segments {pool / 1e9:.2f} GB")
+
+
+def evicted_while_held(stab, frames, start, memory, params, dev, reference):
+    """J10 (a), last: ``stab``'s key dropped while it holds its donated
+    state. Another stabilizer feeds the chunk lengths that make ``stab``'s
+    key the least recently called and then drop it; the card's reserved
+    memory is read (the held state counted as the caller's), and ``stab``'s
+    next chunk, its state copied into a new key, equals the un-captured
+    chunk."""
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.parallel.mesh import tensor_leaves
+    from video_stabilizer_tpu_torch.utils import graphs
+
+    prog1 = chunked._stabilize_chunk_jit
+    other = chunked.ChunkedStabilizer(params, device=dev)
+    at, evictions = 0, prog1.evictions
+    for t in J10_EVICTING:
+        other.process_chunk(torch.from_numpy(np.ascontiguousarray(
+            frames[1, at:at + t])))
+        at += t
+    state_bytes = graphs.storage_nbytes(tensor_leaves(stab._state))
+    kept = {m[1][0] for key in prog1._cache for m in key[2]
+            if m[0] == "tensor" and m[1][1:] == (HEIGHT, WIDTH, 3)}
+    dropped = J10_LENGTHS[-1] not in kept
+    within, line = memory.read(tensor_leaves(stab._state))
+    log(f"  after {prog1.evictions - evictions} more evictions (another "
+        f"stabilizer's chunks of {J10_EVICTING} frames), the "
+        f"{J10_LENGTHS[-1]}-frame key dropped {dropped} while its caller "
+        f"keeps the donated state ({state_bytes / 1e9:.3f} GB, that key's "
+        f"donated static inputs): {line}")
+    check(dropped and within, "a key dropped while its caller keeps the "
+          "donated state: the card held no more than the bar, the state's "
+          "static inputs counted as the caller's")
+    x = torch.from_numpy(np.ascontiguousarray(frames[0, start:start + 2]))
+    prev = tree_to(stab._state, "cpu", True)
+    got = stab.process_chunk(x)
+    check(same_as_eager(reference(prev, x), (stab._state, *got)),
+          "the held state's next chunk (copied into a new key) byte-equal "
+          "to the un-captured chunk")
 
 
 @phase("J10. the chunk programs' memory over stream counts and chunk "
@@ -4045,7 +4183,7 @@ def chunk_programs(frames, params, dev):
                     tree_to(state, dev), x, params), got)
         states[s] = tree_to(got[0], "cpu")
         del got, state
-        within, line = memory.read(0)
+        within, line = memory.read()
         ok_held &= within
         most = max(most, len(prog.stats()))
         log(f"    {s} streams, chunk {c}: "
@@ -4069,23 +4207,29 @@ def chunk_programs(frames, params, dev):
         f"{J10_LENGTHS} frames in a row:")
     stab = chunked.ChunkedStabilizer(params, device=dev)
     start, ok_held, ok_same = 0, True, True
+
+    def reference(prev, x):
+        """The un-captured chunk from a host copy of the state the donating
+        call started from."""
+        def run():
+            st, out, meas, succ, valid = chunked.stabilize_chunk_impl(
+                tree_to(prev, dev, True), x, params)
+            return st, out[valid], meas, succ
+        return run
+
     for t in J10_LENGTHS:
         x = torch.from_numpy(np.ascontiguousarray(frames[0, start:start + t]))
         start += t
-        prev = stab._state if stab._state is not None else \
-            chunked.init_stream_state(WIDTH, HEIGHT, params, 3, 1, dev)
+        prev = tree_to(stab._state if stab._state is not None else
+                       chunked.init_stream_state(WIDTH, HEIGHT, params, 3, 1,
+                                                 "cpu"), "cpu", True)
         replays = prog1.replays
         got, ms = timed(lambda: stab.process_chunk(x))
         replayed = prog1.replays > replays
         if replayed:
-            def reference():
-                st, out, meas, succ, valid = chunked.stabilize_chunk_impl(
-                    prev, x, params)
-                return st, out[valid], meas, succ
-            ok_same &= same_as_eager(reference, (stab._state, *got))
+            ok_same &= same_as_eager(reference(prev, x), (stab._state, *got))
         del got, prev
-        within, line = memory.read(graphs.storage_nbytes(tensor_leaves(
-            stab._state)))
+        within, line = memory.read(tensor_leaves(stab._state))
         ok_held &= within
         log(f"    {t} frames: {'replay' if replayed else 'first call'} "
             f"{ms:.1f} ms; {line}")
@@ -4100,6 +4244,7 @@ def chunk_programs(frames, params, dev):
           f"{prog1.captures} captures, {prog1.replays} replays (byte-equal "
           f"to the un-captured call), {prog1.evictions} eviction: the 5th "
           f"chunk length dropped the least recently called; kept {kept}")
+    evicted_while_held(stab, frames, start, memory, params, dev, reference)
     del stab
 
     log(f"  (b) {J10_REPLAYS} replays of the soak's {SOAK_W}x{SOAK_H} "

@@ -60,11 +60,18 @@ class StandIn:
     def warmup(self, dev, fn):
         return fn()
 
-    def capture(self, dev, fn, name, pool):
+    def capture(self, dev, fn, name, pool, inputs):
         self.pools.append((name, dev, pool))
         if self.fail_capture:
             raise RuntimeError(f"{name}: capture refused")
+        # A capture on the card runs no kernel: what the run writes into
+        # the static inputs (a donated state) is put back.
+        saved = [x.clone() if isinstance(x, torch.Tensor) else x
+                 for x in inputs]
         out = fn()
+        for x, s in zip(inputs, saved):
+            if isinstance(x, torch.Tensor):
+                x.copy_(s)
         static_out = leaves(out)
 
         def graph():

@@ -26,6 +26,7 @@ from video_stabilizer_tpu_torch.config import (
     StabilizerParams, params_from_jax_dict)
 from video_stabilizer_tpu_torch.models import batch, chunked
 from video_stabilizer_tpu_torch.parallel.mesh import Sharded, tensor_leaves
+from video_stabilizer_tpu_torch.utils import graphs
 from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
 
@@ -134,11 +135,18 @@ def runs(clips):
                 else:
                     state, *res = parallel.stabilize_chunk_streams_sharded(
                         state, frames, mesh, PARAMS)
-                states.append(state)
+                # The sharded chunk donates its states: keep a copy.
+                states.append(_copy(state))
                 results.append(res)
         cache[key] = states, results
         return cache[key]
     return run
+
+
+def _copy(state):
+    if isinstance(state, Sharded):
+        return Sharded(tuple(map(_copy, state.shards)), state.offsets)
+    return graphs._tree_map(torch.clone, state)
 
 
 def _cat(value):
@@ -203,7 +211,7 @@ def test_shards_are_independent(clips, runs):
     frames = clips[:, HALF:].copy()
     frames[:2] = _clip(99)[HALF:]
     new_states, *res = parallel.stabilize_chunk_streams_sharded(
-        states[0], frames, _mesh(4), PARAMS)
+        _copy(states[0]), frames, _mesh(4), PARAMS)
     assert not torch.equal(res[0].shards[0], results[1][0].shards[0])
     for k in range(1, 4):
         for g, w in zip(res, results[1]):

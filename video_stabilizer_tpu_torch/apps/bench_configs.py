@@ -68,7 +68,7 @@ def bench_4k(streams: int, frames: int, reps: int, gn: str = "auto",
     from video_stabilizer_tpu_torch.config import (
         AlignerParams, StabilizerParams)
     from video_stabilizer_tpu_torch.models.chunked import (
-        init_stream_state, stabilize_chunk_streams)
+        _stabilize_chunk_streams_jit, init_stream_state)
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
     dev, label = _setup(device)
@@ -84,8 +84,8 @@ def bench_4k(streams: int, frames: int, reps: int, gn: str = "auto",
                                model="homography")
 
     def run(states, x):
-        states, out, meas, ok, valid = stabilize_chunk_streams(
-            states, x, params, "homography")
+        states, out, meas, ok, valid = _stabilize_chunk_streams_jit(
+            states, x, params, width, height, "homography")
         return states, out, ok
 
     oks = []
@@ -216,7 +216,7 @@ def bench_latency_chunk2(reps: int, chain: int, gn: str = "auto",
     from video_stabilizer_tpu_torch.config import (
         AlignerParams, StabilizerParams)
     from video_stabilizer_tpu_torch.models.chunked import (
-        init_stream_state, stabilize_chunk_impl)
+        _stabilize_chunk_jit, init_stream_state)
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
     dev, label = _setup(device)
@@ -232,8 +232,8 @@ def bench_latency_chunk2(reps: int, chain: int, gn: str = "auto",
     def run(state):
         probe = torch.zeros((), dtype=torch.int64, device=dev)
         for ch in chunks:
-            state, out, meas, ok, valid = stabilize_chunk_impl(state, ch,
-                                                               params)
+            state, out, meas, ok, valid = _stabilize_chunk_jit(
+                state, ch, params, width, height)
             oks.append(ok)
             probe = probe + out[-1, ::64, ::64].sum()
         return state, probe
@@ -276,7 +276,7 @@ def bench_latency_request(samples: int, gn: str = "auto", *,
     from video_stabilizer_tpu_torch.config import (
         AlignerParams, StabilizerParams)
     from video_stabilizer_tpu_torch.models.chunked import (
-        init_stream_state, stabilize_chunk_impl)
+        _stabilize_chunk_jit, init_stream_state)
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
     dev, label = _setup(device)
@@ -288,8 +288,9 @@ def bench_latency_request(samples: int, gn: str = "auto", *,
 
     t0 = time.perf_counter()
     for k in range(8):                  # first use, and fill the lag window
-        state, out, meas, ok, valid = stabilize_chunk_impl(
-            state, torch.from_numpy(clip[2 * k:2 * k + 2]).to(dev), params)
+        state, out, meas, ok, valid = _stabilize_chunk_jit(
+            state, torch.from_numpy(clip[2 * k:2 * k + 2]).to(dev), params,
+            width, height)
     ok.cpu()
     print(f"latency-request: warm-up {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
@@ -311,7 +312,8 @@ def bench_latency_request(samples: int, gn: str = "auto", *,
     for i in range(samples):
         ch = chunks[i % len(chunks)]
         t0 = time.perf_counter()
-        state, out, meas, ok, valid = stabilize_chunk_impl(state, ch, params)
+        state, out, meas, ok, valid = _stabilize_chunk_jit(
+            state, ch, params, width, height)
         oks.append(ok.cpu())                 # the result computed
         t1 = time.perf_counter()
         out.cpu()                            # and its frames on the host

@@ -277,7 +277,7 @@ def main(argv=None):
         AlignerParams, StabilizerParams)
     from video_stabilizer_tpu_torch.device import resolve_device
     from video_stabilizer_tpu_torch.models.chunked import (
-        init_stream_state, stabilize_chunk_streams)
+        _stabilize_chunk_streams_jit, init_stream_state)
     from video_stabilizer_tpu_torch.utils import graphs
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
@@ -301,8 +301,8 @@ def main(argv=None):
 
     def run(states, x):
         with graphs.eager():
-            states, out, meas, ok, valid = stabilize_chunk_streams(
-                states, x, params, model)
+            states, out, meas, ok, valid = _stabilize_chunk_streams_jit(
+                states, x, params, w, h, model)
         return states, float(out[:, -1, ::64, ::64].sum())
 
     print("profiling the un-captured chunk (stabilize_chunk_core and the "

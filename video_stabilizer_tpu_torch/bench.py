@@ -50,7 +50,7 @@ def main(device=None):
         AlignerParams, StabilizerParams)
     from video_stabilizer_tpu_torch.device import resolve_device
     from video_stabilizer_tpu_torch.models.chunked import (
-        init_stream_state, stabilize_chunk_streams)
+        _stabilize_chunk_streams_jit, init_stream_state)
     from video_stabilizer_tpu_torch.utils.io import synth_shaky_clip
 
     env = os.environ.get
@@ -80,8 +80,10 @@ def main(device=None):
     states = init_stream_state(width, height, params, 3, streams, dev)
 
     def run_chunk(states, x):
-        states, out, meas, ok, valid = stabilize_chunk_streams(states, x,
-                                                               params)
+        # The serving loop owns its state chain: the program takes its
+        # donation, as bench.py's does.
+        states, out, meas, ok, valid = _stabilize_chunk_streams_jit(
+            states, x, params, width, height)
         return states, out, ok
 
     t0 = time.perf_counter()

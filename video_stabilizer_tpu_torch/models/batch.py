@@ -144,7 +144,7 @@ def _combos(dyn) -> int:
 
 
 def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
-                model: str = "similarity", dyn=None):
+                model: str = "similarity", dyn=None, out=None):
     """Align every frame of an even-length (S, T, H, W) u8 gray batch.
 
     ``pairs_seen`` (S,) is the global index of each stream's first pair
@@ -153,7 +153,8 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
     C combos, which then ride the item axis (combo-major) and give meas and
     success a leading C axis.
     Returns (new carry, meas ([C,] S, T, P), success ([C,] S, T)), P = 4
-    or 8.
+    or 8. ``out``: a carry (``carry`` itself may be it) to write the new
+    carry into, after the last read of ``carry``, and return.
     """
     ops = model_ops(model)
     npar = ops["nparams"]
@@ -218,13 +219,19 @@ def align_pairs(gray, specs, params, carry: PairCarry, pairs_seen,
     meas = torch.stack([t_a, t_b], dim=-2).reshape(lead + (s_n, t_n, npar))
     ok = torch.stack([ok_a, ok_b], dim=-1).reshape(lead + (s_n, t_n))
 
-    last = tuple(
-        LevelKeyData(*(f[s_n:].reshape((s_n, p_n) + f.shape[1:])[:, -1]
-                       .contiguous() for f in kd))
-        for kd in key_all)
-    new_carry = PairCarry(
-        key_pyr=tuple(lv[:, -1].contiguous() for lv in pyr_b), key=last)
-    return new_carry, meas, ok
+    last_pyr = [lv[:, -1] for lv in pyr_b]
+    last_key = [[f[s_n:].reshape((s_n, p_n) + f.shape[1:])[:, -1] for f in kd]
+                for kd in key_all]
+    if out is None:
+        new_carry = PairCarry(
+            key_pyr=tuple(lv.contiguous() for lv in last_pyr),
+            key=tuple(LevelKeyData(*(f.contiguous() for f in kd))
+                      for kd in last_key))
+        return new_carry, meas, ok
+    torch._foreach_copy_(
+        list(out.key_pyr) + [f for kd in out.key for f in kd],
+        last_pyr + [f for kd in last_key for f in kd])
+    return out, meas, ok
 
 
 def smooth_trajectory(meas, params: StabilizerParams, lam=None):

@@ -18,7 +18,11 @@ outside the GN plain version. On the card the entry points replay the
 chunk as a captured CUDA graph (``_stabilize_chunk_streams_jit``,
 ``_stabilize_chunk_jit``, utils/graphs.py); ``stabilize_chunk_core`` stays
 un-captured for the stage tables and the profiler, which need its Python
-frames.
+frames. The two programs donate their state, as the JAX package's do:
+``ChunkedStabilizer`` and ``stabilize_stream_chunked`` call them so, and
+use only the state each call returns; ``stabilize_chunk_streams`` and
+``stabilize_chunk_impl`` decline the donation, and never write the state
+they are given.
 
 ``stream_state_from_numpy`` and ``params_from_jax_dict`` carry a JAX
 stream's state and parameters into the port: this system has no learned
@@ -129,18 +133,27 @@ def _copy_frames(dst, src):
         d.copy_(s)
 
 
-def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
-                         width: int, height: int, model: str = "similarity"):
-    """One chunk of S streams, everything up to (but excluding) the warp.
+def _shift_tail(dst, tail, frames):
+    """Write the new frame tail, positions tc.. of [carried ``tail`` |
+    chunk ``frames``], into ``dst``, which may be ``tail`` itself. Where tc
+    < lag the old tail's last lag - tc frames shift down: in blocks of at
+    most tc frames in ascending order, so that no copy reads a frame that
+    an earlier one wrote (an overlapping copy is undefined)."""
+    tc, lag = frames.shape[1], tail.shape[1]
+    keep = max(lag - tc, 0)
+    for k in range(0, keep, tc):
+        n = min(tc, keep - k)
+        _copy_frames(dst[:, k:k + n], tail[:, k + tc:k + tc + n])
+    _copy_frames(dst[:, keep:], frames[:, tc - lag + keep:])
 
-    Returns (new_state, delayed, accums (S, tc, P), meas (S, tc, P),
-    success (S, tc), out_valid (S, tc)). ``delayed`` is
-    ``FrameSegments(state.frame_tail, frames, tc)``: output j warps
-    position j of [carried tail | chunk], read where each lies
-    (``batch.warp_delayed`` hands both to kernel A); ``delayed.batch()``
-    copies them into one (S, tc, H, W[, C]) tensor. ``new_state`` owns its
-    memory: its frame tail is a copy, never a view of ``frames``.
-    """
+
+def _advance(state: StreamState, frames, params: StabilizerParams,
+             width: int, height: int, model: str, into):
+    """One chunk up to (but excluding) the warp and the new frame tail.
+    Returns (new_state, delayed, accums, meas, success, out_valid), where
+    ``new_state`` is ``into`` with every field but the frame tail written
+    in place, after the last read of ``state``'s, or (``into`` None) new
+    tensors and the old frame tail."""
     tc = frames.shape[1]
     if tc % 2:
         raise ValueError(f"chunk length {tc} must be even (the aligner "
@@ -152,8 +165,9 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
 
     with span("gray"):
         gray = bgr_to_gray_batched(frames)
-    pair, meas_c, succ_c = align_pairs(gray, specs, params.aligner,
-                                       state.pair, state.pairs_seen, model)
+    pair, meas_c, succ_c = align_pairs(
+        gray, specs, params.aligner, state.pair, state.pairs_seen, model,
+        out=None if into is None else into.pair)
     full_meas = torch.cat([state.meas_tail, meas_c], dim=1)
     with span("smooth"):
         if params.enable_smoother:
@@ -173,38 +187,64 @@ def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
                                    m_valid, params, width, height, model)
 
     # Output j warps the frame lag steps behind: position j of
-    # [carried frame tail | chunk frames], left where each lies. The new
-    # tail, positions tc.. of the same, is the one frame copy: the caller
-    # may refill ``frames`` once the call returns.
+    # [carried frame tail | chunk frames], left where each lies.
     delayed = FrameSegments(state.frame_tail, frames, tc)
+    if into is None:
+        new_state = StreamState(
+            pair=pair,
+            pairs_seen=state.pairs_seen + tc // 2,
+            meas_tail=full_meas[:, -tail_len:],
+            accum=accum,
+            frame_tail=state.frame_tail,
+            steps_seen=state.steps_seen + tc,
+        )
+    else:
+        new_state = into
+        into.meas_tail.copy_(full_meas[:, -tail_len:])
+        into.accum.copy_(accum)
+        into.pairs_seen.add_(tc // 2)
+        into.steps_seen.add_(tc)
+    return (new_state, delayed, accums, meas_c, succ_c, m_valid)
+
+
+def stabilize_chunk_core(state: StreamState, frames, params: StabilizerParams,
+                         width: int, height: int, model: str = "similarity"):
+    """One chunk of S streams, everything up to (but excluding) the warp.
+
+    Returns (new_state, delayed, accums (S, tc, P), meas (S, tc, P),
+    success (S, tc), out_valid (S, tc)). ``delayed`` is
+    ``FrameSegments(state.frame_tail, frames, tc)``: output j warps
+    position j of [carried tail | chunk], read where each lies
+    (``batch.warp_delayed`` hands both to kernel A); ``delayed.batch()``
+    copies them into one (S, tc, H, W[, C]) tensor. ``state`` is not
+    written, and ``new_state`` owns its memory: its frame tail is a copy,
+    never a view of ``frames``.
+    """
+    new_state, *rest = _advance(state, frames, params, width, height, model,
+                                None)
+    # The new tail, positions tc.. of [tail | chunk], is the one frame
+    # copy: the caller may refill ``frames`` once the call returns.
     frame_tail = torch.empty_like(state.frame_tail,
                                   memory_format=torch.contiguous_format)
-    keep = max(lag - tc, 0)          # tc < lag: the old tail's last frames
-    if keep:
-        _copy_frames(frame_tail[:, :keep], state.frame_tail[:, tc:])
-    _copy_frames(frame_tail[:, keep:], frames[:, tc - lag + keep:])
-    new_state = StreamState(
-        pair=pair,
-        pairs_seen=state.pairs_seen + tc // 2,
-        meas_tail=full_meas[:, -tail_len:],
-        accum=accum,
-        frame_tail=frame_tail,
-        steps_seen=state.steps_seen + tc,
-    )
-    return (new_state, delayed, accums, meas_c, succ_c, m_valid)
+    _shift_tail(frame_tail, state.frame_tail, frames)
+    return (new_state._replace(frame_tail=frame_tail), *rest)
 
 
 def _chunk_streams(states: StreamState, frames, params: StabilizerParams,
                    width: int, height: int, model: str = "similarity"):
-    """The chunk program's body: ``stabilize_chunk_core`` and the one warp
-    of the whole (S, tc) batch (chunked.py:245-258)."""
+    """The chunk program's body: the chunk (``stabilize_chunk_core``'s
+    stages) and the one warp of the whole (S, tc) batch (chunked.py:245-
+    258), the new state written into ``states`` in place and returned: the
+    program donates it. Kernel A reads the old frame tail, so the new one
+    is written after the warp."""
     with span("upload"):
         frames = frames.to(states.accum.device)
-    new_states, delayed, accums, meas, succ, valid = stabilize_chunk_core(
-        states, frames, params, width, height, model)
+    _, delayed, accums, meas, succ, valid = _advance(
+        states, frames, params, width, height, model, states)
     with span("warp"):
         out = warp_delayed(delayed, accums, params, width, height, model)
-    return new_states, out, meas, succ, valid
+    _shift_tail(states.frame_tail, states.frame_tail, frames)
+    return states, out, meas, succ, valid
 
 
 def _chunk_one_stream(state: StreamState, frames, params: StabilizerParams,
@@ -223,13 +263,17 @@ def _chunk_one_stream(state: StreamState, frames, params: StabilizerParams,
 # program's keys share on the card, so each program keeps at most 4 keys
 # per card: a serving process that switches among a few stream counts, or
 # feeds a shorter last chunk, replays them all, where one key would
-# capture again at every switch (about 2x the un-captured time).
+# capture again at every switch (about 2x the un-captured time). Both
+# donate their state, as JAX's ``donate_argnums=(0,)`` does: a caller that
+# owns its chain calls them directly and must use only the state a call
+# returns; the wrappers below decline the donation.
 _stabilize_chunk_streams_jit = Program(_chunk_streams,
                                        static_argnames=STATICS,
                                        name="_stabilize_chunk_streams_jit",
-                                       max_keys=4)
+                                       max_keys=4, donate_argnames=("states",))
 _stabilize_chunk_jit = Program(_chunk_one_stream, static_argnames=STATICS,
-                               name="_stabilize_chunk_jit", max_keys=4)
+                               name="_stabilize_chunk_jit", max_keys=4,
+                               donate_argnames=("state",))
 
 
 def stabilize_chunk_streams(states: StreamState, frames,
@@ -241,21 +285,23 @@ def stabilize_chunk_streams(states: StreamState, frames,
 
     Returns (new_states, out (S, tc, H-2c, W-2c[, C]) u8, meas (S, tc, P),
     success (S, tc), out_valid (S, tc)): ``out_valid`` is False for the
-    first ``lag`` outputs of a fresh stream.
+    first ``lag`` outputs of a fresh stream. ``states`` is not written (the
+    program does not take its donation) and stays usable.
     """
     frames = torch.as_tensor(frames)
-    return _stabilize_chunk_streams_jit(states, frames, params,
-                                        frames.shape[3], frames.shape[2],
-                                        model)
+    return _stabilize_chunk_streams_jit.call(
+        states, frames, params, frames.shape[3], frames.shape[2], model,
+        donate=False)
 
 
 def stabilize_chunk_impl(state: StreamState, frames,
                          params: StabilizerParams, model: str = "similarity"):
     """One chunk of ONE stream: ``state`` with S = 1, frames
-    (tc, H, W[, C]); on the card a replay of ``_stabilize_chunk_jit``."""
+    (tc, H, W[, C]); on the card a replay of ``_stabilize_chunk_jit``.
+    ``state`` is not written (no donation) and stays usable."""
     frames = torch.as_tensor(frames)
-    return _stabilize_chunk_jit(state, frames, params, frames.shape[2],
-                                frames.shape[1], model)
+    return _stabilize_chunk_jit.call(state, frames, params, frames.shape[2],
+                                     frames.shape[1], model, donate=False)
 
 
 class ChunkedStabilizer:
@@ -280,8 +326,8 @@ class ChunkedStabilizer:
             self._state = init_stream_state(w, h, self.params, ch, 1,
                                             self.device, self.model)
             self._shape = (h, w, ch)
-        self._state, out, meas, succ, valid = stabilize_chunk_impl(
-            self._state, frames, self.params, self.model)
+        self._state, out, meas, succ, valid = _stabilize_chunk_jit(
+            self._state, frames, self.params, w, h, self.model)
         return out[valid], meas, succ
 
 
@@ -302,8 +348,9 @@ def stabilize_stream_chunked(frames_bgr, params: StabilizerParams,
     state = init_stream_state(w, h, params, ch, 1, dev, model)
     outs, meas_all, succ_all = [], [], []
     for start in range(0, t_total, chunk_size):
-        state, out, meas, succ, valid = stabilize_chunk_impl(
-            state, frames[start:start + chunk_size].to(dev), params, model)
+        state, out, meas, succ, valid = _stabilize_chunk_jit(
+            state, frames[start:start + chunk_size].to(dev), params, w, h,
+            model)
         outs.append(out[valid].cpu().numpy())
         meas_all.append(meas.cpu().numpy())
         succ_all.append(succ.cpu().numpy())

@@ -37,7 +37,7 @@ from video_stabilizer_tpu_torch.config import StabilizerParams
 from video_stabilizer_tpu_torch.device import resolve_device
 from video_stabilizer_tpu_torch.models.batch import stabilize_streams
 from video_stabilizer_tpu_torch.models.chunked import (
-    init_stream_state, stabilize_chunk_streams)
+    _stabilize_chunk_streams_jit, init_stream_state)
 
 STREAM_AXIS = "streams"
 
@@ -149,7 +149,10 @@ def stabilize_chunk_streams_sharded(states: Sharded, frames_bgr, mesh: Mesh,
     (from ``init_sharded_stream_states`` or a previous call) across calls.
 
     Returns (new_states, out, meas, success, out_valid), each ``Sharded``;
-    per stream the same as the unsharded ``stabilize_chunk_streams``.
+    per stream the same as the unsharded ``stabilize_chunk_streams``. Each
+    shard's state is donated to its card's chunk program, as the JAX
+    package's sharded chunk donates ``states``: use only the states
+    returned.
     """
     frames = shard_streams(frames_bgr, mesh)
     if states.offsets != frames.offsets:
@@ -158,7 +161,7 @@ def stabilize_chunk_streams_sharded(states: Sharded, frames_bgr, mesh: Mesh,
     results = []
     for dev, state, shard in zip(mesh.devices, states.shards, frames.shards):
         with _on(dev):
-            results.append(stabilize_chunk_streams(state, shard, params,
-                                                   model))
+            results.append(_stabilize_chunk_streams_jit(
+                state, shard, params, shard.shape[3], shard.shape[2], model))
     return tuple(Sharded(tuple(r[i] for r in results), frames.offsets)
                  for i in range(5))

@@ -23,12 +23,32 @@ once, then replayed:
     host tensor with ``non_blocking=True``: the caller must not overwrite
     it before the stream has read it), replays the graph and returns
     clones of the static outputs. Inputs are never written, and a value
-    returned by one call is never changed by a later call. The function
-    reads its static inputs where they lie: the chunk programs' kernel A
-    warps the carried frame tail and the chunk straight from theirs
-    (models/chunked.py). JAX's ``donate_argnums`` is not mirrored, so a
-    carried state, that frame tail included, is copied into the static
-    inputs and its successor cloned out at every call.
+    returned by one call is never changed by a later call, except where
+    the call donates (below). The function reads its static inputs where
+    they lie: the chunk programs' kernel A warps the carried frame tail and
+    the chunk straight from theirs (models/chunked.py).
+  - ``Program(..., donate_argnames=("states",))`` is the counterpart of
+    ``donate_argnums``: the named arguments (pytrees) are donated when the
+    program is called (``prog(...)``), and not when it is called as
+    ``prog.call(..., donate=False)``; both share one key and its buffers.
+    The function must write the new state into the donated argument's
+    tensors and return them. A donating call returns those static inputs
+    themselves, as fresh views, uncloned; its other outputs are cloned. A
+    donating call whose donated tensors are the views the same key returned
+    last copies nothing in: the state is already where the graph reads it.
+    Any other donated tensor (a fresh state, one from the host or from
+    another chain) is copied in, as every input of a call that does not
+    donate is, and is never written. Before a call writes a key's donated
+    static inputs, the views it returned last, where a caller still holds
+    them, are moved to a copy of their own (``Tensor.set_``): two chains of
+    one key each give what they give alone, a single chain pays nothing,
+    and interleaved chains pay one state in and one out per call, as a call
+    that does not donate does. A caller must use only the state a donating
+    call returned: passing again a state that a later call has advanced
+    raises ``RuntimeError`` (JAX raises on a deleted buffer), also after its
+    key was dropped. Static inputs of donated arguments are one allocation
+    of their own, outside the graph pool, so a state its caller keeps after
+    its key was dropped holds only the state's bytes.
   - The kernel wrappers count a launch when their Python runs, which in a
     replay it does not: each capture records the counts' deltas (and takes
     them back, since a capture launches nothing) and every replay adds
@@ -45,11 +65,12 @@ once, then replayed:
     key's temporaries are written before they are read in every replay;
     each key's static outputs stay allocated as live tensors, so another
     capture never receives them; every call clones its outputs right after
-    its replay; and static inputs are allocated before the capture,
-    outside the pool. The hazard left is two keys of one program replayed
-    at the same time on two streams of one card: no caller does that
-    (every replay runs on the caller's current stream, and each card of
-    ``parallel/mesh.py`` has a pool of its own).
+    its replay (a donated state it returns is a static input); and static
+    inputs are allocated before the capture, outside the pool. The hazard
+    left is two keys of one program replayed at the same time on two
+    streams of one card: no caller does that (every replay runs on the
+    caller's current stream, and each card of ``parallel/mesh.py`` has a
+    pool of its own).
   - Each key keeps its graph, its static inputs and outputs until
     ``reset``, unless the program was made with ``max_keys``: then a new
     key's first call on a card that already holds ``max_keys`` of its keys
@@ -62,11 +83,14 @@ once, then replayed:
     (``models/chunked.py``).
 
 On CPU tensors a program calls ``fn`` directly: the CPU runs the plain
-versions, as the kernel wrappers do. A program called from inside another
-program's function (while it runs or is captured) calls its function
-directly too, as a nested ``jax.jit`` is inlined. No ``torch.compile``: a
-replay runs the hand kernels and the same eager operations as the
-un-captured function, bit for bit.
+versions, as the kernel wrappers do. So does a program inside ``eager()``;
+there a donating call lets ``fn`` write the caller's donated tensors in
+place (as JAX on the CPU may consume a donated buffer), and a call that
+does not donate gives ``fn`` copies of them. A program called from inside
+another program's function (while it runs or is captured) calls its
+function directly too, as a nested ``jax.jit`` is inlined. No
+``torch.compile``: a replay runs the hand kernels and the same eager
+operations as the un-captured function, bit for bit.
 """
 
 from __future__ import annotations
@@ -75,6 +99,7 @@ import contextlib
 import inspect
 import sys
 import time
+import weakref
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -82,6 +107,7 @@ from torch.overrides import TorchFunctionMode
 from video_stabilizer_tpu_torch.utils import spans
 
 _LEAF = "*"
+_DONATED = "_vs_donated"  # a donated state's view: (its _Generation, number)
 _eager_depth = 0
 _tracing_depth = 0
 _backend = None          # the capture backend; None means CudaGraphs()
@@ -110,6 +136,12 @@ def _unflatten(spec, it):
         return dict(zip(spec[1], (_unflatten(s, it) for s in spec[2])))
     children = [_unflatten(s, it) for s in spec[1]]
     return kind(*children) if hasattr(kind, "_fields") else kind(children)
+
+
+def _tree_map(fn, tree):
+    leaves = []
+    spec = _flatten(tree, leaves)
+    return _unflatten(spec, iter([fn(x) for x in leaves]))
 
 
 def _meta(x):
@@ -224,10 +256,12 @@ class CudaGraphs:
         """A handle for a new memory pool that captures on ``dev`` share."""
         return torch.cuda.graph_pool_handle()
 
-    def capture(self, dev, fn, name, pool):
+    def capture(self, dev, fn, name, pool, inputs):
         """(graph, static outputs, capture s, instantiate s, the bytes the
         capture added to the card's reserved memory): ``fn`` captured into
-        the memory pool ``pool``."""
+        the memory pool ``pool``. A capture runs no kernel, so it leaves
+        ``inputs``, the static inputs ``fn`` reads and may write, holding
+        what the eager run left there."""
         side = self._side(dev)
         torch.cuda.synchronize(dev)
         reserved = torch.cuda.memory_reserved(dev)
@@ -311,21 +345,96 @@ def _tracing():
 
 # -- programs -----------------------------------------------------------------
 
+class _Generation:
+    """How many donated states a key has returned: each view it returns
+    carries the number it was returned at, so a state that a later call has
+    advanced is known, also after the key was dropped."""
+
+    def __init__(self):
+        self.n = 0
+
+
+def _same_view(a, b) -> bool:
+    return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.dtype == b.dtype and a.shape == b.shape
+            and a.stride() == b.stride() and a.data_ptr() == b.data_ptr())
+
+
 class _Entry:
     """One captured key: its device, static inputs (None for non-tensor
-    leaves), the graph, its static outputs and their structure, the
-    launch-count deltas of one replay, and what the capture cost and
-    holds."""
+    leaves) and which of them are donated, the graph, its static outputs
+    and their structure, the launch-count deltas of one replay, and what
+    the capture cost and holds. For a donated state: ``returns`` maps an
+    output leaf that is a donated static input to that input's leaf, and
+    ``views`` each such input to the view of it the key returned last."""
 
-    def __init__(self, dev, static_in, graph, out, delta, stats):
+    def __init__(self, dev, static_in, donated, graph, out, delta, stats):
         self.dev = dev
         self.static_in = static_in
         self.graph = graph
         self.out_leaves = []
         self.out_spec = _flatten(out, self.out_leaves)
         self.delta = delta
+        self.returns = {j: i for j, y in enumerate(self.out_leaves)
+                        for i, b in enumerate(static_in)
+                        if donated[i] and _same_view(y, b)}
+        self.views = {}
+        self.generation = _Generation()
+        self.in_storages = {b.untyped_storage().data_ptr() for b in static_in
+                            if b is not None}
+        self.donated_block = next(
+            (b.untyped_storage().data_ptr() for b, d in zip(static_in, donated)
+             if d and b is not None), None)
         self.stats = dict(stats, static_in_bytes=storage_nbytes(static_in),
-                          static_out_bytes=storage_nbytes(self.out_leaves))
+                          static_out_bytes=storage_nbytes(
+                              [y for y in self.out_leaves
+                               if isinstance(y, torch.Tensor)
+                               and y.untyped_storage().data_ptr()
+                               not in self.in_storages]))
+
+    def holds(self, i, x) -> bool:
+        """Whether ``x`` is the view of donated input ``i`` that this key
+        returned last: its chain's state, already in place."""
+        ref = self.views.get(i)
+        return ref is not None and ref() is x
+
+    def release(self, i):
+        """Move the view of donated input ``i`` returned last, if a caller
+        still holds it, to a copy of its own, before the input is
+        written."""
+        ref = self.views.pop(i, None)
+        view = None if ref is None else ref()
+        if view is not None:
+            view.set_(view.clone())
+            delattr(view, _DONATED)
+
+    def outputs(self, leaves, donate, first=False):
+        """The call's results from the output leaves ``leaves`` (the static
+        outputs after a replay; the eager run's at the first call): where
+        the call donates, a fresh view of each donated static input the
+        function returned; a clone of every other tensor, or at the first
+        call only of those that lie in a static input (the others are the
+        eager run's own)."""
+        if donate and self.returns:
+            self.generation.n += 1
+        res = []
+        for j, y in enumerate(leaves):
+            if isinstance(y, torch.Tensor):
+                if donate and j in self.returns:
+                    buf = self.static_in[self.returns[j]]
+                    if not _same_view(y, buf):
+                        raise RuntimeError(
+                            "a donating program's eager run and its capture "
+                            "returned different tensors as its state")
+                    y = buf.view(buf.shape)
+                    setattr(y, _DONATED, (self.generation,
+                                          self.generation.n))
+                    self.views[self.returns[j]] = weakref.ref(y)
+                elif (not first
+                      or y.untyped_storage().data_ptr() in self.in_storages):
+                    y = y.clone()
+            res.append(y)
+        return _unflatten(self.out_spec, iter(res))
 
 
 def storage_nbytes(leaves) -> int:
@@ -339,16 +448,23 @@ class Program:
     """A function captured once per cache key and replayed on the card
     (see the module's docstring). ``captures`` and ``replays`` count what
     it did, ``evictions`` the keys ``max_keys`` dropped; ``stats()`` lists
-    each kept key's capture figures, least recently called first."""
+    each kept key's capture figures, least recently called first.
+    ``donate_argnames`` names the arguments a call donates."""
 
-    def __init__(self, fn, static_argnames=(), name=None, max_keys=None):
+    def __init__(self, fn, static_argnames=(), name=None, max_keys=None,
+                 donate_argnames=()):
         self.fn = fn
         self.name = name or fn.__name__
         self._sig = inspect.signature(fn)
-        unknown = set(static_argnames) - set(self._sig.parameters)
+        unknown = (set(static_argnames) | set(donate_argnames)) - set(
+            self._sig.parameters)
         if unknown:
             raise ValueError(f"{self.name} has no argument {sorted(unknown)}")
+        if set(static_argnames) & set(donate_argnames):
+            raise ValueError(f"{self.name}: a static argument cannot be "
+                             "donated")
         self.static_argnames = tuple(static_argnames)
+        self.donate_argnames = tuple(donate_argnames)
         self.max_keys = max_keys
         self._cache = {}         # least recently called first
         self._pools = {}         # device -> the pool its keys share
@@ -380,13 +496,27 @@ class Program:
         return self.fn(**kwargs)
 
     def __call__(self, *args, **kwargs):
+        """Call as ``jax.jit`` does: ``donate_argnames`` are donated."""
+        return self._run(args, kwargs, donate=True)
+
+    def call(self, *args, donate: bool, **kwargs):
+        """A call whose donation is chosen here: with ``donate=False`` the
+        donated arguments are copied in as the others are, never written,
+        and the state returned is a copy."""
+        return self._run(args, kwargs, donate)
+
+    def _run(self, args, kwargs, donate):
         bound = self._sig.bind(*args, **kwargs)
         bound.apply_defaults()
         arguments = bound.arguments
         statics = tuple(arguments[n] for n in self.static_argnames)
         dyn_names = [n for n in arguments if n not in self.static_argnames]
-        leaves = []
-        spec = _flatten(tuple(arguments[n] for n in dyn_names), leaves)
+        leaves, donated, specs = [], [], []
+        for n in dyn_names:
+            start = len(leaves)
+            specs.append(_flatten(arguments[n], leaves))
+            donated += [n in self.donate_argnames] * (len(leaves) - start)
+        spec = (tuple, tuple(specs))
         key = (statics, spec, tuple(_meta(x) for x in leaves))
         try:
             hash(key)
@@ -395,10 +525,16 @@ class Program:
                 f"{self.name}: its static arguments "
                 f"{dict(zip(self.static_argnames, statics))} and non-tensor "
                 f"leaves must be hashable ({err})") from err
+        if self.donate_argnames:
+            self._refuse_advanced(leaves, donated)
         backend = _the_backend()
         dev = (None if _eager_depth or _tracing_depth
                else backend.device_of(leaves))
         if dev is None:
+            if self.donate_argnames and not donate:
+                arguments = dict(arguments, **{
+                    n: _tree_map(_clone, arguments[n])
+                    for n in self.donate_argnames})
             return self.fn(**arguments)
         if spans.active():
             raise RuntimeError(
@@ -410,21 +546,45 @@ class Program:
             if entry is None:
                 self._make_room(dev, backend)
                 return self._first_call(key, arguments, dyn_names, spec,
-                                        leaves, dev, backend)
+                                        leaves, donated, donate, dev,
+                                        backend)
             self._cache[key] = entry
-            for buf, x in zip(entry.static_in, leaves):
-                if buf is not None:
-                    buf.copy_(x, non_blocking=True)
+            for i, (buf, x) in enumerate(zip(entry.static_in, leaves)):
+                if buf is None:
+                    continue
+                if donated[i]:
+                    if donate and entry.holds(i, x):
+                        continue
+                    entry.release(i)
+                buf.copy_(x, non_blocking=True)
             backend.replay(dev, entry.graph)
             add_launches(entry.delta)
             self.replays += 1
-            return _unflatten(entry.out_spec, iter(
-                [y.clone() if isinstance(y, torch.Tensor) else y
-                 for y in entry.out_leaves]))
+            return entry.outputs(entry.out_leaves, donate)
+
+    def _refuse_advanced(self, leaves, donated):
+        """Raise on a donated tensor whose values a later call has
+        overwritten: a view this program returned that is no longer its
+        key's newest, or any other view of a kept key's donated static
+        inputs."""
+        blocks = {e.donated_block for e in self._cache.values()}
+        for x, d in zip(leaves, donated):
+            if not d or not isinstance(x, torch.Tensor):
+                continue
+            tag = getattr(x, _DONATED, None)
+            if (tag[0].n != tag[1] if tag is not None else x.numel()
+                    and x.untyped_storage().data_ptr() in blocks):
+                raise RuntimeError(
+                    f"{self.name}: a donated argument "
+                    f"({', '.join(self.donate_argnames)}) is a state that a "
+                    "later call has already advanced, so its values are "
+                    "gone; pass the state that the latest call returned")
 
     def _make_room(self, dev, backend):
         """Drop the least recently called keys on ``dev`` beyond
-        ``max_keys - 1``, before a new key's capture needs their memory."""
+        ``max_keys - 1``, before a new key's capture needs their memory.
+        A donated state a caller still holds keeps its static inputs, and
+        its next call copies it in as any other state."""
         if self.max_keys is None:
             return
         on_dev = [k for k, e in self._cache.items() if e.dev == dev]
@@ -442,10 +602,10 @@ class Program:
         if all(e.dev != dev for e in self._cache.values()):
             self._pools.pop(dev, None)
 
-    def _first_call(self, key, arguments, dyn_names, spec, leaves, dev,
-                    backend):
+    def _first_call(self, key, arguments, dyn_names, spec, leaves, donated,
+                    donate, dev, backend):
         t0 = time.perf_counter()
-        static_in = _static_inputs(leaves, dev)
+        static_in = _static_inputs(leaves, donated, dev)
         dyn_values = _unflatten(spec, iter(
             [b if b is not None else x for b, x in zip(static_in, leaves)]))
 
@@ -460,7 +620,7 @@ class Program:
                 self._pools[dev] = backend.new_pool(dev)
             try:
                 graph, static_out, cap_s, inst_s, grew = backend.capture(
-                    dev, run, self.name, self._pools[dev])
+                    dev, run, self.name, self._pools[dev], static_in)
             except BaseException:
                 self._forget_empty_pool(dev)
                 raise
@@ -471,55 +631,57 @@ class Program:
         stats = dict(program=self.name, first_call_s=time.perf_counter() - t0,
                      eager_s=t1 - t0, capture_s=cap_s, instantiate_s=inst_s,
                      pool_bytes=grew, launches_per_replay=delta)
-        self._cache[key] = _Entry(dev, static_in, graph, static_out, delta,
-                                  stats)
+        entry = self._cache[key] = _Entry(dev, static_in, donated, graph,
+                                          static_out, delta, stats)
         self.captures += 1
         print(f"{self.name}: first call {stats['first_call_s']:.2f} s (eager "
               f"{stats['eager_s']:.2f} s, capture {cap_s:.2f} s, instantiate "
               f"{inst_s:.2f} s), the shared graph pool grew "
               f"{grew / 1e6:.1f} MB",
               file=sys.stderr)
-        # The eager outputs are the call's result; any that shares memory
-        # with a static input would change at the next call: copy it.
-        in_ptrs = {b.untyped_storage().data_ptr() for b in static_in
-                   if b is not None}
+        # The eager run's outputs are the call's result (the eager run
+        # updated a donated state in place, and the capture wrote nothing);
+        # any other that shares memory with a static input would change at
+        # the next call: copy it.
         out_leaves = []
-        out_spec = _flatten(out, out_leaves)
-        return _unflatten(out_spec, iter(
-            [y.clone() if isinstance(y, torch.Tensor)
-             and y.untyped_storage().data_ptr() in in_ptrs else y
-             for y in out_leaves]))
+        _flatten(out, out_leaves)
+        return entry.outputs(out_leaves, donate, first=True)
 
 
-def _static_inputs(leaves, dev):
-    """A copy on ``dev`` of each tensor leaf (None for the other leaves),
-    all views of one allocation. Static inputs live as long as their key:
-    allocated one by one, a small one could take the tail of a segment that
-    a caller's tensor of the moment fills, and hold the whole segment once
-    that tensor is freed (on the card a 1.5 MB input held a 499 MB segment
-    that way). On the card the cache is emptied first, so that the one
-    allocation gets a segment of its own size, not a larger free one."""
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _static_inputs(leaves, donated, dev):
+    """A copy on ``dev`` of each tensor leaf (None for the other leaves):
+    the donated ones views of one allocation, the others of another, so a
+    donated state a caller keeps after its key was dropped holds only its
+    own bytes. Static inputs live as long as their key: allocated one by
+    one, a small one could take the tail of a segment that a caller's
+    tensor of the moment fills, and hold the whole segment once that tensor
+    is freed (on the card a 1.5 MB input held a 499 MB segment that way).
+    On the card the cache is emptied first, so that each allocation gets a
+    segment of its own size, not a larger free one."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
     align = 512
-    offsets, total = [], 0
-    for x in leaves:
-        if isinstance(x, torch.Tensor):
-            offsets.append(total)
-            total += -(-x.numel() * x.element_size() // align) * align
-        else:
-            offsets.append(None)
-    block = torch.empty(total, dtype=torch.uint8, device=dev)
-    bufs = []
-    for x, at in zip(leaves, offsets):
-        if at is None:
-            bufs.append(None)
+    bufs = [None] * len(leaves)
+    for group in (True, False):
+        offsets, total = {}, 0
+        for i, x in enumerate(leaves):
+            if isinstance(x, torch.Tensor) and donated[i] == group:
+                offsets[i] = total
+                total += -(-x.numel() * x.element_size() // align) * align
+        if not offsets:
             continue
-        size = x.numel() * x.element_size()
-        buf = block[at:at + size].view(x.dtype).view(x.shape)
-        buf.copy_(x, non_blocking=True)
-        bufs.append(buf)
+        block = torch.empty(total, dtype=torch.uint8, device=dev)
+        for i, at in offsets.items():
+            x = leaves[i]
+            size = x.numel() * x.element_size()
+            buf = block[at:at + size].view(x.dtype).view(x.shape)
+            buf.copy_(x, non_blocking=True)
+            bufs[i] = buf
     return bufs
 
 
