@@ -19,8 +19,9 @@ Phases:
      kernels B and C, both of kernel D (the wavefront for windows of up
      to 32, one thread a row beyond), both of kernels E (n = 4 one
      thread a matrix, n = 8 one warp a matrix) and F (P = 4, 8), kernel
-     G's one, H's two (its narrow and wide engines), I's one and J's two
-     (R = 4 and 8 Jacobian rows) must report no spills and a 0-byte stack
+     G's one, H's two (its narrow and wide engines), I's one and J's four
+     (R = 4 and 8 Jacobian rows, each in the histogram and the exact-count
+     mode) must report no spills and a 0-byte stack
      frame (kernel E: 32 bytes, the CUDA math library's sinf / cosf
      argument-reduction buffer).
   2. Check that ``utils.io.synth_shaky_clip`` gives the same small clip on
@@ -202,6 +203,22 @@ Phases:
      registers a thread of each form
      (``cudaFuncGetAttributes``) and the CTAs an SM holds. No single
      PyTorch call computes this prelude.
+     Then its exact-count mode (``selection="topk"``), on (a)-(d) under
+     ``topk`` and on the edge inputs at the default count and (ties,
+     overflow, ragged) at k = 1, k = N and k > N: its mask (a debug
+     output) equal to ``topk_mask`` of its own diffs bit for bit, exactly
+     k kept in every row, tmpl bit-equal, jac_masked = jac * mask bit for
+     bit, the diffs within 2^-10 of the plain version's, the Hessian
+     within 1.2e-7 of a float64 sum, symmetric, two launches and clusters
+     1-8 byte-equal, the ties input cut inside its run of 7s; each mask
+     entry that differs from the plain ``topk`` prelude's counted and
+     printed, and each lies within 2 x 2^-10 of its row's k-th plain diff
+     (two diffs that close may swap order). Per level of (a), (b) and (d):
+     the device time under each cluster size; of (a) and (b) also the
+     wrapper, the device time beside the histogram mode's, the plain
+     ``topk`` prelude, ``topk_mask`` alone on the kernel's diffs and the
+     byte bound; the registers, static shared memory and CTAs an SM of
+     the mode at the chunks' largest slice and at G1's level 0 uncapped.
  8C. 4K content: a chunk of 2 streams x 16 frames through the 4K path from
      a fresh state, stream 0 a moving perspective sequence (each frame the
      previous one warped by a known homography with p6/p7 != 0, through
@@ -225,10 +242,11 @@ Phases:
      Prints the un-captured keyframe span beside kernel I's first
      design's. One more chunk, replayed, runs under torch.profiler.
  9T. Phase 9's run with ``selection="topk"`` (the exact-count keypoint
-     selection): the same checks, its stage table beside phase 9's. Its
-     select runs the plain prelude by setting (kernel J takes the
-     histogram selection only): kernel J launched never, the plain
-     version's calls printed and not counted as a path's fallback.
+     selection): the same checks, kernel J (its exact-count mode) launched
+     once per level as B, no plain version run on the card; its stage
+     table beside phase 9's; then, on one more un-captured chunk's calls,
+     each 1080p level's ``histogram_mask`` and ``topk_mask`` alone and
+     kernel J's two modes, each call between CUDA events.
  9F. The FIR output warp (``output_warp="fir"``, ops/fast_warp.py)
      against the gather oracle (ops/warp.py) on phase 9's 128 delayed
      frames and corrections and on 8 of them at integer translations
@@ -312,7 +330,12 @@ J10. The chunk programs' memory, and long replay. (a)
      once). Last, another stabilizer's chunks of 16, 8, 6 and 4 frames drop
      the 2-frame key while the first keeps its state: the same bar after,
      that state counted as the caller's, and its next chunk byte-equal to
-     the un-captured one. (b) 1,000 replays of
+     the un-captured one. (c) What a dropped key keeps: from an empty
+     program an 8-stream (then a 2-stream) 16-frame key, then one
+     stream's keys of 2, 4, 6 and 8 frames, the 4th dropping it; the
+     card's reserved memory (cache emptied) less that of the same 1-stream
+     keys alone, at most the dropped key's pool + 0.25 GB. (b) 1,000
+     replays of
      tests/test_torch_soak.py's 64x48 two-frame chunk: one capture, the
      card's reserved memory the same after replay 1 and replay 1,000, the
      state finite; the replays' median time.
@@ -471,14 +494,15 @@ dropped (an 8-stream 1080p chunk program holds a memory pool of 8.76
 GB); the streaming programs' stay. Every
 phase runs; the script exits 1 if any failed, 2 without a card. On
 success it prints the per-stage times, one ``{"kernels": [...]}`` line
-(nineteen entries: kernel A's two chunked forms and its one-frame form,
+(twenty entries: kernel A's two chunked forms and its one-frame form,
 B per chunk, at one item, in its fixed mode at K = 4 (S5's launches) and
 with per-item thresholds (G1's launches), C per chunk and with per-item
 thresholds (the G2 path's launches), D at the 1080p chunk's rows, E at the
 1080p chunk's level 0, F, G, H (summed over its 5 levels) and I's
 similarity form (summed over its 6 levels) at the 1080p chunk (the 1080p
 path's launches), J's similarity form summed over the 1080p chunk's 6
-levels (the 1080p path's launches), and E's 8x8 form at the 4K chunk's
+levels (the 1080p path's launches), its exact-count mode summed over the
+same levels (9T's launches), and E's 8x8 form at the 4K chunk's
 level 0 and I's and J's homography forms summed over the 4K chunk's 7
 levels (the 4K path's launches)), the
 card's name and power limit, and as its last line ``{"ok": true, "device":
@@ -591,10 +615,12 @@ KEY_OPS_PER_POINT = {4: 18, 8: 32}
 # Kernel J replaces XLA stages, not a Pallas kernel: select's prelude of a
 # level of each model, everything before the GN loop of _align_level and
 # _align_level_h. Its launch count and plain version go by SEL_NAME; the
-# kernels line has one entry per model.
+# kernels line has one entry per model, and one for its exact-count mode
+# (selection="topk", the 1080p similarity path of 9T).
 SEL_NAME = "level_prelude"
 SEL_ENTRY = "level_prelude"
 SEL_H_ENTRY = "level_prelude[homography]"
+SEL_TOPK_ENTRY = "level_prelude[topk]"
 SEL_REPLACES = "video_stabilizer_tpu/models/aligner.py:316"
 SEL_H_REPLACES = "video_stabilizer_tpu/models/homography_aligner.py:130"
 # The gap allowed between kernel J's warp diffs and its plain version's:
@@ -701,10 +727,9 @@ def count_plain_on_card():
     (``models.smoother.tvl1_smooth``, ``ops.linalg.regularized_pinv_sym4``,
     ``ops.accum.accum_scan``, ``ops.gray.bgr_to_gray``,
     ``ops.pyr_down.pyr_down``, ``ops.keyframe.keyframe_level``,
-    ``ops.prelude.level_prelude``: every path's), and J's where that
-    dispatcher takes it by setting (``selection="topk"``). Phases E, G, I and
-    SEL call the plain versions kept in ``PLAIN``, which are not counted
-    (phase D calls ``ops.tvl1``'s own)."""
+    ``ops.prelude.level_prelude``, either selection: every path's). Phases
+    E, G, I and SEL call the plain versions kept in ``PLAIN``, which are not
+    counted (phase D calls ``ops.tvl1``'s own)."""
     from video_stabilizer_tpu_torch.models import smoother
     from video_stabilizer_tpu_torch.ops import (
         accum, gray, keyframe, linalg, prelude)
@@ -871,10 +896,11 @@ def build_kernels():
     # Kernel A: 2 models x 2 interps x 1-4 channels; B and C: one instance
     # per block size; D: the wavefront and the any-length one; E: n = 4
     # and 8; F: P = 4 and 8; G: one; H: its narrow and wide engines; I:
-    # one for both models; J: R = 4 and 8.
+    # one for both models; J: R = 4 and 8, each in the histogram and the
+    # exact-count mode.
     instances = dict(warp=16, gn_solve=len(gn_solve.THREADS),
                      gn8_solve=len(gn8_solve.THREADS), tvl1=2, jacobi=2,
-                     accum=2, gray=1, pyr_down=2, keyframe=1, prelude=2)
+                     accum=2, gray=1, pyr_down=2, keyframe=1, prelude=4)
     reports = cuda_build.build()
     for name, text in reports.items():
         for line in text.splitlines():
@@ -2865,9 +2891,6 @@ def sel_compare(args):
     mask = selection_mask(wd, params, fraction)
     mask_p = selection_mask(wd_p, params, fraction)
     jac = key.jac[kidx.long()]
-    rows = jac.shape[1]
-    jm_want = jac * (mask * 0.5 if rows == 4 else mask)[:, None]
-    jm_exact = torch.equal(jm.view(torch.int32), jm_want.view(torch.int32))
     # A mask entry may differ from the plain version's only where a plain
     # diff lies within the gap of an integer (its bin may differ), or in a
     # row where such a bin moved (the row's threshold may move with it).
@@ -2875,19 +2898,124 @@ def sel_compare(args):
     near = (wd_p - torch.round(wd_p)).abs() <= SEL_WD_GAP
     bins, bins_p = (torch.clamp(torch.floor(x), max=256) for x in (wd, wd_p))
     moved = (bins != bins_p).any(dim=-1, keepdim=True).expand_as(differ)
+    return dict(
+        tmpl=torch.equal(tm, tm_p), jac_masked=sel_jac_masked(jm, jac, mask),
+        gap=gap, differ=int(differ.sum()), near=int((differ & near).sum()),
+        moved=int((differ & ~near & moved).sum()),
+        unexplained=int((differ & ~near & ~moved).sum()),
+        hess_rel=sel_hess_rel(hess, jac, mask),
+        symmetric=torch.equal(hess, hess.transpose(1, 2)),
+        deterministic=same, kept=float(mask.mean()) if mask.numel() else 0.0,
+        overflow=int((wd >= 256).sum()), entries=wd.numel())
+
+
+def sel_jac_masked(jm, jac, mask) -> bool:
+    """jac_masked equal to jac * mask (x 0.5 for the similarity's R = 4)
+    bit for bit."""
+    want = jac * (mask * 0.5 if jac.shape[1] == 4 else mask)[:, None]
+    return torch.equal(jm.view(torch.int32), want.view(torch.int32))
+
+
+def sel_hess_rel(hess, jac, mask) -> float:
+    """The largest gap between the Hessian and a float64 sum of the same
+    masked products, relative to the sum of their magnitudes."""
+    if not hess.numel():
+        return 0.0
     jm64, j64 = (jac * mask[:, None]).double(), jac.double()
     h64 = torch.einsum("brsn,bqsn->brq", jm64, j64)
     mag = torch.einsum("brsn,bqsn->brq", jm64.abs(), j64.abs())
-    hess_rel = float(((hess.double() - h64).abs()
-                      / mag.clamp_min(1e-300)).max()) if hess.numel() else 0.0
+    return float(((hess.double() - h64).abs() / mag.clamp_min(1e-300)).max())
+
+
+def topk_args(args, fraction=None):
+    """One level's kernel J call under ``selection="topk"``, its count from
+    ``fraction`` where given, else from the call's ``smallest_fraction``."""
+    over = dict(selection="topk")
+    if fraction is not None:
+        over["smallest_fraction"] = fraction
+    return args[:6] + (dataclasses.replace(args[6], **over),) + args[7:]
+
+
+def sel_exact_compare(args):
+    """Kernel J's exact-count mode on one level's ``topk`` call, with its
+    warp diffs and mask (debug outputs). Returns a dict: the bars (its mask
+    ``topk_mask``'s of its own wd bit for bit, exactly k kept in every row,
+    tmpl bit-equal to the plain version's, jac_masked = jac * mask bit for
+    bit, wd within SEL_WD_GAP of the plain one, the Hessian within
+    SEL_HESS_BAR of a float64 sum, symmetric, two launches and every
+    cluster size 1-8 byte-equal) and the entries where its mask differs
+    from the plain ``topk`` prelude's, each of which must lie within 2
+    SEL_WD_GAP of its row's k-th plain value (two diffs that close may
+    swap order)."""
+    from video_stabilizer_tpu_torch.ops.prelude import (
+        launch_plan, level_prelude_kernel)
+    from video_stabilizer_tpu_torch.ops.select import topk_count, topk_mask
+    spec, key, kidx, *_, params, _, _ = args
+    bsz, n = kidx.shape[0], spec.ht * spec.wt
+    frac = params.smallest_fraction
+    k = min(topk_count(n, frac), n)
+    got = level_prelude_kernel(*args, return_wd=True, return_mask=True)
+
+    def same(other) -> bool:
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, other))
+
+    again = same(level_prelude_kernel(*args, return_wd=True,
+                                      return_mask=True))
+    plans = all(same(level_prelude_kernel(
+        *args, return_wd=True, return_mask=True,
+        plan=launch_plan(bsz, n, c, exact=True))) for c in (1, 2, 4, 8))
+    tm, jm, hess, wd, mask = got
+    tm_p, _, _, wd_p = PLAIN[SEL_NAME](*args, return_wd=True)
+    jac = key.jac[kidx.long()]
+    differ = mask != topk_mask(wd_p, frac)
+    kth = torch.sort(wd_p, dim=-1).values[..., k - 1:k]
+    near = (wd_p - kth).abs() <= 2 * SEL_WD_GAP
+    ordered = torch.sort(wd, dim=-1).values
     return dict(
-        tmpl=torch.equal(tm, tm_p), jac_masked=jm_exact, gap=gap,
+        own=torch.equal(mask, topk_mask(wd, frac)),
+        exact_k=bool((mask.sum(dim=-1) == k).all()),
+        tmpl=torch.equal(tm, tm_p), jac_masked=sel_jac_masked(jm, jac, mask),
+        gap=float((wd - wd_p).abs().max()),
         differ=int(differ.sum()), near=int((differ & near).sum()),
-        moved=int((differ & ~near & moved).sum()),
-        unexplained=int((differ & ~near & ~moved).sum()),
-        hess_rel=hess_rel, symmetric=torch.equal(hess, hess.transpose(1, 2)),
-        deterministic=same, kept=float(mask.mean()) if mask.numel() else 0.0,
-        overflow=int((wd >= 256).sum()), entries=wd.numel())
+        unexplained=int((differ & ~near).sum()),
+        hess_rel=sel_hess_rel(hess, jac, mask),
+        symmetric=torch.equal(hess, hess.transpose(1, 2)),
+        deterministic=again, plans=plans, k=k, n=n, rows=2 * bsz,
+        tie_cuts=int((ordered[..., k - 1] == ordered[..., k]).sum())
+        if k < n else 0, overflow=int((wd >= 256).sum()))
+
+
+def sel_exact_passes(r) -> bool:
+    return (r["own"] and r["exact_k"] and r["tmpl"] and r["jac_masked"]
+            and r["gap"] <= SEL_WD_GAP and r["unexplained"] == 0
+            and r["hess_rel"] <= SEL_HESS_BAR and r["symmetric"]
+            and r["deterministic"] and r["plans"])
+
+
+def sel_exact_row(r) -> str:
+    return (f"mask = topk_mask(own wd) {r['own']}, exactly k = {r['k']} of "
+            f"N = {r['n']} in all {r['rows']} rows {r['exact_k']}, tmpl "
+            f"{r['tmpl']}, jac_masked {r['jac_masked']}, wd gap "
+            f"{r['gap']:.3g}, masks != plain topk {r['differ']} (within "
+            f"2^-9 of the row's k-th value {r['near']}, else "
+            f"{r['unexplained']}), hess rel {r['hess_rel']:.3g}, symmetric "
+            f"{r['symmetric']}, two launches {r['deterministic']}, clusters "
+            f"1-8 {r['plans']}; rows cut inside a run of equal values "
+            f"{r['tie_cuts']}, overflow {r['overflow']}")
+
+
+def sel_exact_edges(edges):
+    """The exact-count mode's edge inputs: phase SEL's (``sel_edges``) at
+    the default count, and its ties, overflow and ragged inputs also at k
+    = 1 (fraction 0), k = N (fraction 1) and k > N (fraction 1.5: every
+    entry kept)."""
+    out = [(name, topk_args(args)) for name, args in edges]
+    for name, args in edges:
+        if name.startswith(("ties", "overflow", "ragged")):
+            out += [(f"{name}, fraction {f}", topk_args(args, f))
+                    for f in (0.0, 1.0, 1.5)]
+    return out
 
 
 def sel_passes(r) -> bool:
@@ -3041,11 +3169,11 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
     entries = {}
     slice0 = max(launch_plan(a[2].shape[0], a[0].ht * a[0].wt).slice
                  for a in calls_1080p + calls_4k)
-    regs, ctas = kernel_attributes(slice0)
+    regs, smem, ctas = kernel_attributes(slice0)
     log(f"  kernel J's registers a thread (cudaFuncGetAttributes numRegs): "
-        f"4x4 form {regs[0]}, 8x8 form {regs[1]}; CTAs of {THREADS} "
-        f"threads an SM at the chunks' largest slice ({slice0}): "
-        f"{ctas[0]} and {ctas[1]}")
+        f"4x4 form {regs[0]}, 8x8 form {regs[1]}; static shared memory "
+        f"{smem[0]} and {smem[1]} bytes; CTAs of {THREADS} threads an SM at "
+        f"the chunks' largest slice ({slice0}): {ctas[0]} and {ctas[1]}")
     log("  kernel J | input | level | B (keyframes) x N | model | plan "
         "(cluster x slice) | bars | kernel ms | device ms | plain ms | "
         "bound ms (bytes) | sectors ms, (P, P, N) | sectors ms, (N, P, P) "
@@ -3128,10 +3256,11 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
     frames = torch.randint(0, 256, RAGGED, dtype=torch.uint8, device=dev,
                            generator=torch.Generator(dev).manual_seed(SEED))
     frames = build_pyramid(frames, len(ragged_specs))
-    others += [(f"(e) {name}", args) for name, args in sel_edges(
+    edges = sel_edges(
         by_width[min(by_width, key=lambda w: abs(w - 480))],
         by_width_4k[min(by_width_4k, key=lambda w: abs(w - 480))],
-        (frames, ragged_specs, params.aligner), dev)]
+        (frames, ragged_specs, params.aligner), dev)
+    others += [(f"(e) {name}", args) for name, args in edges]
     one_frame_ms = 0.0
     for what, args in others:
         r = sel_compare(args)
@@ -3164,7 +3293,134 @@ def check_prelude(calls_1080p, calls_4k, params, dev):
         "select's prelude)")
     for entry in entries.values():
         entry["max_abs_err"] = worst
-    return entries.get(SEL_ENTRY), entries.get(SEL_H_ENTRY)
+    others = [(what, args) for what, args in others
+              if not what.startswith("(e)")]
+    topk = check_prelude_exact(calls_1080p, calls_4k, others, edges)
+    return entries.get(SEL_ENTRY), entries.get(SEL_H_ENTRY), topk
+
+
+def check_prelude_exact(calls_1080p, calls_4k, others, edges):
+    """Phase SEL's exact-count mode: every input of the histogram mode's
+    part under ``selection="topk"`` (``sel_exact_compare``), the edges at
+    k = 1, N and above N too; per level of (a) and (b) the wrapper, the
+    device time beside the histogram mode's, each cluster size's, the
+    plain ``topk`` prelude, ``topk_mask`` alone on the kernel's warp diffs
+    and the byte bound. Returns the kernels line's entry of the mode at the
+    1080p chunk (the 9T path's)."""
+    from video_stabilizer_tpu_torch.ops.prelude import (
+        THREADS, kernel_attributes, launch_plan, level_prelude_kernel)
+    from video_stabilizer_tpu_torch.ops.select import topk_mask
+
+    plain = PLAIN[SEL_NAME]
+    worst, all_pass = 0.0, True
+    slice0 = max(launch_plan(a[2].shape[0], a[0].ht * a[0].wt,
+                             exact=True).slice for a in calls_1080p + calls_4k)
+    regs, smem, ctas = kernel_attributes(slice0, exact=True)
+    log(f"  exact-count mode (selection=\"topk\"): registers a thread 4x4 "
+        f"form {regs[0]}, 8x8 form {regs[1]}; static shared memory "
+        f"{smem[0]} and {smem[1]} bytes; CTAs of {THREADS} threads an SM at "
+        f"the chunks' largest slice ({slice0}): {ctas[0]} and {ctas[1]}")
+    log("  kernel J[topk] | input | level | B x N | plan | bars | kernel ms "
+        "| device ms | histogram mode's device ms | plain topk ms | "
+        "topk_mask alone ms | bound ms (bytes) | device / bound | device "
+        "ms by cluster x slice")
+    totals = {chunk: dict(ms=0.0, device_ms=0.0, mask_ms=0.0, plain_ms=0.0,
+                          select_ms=0.0, bound_ms=0.0) for chunk in "ab"}
+    timed = [("(a) 1080p chunk", a) for a in sorted(
+        calls_1080p, key=lambda a: -a[0].width)]
+    timed += [("(b) 4K chunk", a) for a in sorted(
+        calls_4k, key=lambda a: -a[0].width)]
+    timed += [(what, a) for what, a in others if what.startswith("(d)")]
+    for what, mask_args in timed:
+        args = topk_args(mask_args)
+        spec, key, kidx = args[:3]
+        bsz, n = kidx.shape[0], spec.ht * spec.wt
+        r = sel_exact_compare(args)
+        ok = sel_exact_passes(r)
+        all_pass &= ok
+        worst = max(worst, r["gap"])
+        plan = launch_plan(bsz, n, exact=True)
+        by_plan = []
+        for c in (1, 2, 4, 8):
+            pl = launch_plan(bsz, n, c, exact=True)
+            plan_ms = graph_ms(
+                lambda: level_prelude_kernel(*args, plan=pl), 20)
+            by_plan.append(f"{c} x {pl.slice} {plan_ms:.4f}")
+        row = f"  {what} | {spec.width}x{spec.height} | {bsz} x {n} | " \
+              f"{plan.cluster} x {plan.slice} | " \
+              f"{'pass' if ok else 'FAIL'}: {sel_exact_row(r)}"
+        if what.startswith("(d)"):
+            log(f"{row} | device ms by cluster x slice: " + ", ".join(
+                by_plan))
+            torch.cuda.empty_cache()
+            continue
+        ms = cuda_ms(lambda: level_prelude_kernel(*args), 50)
+        device_ms = graph_ms(lambda: level_prelude_kernel(*args), 50)
+        mask_ms = graph_ms(lambda: level_prelude_kernel(*mask_args), 50)
+        plain_ms = cuda_ms(lambda: plain(*args), 5)
+        wd = level_prelude_kernel(*args, return_wd=True)[3]
+        frac = args[6].smallest_fraction
+        select_ms = cuda_ms(lambda: topk_mask(wd, frac), 20)
+        del wd
+        bound_ms, _, _, _ = sel_bound(args)
+        log(f"{row} | {ms:.4f} | {device_ms:.4f} | {mask_ms:.4f} | "
+            f"{plain_ms:.3f} | {select_ms:.4f} | {bound_ms:.4f} | "
+            f"{device_ms / bound_ms:.2f} | " + ", ".join(by_plan))
+        for k, v in (("ms", ms), ("device_ms", device_ms),
+                     ("mask_ms", mask_ms), ("plain_ms", plain_ms),
+                     ("select_ms", select_ms), ("bound_ms", bound_ms)):
+            totals[what[1]][k] += v
+    for chunk, what, calls in (("a", "(a) 1080p chunk", calls_1080p),
+                               ("b", "(b) 4K chunk", calls_4k)):
+        t = totals[chunk]
+        log(f"  {what}, all {len(calls)} levels, exact-count mode: kernel "
+            f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} (histogram mode "
+            f"{t['mask_ms']:.4f}: "
+            f"{t['device_ms'] / max(t['mask_ms'], 1e-12):.2f}x), plain topk "
+            f"{t['plain_ms']:.3f}, topk_mask alone {t['select_ms']:.4f}, "
+            f"bound {t['bound_ms']:.4f} (bytes), device / bound "
+            f"{t['device_ms'] / max(t['bound_ms'], 1e-12):.2f}")
+    totals = totals["a"]
+    g1 = max((a for what, a in others if what.startswith("(d)")),
+             key=lambda a: a[0].width, default=None)
+    if g1 is not None:
+        # What the cap on the slice (EXACT_MAX_SLICE) keeps the mode from.
+        n = g1[0].ht * g1[0].wt
+        regs, smem, ctas = kernel_attributes(n, exact=True)
+        log(f"  exact-count mode at G1's level 0 uncapped (one CTA an item, "
+            f"slice {n}, {8 * n} bytes of dynamic shared memory): CTAs an "
+            f"SM {ctas[0]} and {ctas[1]}")
+    for what, args in [(w, topk_args(a)) for w, a in others
+                       if w.startswith("(c)")] + [
+            (f"(e) {name}", args) for name, args in sel_exact_edges(edges)]:
+        r = sel_exact_compare(args)
+        ok = sel_exact_passes(r)
+        if what.startswith("(e) overflow"):
+            ok &= r["overflow"] > 0
+        if what.startswith("(e) ties") and r["k"] < r["n"]:
+            ok &= r["tie_cuts"] == r["rows"]
+        all_pass &= ok
+        worst = max(worst, r["gap"])
+        log(f"  {what} | {'pass' if ok else 'FAIL'}: {sel_exact_row(r)}")
+        torch.cuda.empty_cache()
+    check(all_pass, "kernel J's exact-count mode at every input, both "
+          "models: its mask topk_mask's of its own wd bit for bit, exactly k "
+          "kept in every row, tmpl bit-equal, jac_masked = jac * mask bit "
+          f"for bit, wd within {SEL_WD_GAP:.3g} (largest {worst:.3g}), "
+          "every mask entry that differs from the plain topk prelude's "
+          f"within {2 * SEL_WD_GAP:.3g} of its row's k-th value, Hessian "
+          f"within {SEL_HESS_BAR:.3g} of a float64 sum, symmetric, two "
+          "launches and clusters 1-8 byte-equal; the ties input cut inside "
+          "its run of 7s in every row, the overflow input above 256")
+    log("  kernel J[topk]'s library: none (no single PyTorch call computes "
+        f"select's prelude); topk_mask's sort and scatter alone "
+        f"{totals['select_ms']:.4f} ms over the 1080p chunk's levels")
+    return dict(name=SEL_TOPK_ENTRY, route="cuda",
+                source="video_stabilizer_tpu_torch/csrc/prelude.cu",
+                replaces=SEL_REPLACES, bound_by="bytes", library_ms=None,
+                max_abs_err=worst, ms=totals["ms"],
+                device_ms=totals["device_ms"], plain_ms=totals["plain_ms"],
+                bound_ms=totals["bound_ms"])
 
 
 def drive_path(frames, params, dev, model="similarity"):
@@ -3290,20 +3546,17 @@ def main_path(frames, poses, params, dev):
     return launches, states, last, stages
 
 
-def path_checks_e_f(launches, gn: str, chunks: int, sel: bool = True):
-    """Kernel E once per level (as the GN kernel ``gn``) and kernel F once
-    per chunk on a chunked path; kernel J once per level too, or with
-    ``sel`` False (the exact-count selection's path) never."""
+def path_checks_e_f(launches, gn: str, chunks: int):
+    """Kernel E and kernel J once per level (as the GN kernel ``gn``) and
+    kernel F once per chunk on a chunked path."""
     check(launches[PINV_NAME] == launches[gn] > 0
           and launches[ACCUM_NAME] == chunks,
           f"kernel E launched {launches[PINV_NAME]} times (once per level: "
           f"{gn} {launches[gn]}), kernel F {launches[ACCUM_NAME]} (once per "
           f"chunk: {chunks})")
-    want = launches[gn] if sel else 0
-    check(launches[SEL_NAME] == want,
-          f"kernel J launched {launches[SEL_NAME]} times (want {want}: "
-          + ("once per level of every chunk, as " + gn + ")" if sel else
-             "the exact-count selection keeps the plain prelude)"))
+    check(launches[SEL_NAME] == launches[gn],
+          f"kernel J launched {launches[SEL_NAME]} times (want "
+          f"{launches[gn]}: once per level of every chunk, as {gn})")
 
 
 def path_levels(width, height, params) -> int:
@@ -4019,6 +4272,10 @@ J10_REPLAYS = 1000                     # J10 (b): the soak's chunk replayed
 # J10_LENGTHS' last one (its kept keys are then 8, 6, 4 and 2, least
 # recently called first).
 J10_EVICTING = (16, 8, 6, 4)
+# J10 (c): the dropped key's stream counts (16-frame chunks), then one
+# stream's chunk lengths, whose 4th new key drops it (4 keys per card).
+J10_DROP_STREAMS = (8, 2)
+J10_FILLERS = (2, 4, 6, 8)
 J10_NAMES = ("state", "outputs", "meas", "succ", "valid")
 # tests/test_torch_soak.py's stream: 64x48, its parameters and content.
 SOAK_H, SOAK_W, SOAK_FRAMES = 48, 64, 1000
@@ -4106,6 +4363,61 @@ class HeldMemory:
             f"keys' static outputs {outs / 1e9:.2f} + the caller's "
             f"{caller / 1e9:.2f} + {J_HELD_SLACK / 1e9:.2f}); the shared "
             f"pool's segments {pool / 1e9:.2f} GB")
+
+
+def held_after(frames, params, dev, streams=None) -> tuple:
+    """J10 (c)'s reading: from an empty chunk-streams program, one
+    ``streams``-stream chunk of CHUNK frames (none where None), then one
+    stream's chunks of J10_FILLERS frames, each from a fresh state on the
+    host; the card's reserved memory (cache emptied) over that before the
+    first call. Returns (bytes held, the first key's pool bytes,
+    evictions)."""
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.utils import graphs
+
+    prog = chunked._stabilize_chunk_streams_jit
+    graphs.reset([prog])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    calls = ([(streams, CHUNK)] if streams else []) + [
+        (1, t) for t in J10_FILLERS]
+    pool = 0
+    for i, (s, t) in enumerate(calls):
+        x = torch.from_numpy(np.ascontiguousarray(frames[:s, :t]))
+        state = chunked.init_stream_state(WIDTH, HEIGHT, params, 3, s, "cpu")
+        out = chunked.stabilize_chunk_streams(tree_to(state, dev), x, params)
+        del out, state
+        if i == 0:
+            pool = prog.stats()[0]["pool_bytes"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - base
+    evictions = prog.evictions
+    graphs.reset([prog])
+    return held, pool, evictions
+
+
+def dropped_key(frames, params, dev):
+    """J10 (c): what a dropped chunk key keeps in the shared pool. For each
+    of J10_DROP_STREAMS, ``held_after`` with that key first (the 4th filler
+    key drops it) less ``held_after`` of the fillers alone: the bytes the
+    card still holds for the dropped key, beside its own pool."""
+    ok = True
+    for streams in J10_DROP_STREAMS:
+        held, pool, evictions = held_after(frames, params, dev, streams)
+        alone, _, alone_evictions = held_after(frames, params, dev)
+        left = held - alone
+        ok &= evictions == 1 and alone_evictions == 0
+        ok &= left <= pool + J_HELD_SLACK
+        log(f"  (c) a {streams}-stream key (pool {pool / 1e9:.3f} GB) "
+            f"dropped by 1-stream keys of {J10_FILLERS} frames "
+            f"({evictions} eviction): the card holds {held / 1e9:.3f} GB, "
+            f"the same keys alone {alone / 1e9:.3f} GB ({alone_evictions} "
+            f"evictions): the dropped key left {left / 1e9:.3f} GB")
+    check(ok, "a dropped chunk key (8 and 2 streams) leaves at most its own "
+          f"pool + {J_HELD_SLACK / 1e9:.2f} GB on the card while the shared "
+          "pool's other keys live")
 
 
 def evicted_while_held(stab, frames, start, memory, params, dev, reference):
@@ -4246,6 +4558,7 @@ def chunk_programs(frames, params, dev):
           f"chunk length dropped the least recently called; kept {kept}")
     evicted_while_held(stab, frames, start, memory, params, dev, reference)
     del stab
+    dropped_key(frames, params, dev)
 
     log(f"  (b) {J10_REPLAYS} replays of the soak's {SOAK_W}x{SOAK_H} "
         "two-frame chunk (tests/test_torch_soak.py's stream):")
@@ -4295,21 +4608,25 @@ def chunk_programs(frames, params, dev):
        "chunks, carried state")
 def topk_path(frames, poses, params, dev, mask_stages):
     """Phase 9's run with the exact-count keypoint selection: the same
-    checks, and its stage table beside phase 9's (histogram mask)."""
-    plain_before = PLAIN_ON_CARD[SEL_NAME]
-    launches, meas, ok, _, _, stages = drive_path(frames, params, dev)
-    # The exact-count selection runs the plain prelude by setting: its
-    # calls on the card are this phase's, not a path's fallback.
-    by_setting = PLAIN_ON_CARD[SEL_NAME] - plain_before
-    PLAIN_ON_CARD[SEL_NAME] = plain_before
+    checks (kernel J in its exact-count mode once per level, as B), the
+    plain prelude run on the card no time, and its stage table beside phase
+    9's (histogram mask). Returns the launch counts."""
+    from video_stabilizer_tpu_torch.models import chunked
+    from video_stabilizer_tpu_torch.ops import prelude
+    from video_stabilizer_tpu_torch.utils import graphs
+
+    plain_before = dict(PLAIN_ON_CARD)
+    launches, meas, ok, states, last, stages = drive_path(frames, params,
+                                                          dev)
     check(launches.get("warp_frames[similarity,bilinear]", 0) > 0
           and launches["gn_solve"] > 0 and launches["tvl1_smooth"] > 0,
           "kernel A (similarity, bilinear), kernel B and kernel D launched")
-    path_checks_e_f(launches, "gn_solve", CHUNKS, sel=False)
-    check(by_setting >= launches["gn_solve"],
-          f"select ran the plain prelude {by_setting} times by setting "
-          f"(selection=\"topk\"; at least once per level of the timed "
-          f"chunks: {launches['gn_solve']})")
+    path_checks_e_f(launches, "gn_solve", CHUNKS)
+    check(PLAIN_ON_CARD == plain_before,
+          f"the plain versions ran on the card no time in this phase "
+          f"({PLAIN_ON_CARD[SEL_NAME] - plain_before[SEL_NAME]} plain "
+          "preludes: selection=\"topk\" goes to kernel J's exact-count "
+          "mode)")
     path_checks_i(launches, CHUNKS)
     known_motion_checks(meas, ok, poses)
     log("  stage device times, mean of chunks 1-3 (CUDA events), ms: "
@@ -4321,35 +4638,52 @@ def topk_path(frames, poses, params, dev, mask_stages):
         log(f"    select, all levels ({name}): "
             f"{sum(v for k, v in st.items() if k.startswith('select')):.3f}"
             " ms")
-    select_op_times(params.aligner, dev)
+    # Kernel J's calls of one more un-captured chunk (after the counts
+    # were read), for the op times below.
+    with graphs.eager(), mock.patch.object(
+            prelude, "level_prelude", wraps=prelude.level_prelude) as spy:
+        chunked.stabilize_chunk_streams(states, last, params)
+    select_op_times(params.aligner, dev, [c.args for c in spy.call_args_list])
     return launches
 
 
-def select_op_times(aligner_params, dev):
+def select_op_times(aligner_params, dev, calls):
     """The two selections alone, one after the other on the same warp
     diffs (integer-valued, so with ties), at each 1080p level's (items, 2,
-    N) shape: each call's time between CUDA events, host launch overhead
-    included. The chunk's stage times above move with the host's pace
-    between runs; this compares the two ops within one stretch of it."""
+    N) shape, and kernel J's two modes on that level's recorded ``calls``
+    (the histogram mask and the exact count, the whole prelude): each
+    call's time between CUDA events, host launch overhead included. The
+    chunk's stage times above move with the host's pace between runs; this
+    compares the four within one stretch of it."""
     from video_stabilizer_tpu_torch.models.aligner import level_specs
+    from video_stabilizer_tpu_torch.ops.prelude import level_prelude_kernel
     from video_stabilizer_tpu_torch.ops.select import (
         histogram_mask, topk_mask)
 
     g = torch.Generator().manual_seed(SEED + 7)
+    by_width = {a[0].width: a for a in calls}
+    mask_params = dataclasses.replace(aligner_params, selection="mask")
     rows = []
     for spec in level_specs(WIDTH, HEIGHT, aligner_params):
         n = spec.ht * spec.wt
         wd = torch.floor(torch.rand((STREAMS * CHUNK, 2, n), generator=g)
                          * 64).to(dev)
         frac = aligner_params.smallest_fraction
+        args = by_width[spec.width]
+        as_mask = args[:6] + (mask_params,) + args[7:]
         rows.append((f"{spec.width}x{spec.height}",
                      cuda_ms(lambda: histogram_mask(wd, frac), 20),
-                     cuda_ms(lambda: topk_mask(wd, frac), 20)))
-    log(f"  the selection alone, ({STREAMS * CHUNK}, 2, N) warp diffs, ms "
-        "per call: " + ", ".join(f"{lv} mask {m:.3f} topk {t:.3f}"
-                                 for lv, m, t in rows)
-        + f"; all levels mask {sum(r[1] for r in rows):.3f}, topk "
-        f"{sum(r[2] for r in rows):.3f}")
+                     cuda_ms(lambda: topk_mask(wd, frac), 20),
+                     cuda_ms(lambda: level_prelude_kernel(*as_mask), 20),
+                     cuda_ms(lambda: level_prelude_kernel(*args), 20)))
+    log(f"  the selection alone, ({STREAMS * CHUNK}, 2, N) warp diffs, and "
+        "kernel J's whole prelude on the level's call, in its histogram and "
+        "exact-count modes, ms per call: " + ", ".join(
+            f"{lv} mask {m:.3f} topk {t:.3f} J {jm:.3f} J[topk] {jt:.3f}"
+            for lv, m, t, jm, jt in rows)
+        + "; all levels " + ", ".join(
+            f"{name} {sum(r[i] for r in rows):.3f}" for i, name in (
+                (1, "mask"), (2, "topk"), (3, "J"), (4, "J[topk]"))))
 
 
 def fir_oracle_gap(frames, ts, fir, oracle, group):
@@ -6188,7 +6522,8 @@ def main() -> int:
         entries = check_prelude(sel_calls["1080p"], sel_calls["4K"], params,
                                 dev)
         if entries is not None:
-            kernels[SEL_ENTRY], kernels[SEL_H_ENTRY] = entries
+            (kernels[SEL_ENTRY], kernels[SEL_H_ENTRY],
+             kernels[SEL_TOPK_ENTRY]) = entries
     del sel_calls
     torch.cuda.empty_cache()
     check_4k_content(params_4k, dev)
@@ -6235,7 +6570,10 @@ def main() -> int:
             # pace: on an NVIDIA H100 80GB HBM3 (700.00 W) a run after the
             # profiler's chunk read 1.2-1.5x slower in every eager stage,
             # the smoother's included.
-            topk_path(frames, poses, params_topk, dev, stages)
+            topk = topk_path(frames, poses, params_topk, dev, stages)
+            if topk is not None and topk.get(SEL_NAME, 0) > 0:
+                # Kernel J's exact-count mode: 9T's preludes.
+                path_launches[SEL_TOPK_ENTRY] = topk[SEL_NAME]
         profile_chunk(states, last_chunk, prm, model)
         if model == "similarity":
             check_fir(states, last_chunk, prm, dev)
@@ -6315,12 +6653,11 @@ def main() -> int:
     check(not any(PLAIN_ON_CARD.values()),
           f"plain versions run on the card over every path: {PLAIN_ON_CARD} "
           "(each smoother, pseudo-inverse, accumulator, gray, pyramid, "
-          "keyframe and select prelude call there went to kernel D, E, F, "
-          "G, H, I or J; 9T's exact-count selection runs the plain prelude "
-          "by setting and is not counted)")
+          "keyframe and select prelude call there, 9T's exact-count ones "
+          "too, went to kernel D, E, F, G, H, I or J)")
     missing = [k for k, v in kernels.items()
                if v is None or k not in path_launches]
-    if failures or missing or len(kernels) != 19:
+    if failures or missing or len(kernels) != 20:
         log("chip_smoke: FAILED:\n  " + "\n  ".join(
             failures + [f"{k}: not checked or not launched on its path"
                         for k in missing]))

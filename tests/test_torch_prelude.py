@@ -5,12 +5,14 @@ plain version: the plain version against the JAX package's own steps
 items, both models, the keep fraction as a float and per item; the
 dispatch by device; the wrapper's refusals; and a numpy model of
 ``csrc/prelude.cu``'s design (the CTA slices of a cluster, the histogram
-merge in rank order, the threshold scan, the fixed-order Hessian sum)
-against the plain version. The kernel runs only on the card
+merge in rank order, the threshold scan, the fixed-order Hessian sum; the
+exact-count mode's radix rounds over the float bits and its rank-ordered
+tie cut) against the plain version. The kernel runs only on the card
 (``chip_smoke.py`` phase SEL), where it is held to the plain version."""
 
 import functools
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,7 @@ from video_stabilizer_tpu.ops.argmax import take_at_tile_argmax
 from video_stabilizer_tpu.ops.patches import (
     sample_windows_flat, warp_rel_positions_flat, window_origins_flat)
 from video_stabilizer_tpu.ops.select import histogram_mask
+from video_stabilizer_tpu.ops.select import topk_mask as jtopk_mask
 from video_stabilizer_tpu_torch.config import AlignerParams
 from video_stabilizer_tpu_torch.models import aligner
 from video_stabilizer_tpu_torch.ops import cuda_build, prelude
@@ -265,9 +268,9 @@ def test_cpu_tensors_take_the_plain_version(levels, monkeypatch):
 
 
 def test_topk_takes_the_plain_version_by_setting(levels, monkeypatch):
-    """``selection="topk"`` goes to the plain version on any device, off
-    the CPU too (meta tensors here); the histogram selection off the CPU
-    goes to kernel J, never to the plain version."""
+    """Off the CPU (meta tensors here) both selections go to kernel J,
+    ``selection="topk"`` too, never to the plain version; CPU tensors take
+    the plain version under either."""
     calls = []
 
     def plain(*args, **kw):
@@ -283,20 +286,21 @@ def test_topk_takes_the_plain_version_by_setting(levels, monkeypatch):
     key, tmpl, transform = levels[2, "homography"]
     meta = LevelKeyData(*(f.to("meta") for f in key))
     for params, dev_key, want in (
-            (AlignerParams(selection="topk"), meta, "plain"),
+            (AlignerParams(selection="topk"), meta, "kernel"),
             (AlignerParams(selection="topk"), key, "plain"),
             (PARAMS, meta, "kernel"), (PARAMS, key, "plain")):
         got = prelude.level_prelude(
             SPECS[2], dev_key, _t(KEY_INDEX), tmpl, _t(TEMPLATE_INDEX),
             _t(transform), params, 0.5, "homography")
         assert got == want, (params.selection, dev_key.windows.device)
-    assert calls == ["plain", "plain", "kernel", "plain"]
+    assert calls == ["kernel", "plain", "kernel", "plain"]
 
 
 def test_kernel_wrapper_refuses(levels):
-    """The exact-count selection, another dtype, shape or layout, the CPU
-    and meta devices: the wrapper raises before any build or launch, no
-    fallback."""
+    """A selection other than the histogram and the exact count, the mask
+    output outside the exact-count mode, a plan of the other mode, another
+    dtype, shape or layout, the CPU and meta devices: the wrapper raises
+    before any build or launch, no fallback."""
     before = prelude.level_prelude_kernel.launches
     key, tmpl, transform = levels[2, "similarity"]
     spec = SPECS[2]
@@ -306,8 +310,21 @@ def test_kernel_wrapper_refuses(levels):
         return prelude.level_prelude_kernel(spec, key, kidx, tmpl, tidx, tr,
                                             params, None, model)
 
-    with pytest.raises(ValueError, match="histogram selection"):
-        call(params=AlignerParams(selection="topk"))
+    topk = AlignerParams(selection="topk")
+    with pytest.raises(ValueError, match="selection 'mask' or 'topk'"):
+        call(params=types.SimpleNamespace(selection="nth_element",
+                                          smallest_fraction=0.8))
+    with pytest.raises(ValueError, match="exact-count mode only"):
+        prelude.level_prelude_kernel(spec, key, kidx, tmpl, tidx, tr, PARAMS,
+                                     None, "similarity", return_mask=True)
+    n = spec.ht * spec.wt
+    for params, plan in ((topk, prelude.launch_plan(4, n)),
+                         (PARAMS, prelude.launch_plan(4, n, exact=True)),
+                         (topk, prelude.launch_plan(3, n, exact=True))):
+        with pytest.raises(ValueError, match="does not fit"):
+            prelude.level_prelude_kernel(spec, key, kidx, tmpl, tidx, tr,
+                                         params, None, "similarity",
+                                         plan=plan)
     with pytest.raises(ValueError, match="jac wants"):
         call(model="homography")
     with pytest.raises(ValueError, match="coords wants"):
@@ -323,11 +340,12 @@ def test_kernel_wrapper_refuses(levels):
                               .transpose(0, 1)))
     with pytest.raises(ValueError, match="unknown motion model"):
         call(model="affine")
-    with pytest.raises(ValueError, match="kernel J runs on cuda"):
-        call()
-    with pytest.raises(ValueError, match="kernel J runs on cuda"):
-        call(key=LevelKeyData(*(f.to("meta") for f in key)),
-             tmpl=tmpl.to("meta"), tr=tr.to("meta"))
+    for params in (PARAMS, topk):
+        with pytest.raises(ValueError, match="kernel J runs on cuda"):
+            call(params=params)
+        with pytest.raises(ValueError, match="kernel J runs on cuda"):
+            call(key=LevelKeyData(*(f.to("meta") for f in key)),
+                 tmpl=tmpl.to("meta"), tr=tr.to("meta"), params=params)
     assert prelude.level_prelude_kernel.launches == before
 
 
@@ -344,12 +362,14 @@ def test_source_listed_and_scanned():
 # --------------------------------------------------------------------------
 
 THREADS, BINS, PER_LANE = prelude.THREADS, tselect.DEFAULT_BINS, 9
+RADIX = 256
 
 
 def _threshold_scan(counts, k):
     """The kernel's scan of one set's merged counts: lane l holds bins
     [9 l, 9 l + 9), an exclusive prefix of the lane totals, the first bin
-    whose running count reaches k, the lowest lane with one; else 257."""
+    whose running count reaches k, the lowest lane with one; else 257.
+    Returns (that bin, the count in the bins below it)."""
     own = np.zeros((32, PER_LANE), np.int64)
     flat = own.reshape(-1)
     flat[:BINS] = counts
@@ -359,27 +379,97 @@ def _threshold_scan(counts, k):
         for j in range(PER_LANE):
             b = lane * PER_LANE + j
             if b < BINS and np.float32(run[j]) >= k:
-                return b
-    return BINS
+                return b, int(run[j] - own[lane, j])
+    return BINS, int(flat.sum())
 
 
-def kernel_model(wd, jac, fraction, cluster, model):
+def _bin_histograms(bins, plan):
+    """Pass 1's histograms of each CTA's slice of both sets, merged in rank
+    order."""
+    merged = np.zeros((2, BINS), np.int64)
+    for lo, hi in plan.slices():
+        merged += np.stack([np.bincount(bins[s, lo:hi], minlength=BINS)
+                            for s in range(2)])
+    return merged
+
+
+def exact_mask_model(wd, k, cluster):
+    """The exact-count mode's selection for one item's wd (2, N): the bin
+    holding the k-th value from the merged histograms' scan; radix rounds
+    of 8 bits over the candidates' float32 bits (a candidate's bits within
+    its set's range), from the highest byte in which either set's range
+    differs, each CTA's digit histograms merged in rank order and scanned
+    for the digit that reaches the count still needed; then each CTA keeps
+    its entries below the k-th value v and, of those equal to v, the first
+    (still needed - the lower ranks' equal count, from the last round's
+    histograms) in keypoint order. Returns mask (2, N)."""
+    n = wd.shape[1]
+    plan = prelude.launch_plan(1, n, cluster, exact=True)
+    bits = np.ascontiguousarray(wd, np.float32).view(np.uint32).astype(
+        np.int64)
+    bins = np.minimum(np.floor(wd), BINS - 1).astype(np.int64)
+    merged = _bin_histograms(bins, plan)
+    lo_b, hi_b, need = [], [], []
+    for s in range(2):
+        t, below = _threshold_scan(merged[s], k)
+        lo_b.append(int(np.float32(t).view(np.uint32)))
+        hi_b.append(0xFFFFFFFF if t == BINS - 1 else
+                    int(np.float32(t + 1).view(np.uint32)) - 1)
+        need.append(k - below)
+    r0 = min(32 - (a ^ b).bit_length() for a, b in zip(lo_b, hi_b)) // 8
+    for r in range(r0, 4):
+        sh = 24 - 8 * r
+        hists = []
+        for lo, hi in plan.slices():
+            h = np.zeros((2, RADIX), np.int64)
+            for s in range(2):
+                x = bits[s, lo:hi]
+                x = x[(x >= lo_b[s]) & (x <= hi_b[s])]
+                h[s] = np.bincount((x >> sh) & (RADIX - 1), minlength=RADIX)
+            hists.append(h)
+        total = np.zeros((2, RADIX), np.int64)
+        for h in hists:
+            total += h
+        digit = []
+        for s in range(2):
+            cum = np.cumsum(total[s])
+            d = int(np.argmax(cum >= need[s]))
+            at = (lo_b[s] >> (sh + 8) << (sh + 8)) | (d << sh)
+            lo_b[s] = max(lo_b[s], at)
+            hi_b[s] = min(hi_b[s], at | ((1 << sh) - 1))
+            need[s] -= int(cum[d] - total[s, d])
+            digit.append(d)
+    mask = np.zeros(wd.shape, np.float32)
+    for rank, (lo, hi) in enumerate(plan.slices()):
+        for s in range(2):
+            v = lo_b[s]
+            keep = need[s] - sum(h[s, digit[s]] for h in hists[:rank])
+            own = hists[rank][s, digit[s]]
+            x = bits[s, lo:hi]
+            cut = (0 if keep <= 0 else hi - lo if keep >= own else
+                   np.flatnonzero(x == v)[keep - 1] + 1)
+            mask[s, lo:hi] = (x < v) | ((x == v) & (np.arange(hi - lo) < cut))
+    return mask
+
+
+def kernel_model(wd, jac, fraction, cluster, model, exact=False):
     """csrc/prelude.cu's steps after the sample for one item: wd (2, N),
-    jac (R, 2, N) float32. Returns (mask (2, N), jac_masked, hess)."""
+    jac (R, 2, N) float32; the histogram mode, or with ``exact`` the
+    exact-count mode (``exact_mask_model``, k from ``fraction`` as the
+    wrapper forms it). Returns (mask (2, N), jac_masked, hess)."""
     n = wd.shape[1]
     rows = jac.shape[0]
-    plan = prelude.launch_plan(1, n, cluster)
-    bins = np.minimum(np.floor(wd), BINS - 1).astype(np.int64)
-    # Pass 1: each CTA's histograms of its slice of both sets.
-    hists = [np.stack([np.bincount(bins[s, lo:hi], minlength=BINS)
-                       for s in range(2)]) for lo, hi in plan.slices()]
-    # Merge in rank order, then one scan a set.
-    merged = np.zeros((2, BINS), np.int64)
-    for h in hists:
-        merged += h
-    k = np.floor(np.float32(n) * np.float32(fraction))
-    thresh = [_threshold_scan(merged[s], k) for s in range(2)]
-    mask = (bins <= np.array(thresh)[:, None]).astype(np.float32)
+    plan = prelude.launch_plan(1, n, cluster, exact=exact)
+    if exact:
+        mask = exact_mask_model(
+            wd, min(tselect.topk_count(n, fraction), n), cluster)
+    else:
+        bins = np.minimum(np.floor(wd), BINS - 1).astype(np.int64)
+        # Pass 1's histograms, merged in rank order, then one scan a set.
+        merged = _bin_histograms(bins, plan)
+        k = np.floor(np.float32(n) * np.float32(fraction))
+        thresh = [_threshold_scan(merged[s], k)[0] for s in range(2)]
+        mask = (bins <= np.array(thresh)[:, None]).astype(np.float32)
     scale = np.float32(0.5) if model == "similarity" else np.float32(1.0)
     jac_masked = (jac * (mask * scale)[None]).astype(np.float32)
     # Pass 2: entry e of a CTA is set e >= cnt, keypoint lo + e % cnt; a
@@ -459,6 +549,82 @@ def test_kernel_design_model_matches_plain(levels, cluster, model):
         assert np.array_equal(hess.view(np.int32), one_cta.view(np.int32))
 
 
+def _tie_rows(n=1037):
+    """Two ragged rows of warp diffs with long runs of equal values, zeros
+    and values in the overflow bin (256 and above); the default count cuts
+    row 0 inside a run of 200.25 and row 1 inside a run of 300.0 (the
+    overflow bin), and both rows have runs that straddle CTA slices."""
+    rng = np.random.default_rng(23)
+    rows = []
+    for parts in ([np.zeros(200), np.full(150, 3.0),
+                   rng.uniform(0, 256, 200), np.full(400, 200.25),
+                   rng.uniform(256, 1e4, 86), [256.0]],
+                  [np.zeros(100), rng.uniform(0, 256, 300),
+                   np.full(500, 300.0), np.full(136, 512.75),
+                   [np.float32(256) - np.float32(2 ** -15)]]):
+        row = np.concatenate(parts).astype(np.float32)
+        assert row.size == n
+        rows.append(row[rng.permutation(n)])
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("model", MODELS)
+def test_kernel_design_model_exact_matches_topk(levels, cluster, model):
+    """The numpy model of the exact-count mode (its bucket from the merged
+    histograms, the radix rounds over the float bits in rank order, the
+    rank-ordered tie cut) against ``topk_mask`` bit for bit: on the plain
+    ``topk`` prelude's own warp diffs at level 0 (N = 3072: item 1 all 7s,
+    item 2 partly in the overflow bin), and on two ragged rows of N = 1037
+    (``_tie_rows``) at the default count, k = 1 (fraction 0), k = N
+    (fraction 1) and k > N (fraction 1.5); every row keeps exactly
+    min(k, N); jac_masked = jac x mask (x 0.5, similarity) bit for bit, and
+    the plain prelude's at level 0; the Hessian within 1e-5 of the largest
+    entry of a float32 sum and the same bits at every cluster size. One
+    ragged row also against the JAX package's own ``topk_mask``."""
+    key, tmpl, transform = levels[0, model]
+    topk = AlignerParams(selection="topk")
+    got = prelude.level_prelude_plain(
+        SPECS[0], key, _t(KEY_INDEX), tmpl, _t(TEMPLATE_INDEX),
+        _t(transform), topk, _t(FRACTIONS), model, return_wd=True)
+    jac = key.jac[_t(KEY_INDEX)].numpy()
+    rows = jac.shape[1]
+    ties = _tie_rows()
+    ties_jac = np.random.default_rng(cluster).normal(
+        0, 3, (rows, 2, ties.shape[1])).astype(np.float32)
+    f0 = topk.smallest_fraction
+    k0 = tselect.topk_count(ties.shape[1], f0)
+    ordered = np.sort(ties, axis=1)
+    assert (ordered[:, k0 - 1] == ordered[:, k0]).all()
+    assert (ordered[:, k0 - 1] == [200.25, 300.0]).all()
+    cases = [(got[3].numpy()[i], jac[i], f0) for i in range(4)]
+    cases += [(ties, ties_jac, f) for f in (f0, 0.0, 1.0, 1.5)]
+    scale = 0.5 if model == "similarity" else 1.0
+    for i, (wd, jc, f) in enumerate(cases):
+        where = f"case {i}, fraction {f}, cluster {cluster}"
+        mask, jm, hess = kernel_model(wd, jc, f, cluster, model, exact=True)
+        want = tselect.topk_mask(_t(wd), f).numpy()
+        np.testing.assert_array_equal(mask, want, err_msg=where)
+        n = wd.shape[1]
+        assert (mask.sum(axis=1) == min(tselect.topk_count(n, f), n)).all()
+        want_jm = (_t(jc) * (_t(want) * scale)[None]).numpy()
+        np.testing.assert_array_equal(jm.view(np.int32),
+                                      want_jm.view(np.int32), err_msg=where)
+        if i < 4:
+            np.testing.assert_array_equal(jm, got[1].numpy()[i],
+                                          err_msg=where)
+            want_h = got[2].numpy()[i]
+        else:
+            jmask = _t(jc) * _t(want)[None]
+            want_h = (jmask[:, None] * _t(jc)[None]).sum(dim=(2, 3)).numpy()
+        assert np.abs(hess - want_h).max() <= 1e-5 * np.abs(want_h).max()
+        one_cta = kernel_model(wd, jc, f, 1, model, exact=True)[2]
+        assert np.array_equal(hess.view(np.int32), one_cta.view(np.int32))
+        if i == 4:
+            jax_row = np.asarray(jtopk_mask(jnp.asarray(wd[0]), f))
+            np.testing.assert_array_equal(mask[0], jax_row, err_msg=where)
+
+
 def test_launch_plan():
     """Clusters doubled while the level's CTAs number under TARGET_CTAS
     and each CTA keeps MIN_SLICE keypoints, at the cells' shapes (the
@@ -473,6 +639,12 @@ def test_launch_plan():
         cover = [i for lo, hi in plan.slices() for i in range(lo, hi)]
         assert cover == list(range(n))
         assert plan.smem == 4 * plan.slice
+        # The exact-count mode: the same plan, but where a slice would pass
+        # EXACT_MAX_SLICE (G1's 864 items of 5184: 2 CTAs an item).
+        exact = prelude.launch_plan(items, n, exact=True)
+        assert exact.cluster == (2 if (items, n) == (864, 5184) else want)
+        assert exact.slice <= prelude.EXACT_MAX_SLICE
+        assert exact.smem == 8 * exact.slice and exact.exact
     with pytest.raises(ValueError, match="cluster size"):
         prelude.launch_plan(1, 10, 3)
 

@@ -68,19 +68,20 @@ __device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
   for (int k = 0; k < NP; ++k) b[k] = __shfl_sync(FULL, v, k * LPK);
 }
 
-// What one kernel instance's launches have set up: its dynamic shared
-// memory limit, and the (cluster, shared memory) shapes already checked.
+// What one kernel instance's launches have set up: the (cluster, shared
+// memory) shapes already checked.
 struct LaunchState {
-  int smem_limit = 48 * 1024;
   int shapes[16][2];
   int n_shapes = 0;
 };
 
 // Launches `kernel` with `cfg` (whose attribute sets the cluster size
 // `cs`). Before the first launch of each (cluster, shared memory) shape it
-// raises the kernel's shared-memory limit as far as needed, and refuses
-// with cudaErrorLaunchOutOfResources a shape of which not one cluster can
-// be resident. Returns the CUDA error, 0 on success.
+// raises the kernel's dynamic shared-memory limit where the shape needs
+// more (by default a kernel's static and dynamic shared memory together
+// stay within 48 KB), and refuses with cudaErrorLaunchOutOfResources a
+// shape of which not one cluster can be resident. Returns the CUDA error,
+// 0 on success.
 template <typename... Params, typename... Args>
 int launch_cluster(LaunchState& st, void (*kernel)(Params...),
                    const cudaLaunchConfig_t& cfg, int cs, Args... args) {
@@ -89,12 +90,13 @@ int launch_cluster(LaunchState& st, void (*kernel)(Params...),
   for (int i = 0; i < st.n_shapes; ++i)
     known |= st.shapes[i][0] == cs && st.shapes[i][1] == smem;
   if (!known) {
-    cudaError_t err = cudaSuccess;
-    if (smem > st.smem_limit) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (smem > attr.maxDynamicSharedSizeBytes) {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
-      st.smem_limit = smem;
     }
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);

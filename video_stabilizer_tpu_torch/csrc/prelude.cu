@@ -24,15 +24,22 @@
 //     version's order;
 //   wd = |sample - tmpl|, the sample the weight-normalized Lanczos2 sample
 //     of the u8 windows (lanczos_taps.cuh, kernel B's sampler);
-//   per (b, s) row: bins min(floor(wd), 256); k = floor(float(N) * f) in
-//     float32 with f the item's keep fraction; the threshold the first bin
-//     whose cumulative count reaches k, else 257; mask = bin <= threshold
-//     (select.py:24-61 of the JAX package);
+//   per (b, s) row, the histogram mode (selection="mask"): bins
+//     min(floor(wd), 256); k = floor(float(N) * f) in float32 with f the
+//     item's keep fraction; the threshold the first bin whose cumulative
+//     count reaches k, else 257; mask = bin <= threshold (select.py:24-61
+//     of the JAX package);
+//   or the exact-count mode (selection="topk", select.py:64-72): mask = 1
+//     on exactly k entries, the k smallest wd, equal values taken in index
+//     order, lowest index first (jax.lax.top_k(-wd, k)); k (1..N) the
+//     host's max(int(N * fraction), 1), capped at N, the same for every
+//     item (the per-item fraction is not read);
 //   jac_masked[b, r, s, n] = jac[k, r, s, n] * (mask * 0.5) (similarity:
 //     the ICA X/Y-set average folded in) or * mask (homography);
 //   hess[b, i, j] = sum over s, n of (jac_i * mask) * jac_j, symmetric
 //     (each product rounded to float32, the sum taken in float64);
-//   wd[b, s, n], where its pointer is not null (a check's debug output).
+//   wd[b, s, n], where its pointer is not null (a check's debug output),
+//     and in the exact-count mode mask[b, s, n] likewise.
 // The keyframe's jac, coords, idx_* and windows are read through key_index
 // and the template through template_index, so the plain version's
 // per-item gathers and flat index never exist on the card. Every output is
@@ -70,6 +77,26 @@
 //     DSMEM in rank order, and warp s scans set s's bins (9 a lane, a
 //     shuffle scan of the lane sums, a ballot for the first bin that
 //     reaches k);
+//   - the exact-count mode (a template parameter: the histogram mode's
+//     code is the same) keeps each entry's wd bits (u32) in place of its
+//     bin, and the bin t that the scan finds holds the k-th smallest wd.
+//     The bits of a non-negative float sort as uint32, and bin t's entries
+//     are a range of them ([bits(t), bits(t + 1)), the overflow bin from
+//     bits(256) up), so a radix select refines it: rounds of 8 bits from
+//     the highest byte in which the two sets' ranges differ, each a
+//     histogram of the candidates' digits (integer shared atomics),
+//     merged through DSMEM in rank order like the bins (two buffers by
+//     round parity, the first not the bins', so one cluster.sync a round
+//     keeps a CTA from overwriting what another still reads), and a scan
+//     for the digit at which the count reaches the number still needed.
+//     After the last round the k-th value v is known with the number of
+//     entries equal to it to keep; the last round's histograms give each
+//     CTA its own count of them and, summed over the lower ranks, the
+//     count before its slice (a slice is contiguous, so rank order is
+//     index order). The one CTA a set in which the cut falls finds its
+//     local index by ballots and a prefix over its warps; pass 2 then
+//     keeps bits < v, and bits == v below that index. Four bytes an entry
+//     in place of two: launch_plan caps such a slice (ops/prelude.py);
 //   - pass 2, in rounds of THREADS entries: a thread an entry reads its R
 //     jac rows (all R loads before the first store), writes jac_masked and
 //     stages the rows and the mask in shared memory; then the R (R + 1) /
@@ -85,7 +112,9 @@
 // Measured on the card (PERF.md, kernel J, the 1080p chunk's 6 levels): a
 // lane a patch read 0.345 ms, 4 lanes a patch 0.316, the loads ahead of
 // the stores 0.262; warp-aggregated histogram adds (__match_any_sync) and
-// 6 or 8 CTAs an SM (40 or 32 registers) were slower.
+// 6 or 8 CTAs an SM (40 or 32 registers) were slower. The exact-count mode
+// read 0.314 ms there, 1.21x the histogram mode (64 registers and 4 CTAs
+// an SM in both forms).
 // No float atomics: a launch is deterministic, as the captured programs'
 // byte-equal replays need. The float64 sums make the Hessian the float32
 // rounding of the exact sum of the products (but where that lies within
@@ -112,6 +141,8 @@ constexpr int MIN_CTAS = 4;
 constexpr int BINS = 257;          // 0..255 and the overflow bin 256
 constexpr int BINS_PER_LANE = 9;   // 32 x 9 >= 257
 constexpr int KEEP_ALL = BINS;     // the threshold when no bin reaches k
+constexpr int RADIX = 256;         // the exact-count rounds' digits (8 bits)
+constexpr int DIGITS_PER_LANE = RADIX / 32;
 
 struct Level {
   const uint8_t* windows;          // (K, N, P, P)
@@ -127,10 +158,12 @@ struct Level {
   const float* fraction;           // fraction[b * fstride], or null
   int fstride;
   float fvalue;                    // the keep fraction where it is null
+  int k;                           // the exact-count mode's count, 1..n
   float* tmpl;                     // (B, 2, N)
   float* jac_masked;               // (B, R, 2, N)
   float* hess;                     // (B, R, R)
   float* wd;                       // (B, 2, N), or null
+  float* mask;                     // (B, 2, N), or null (exact-count mode)
   int n, p, t, w, wt, margin, cluster, slice;
   float cx, cy, inv_w, wf, rel_hi;
 };
@@ -175,16 +208,174 @@ __device__ __forceinline__ void hess_entry(int i, int& a, int& b) {
   b = a + i;
 }
 
-template <int R>
+// The local index in vals[0, cnt) just past the keep-th entry equal to v
+// (0 < keep < the number of such entries), in index order: THREADS entries
+// a round, a ballot a warp and a prefix over the warps. Every thread of the
+// block calls it and gets the index.
+__device__ __forceinline__ int tie_cut(const uint32_t* vals, int cnt,
+                                        uint32_t v, int keep) {
+  __shared__ int s_warp[WARPS];
+  __shared__ int s_at;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // run: the equal entries of the rounds so far, the same in every thread.
+  for (int base = 0, run = 0; run < keep; base += THREADS) {
+    const int i = base + tid;
+    const bool eq = i < cnt && vals[i] == v;
+    const unsigned b = __ballot_sync(gn::FULL, eq);
+    if (lane == 0) s_warp[warp] = __popc(b);
+    __syncthreads();
+    int before = run + __popc(b & ((1u << lane) - 1u));
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = s_warp[w];
+      if (w < warp) before += c;
+      run += c;
+    }
+    if (eq && before == keep - 1) s_at = i + 1;
+    __syncthreads();
+  }
+  return s_at;
+}
+
+// The exact-count mode's cut of this item's two rows, for this CTA: it
+// keeps an entry of set s whose bits are below v[s], or equal to v[s] at a
+// local index below cut[s]. vals: each entry's wd bits (set s at s * cnt);
+// thresh, below: each set's bin holding the k-th value and the count in
+// the bins under it (the merged histograms' scan). hist: this CTA's bin
+// histograms, reused as a round buffer (every CTA has merged them once
+// the first round's cluster.sync is passed); merged: the merged bins,
+// reused for the merged digits.
+__device__ __forceinline__ void exact_cut(cg::cluster_group& cluster, int cs,
+                                          int rank, int k,
+                                          const uint32_t* vals, int cnt,
+                                          const int* thresh,
+                                          const int* below, int* hist,
+                                          int* merged, uint32_t* v,
+                                          int* cut) {
+  __shared__ int s_rad[2 * RADIX];  // the first round's buffer
+  __shared__ uint32_t s_lo[2], s_hi[2];  // each set's candidate bits
+  __shared__ int s_need[2], s_keep[2], s_own[2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid < 2) {
+    const int t = thresh[tid];
+    s_lo[tid] = __float_as_uint((float)t);
+    s_hi[tid] = t == BINS - 1 ? 0xffffffffu
+                              : __float_as_uint((float)(t + 1)) - 1u;
+    s_need[tid] = k - below[tid];
+  }
+  __syncthreads();
+  // The highest byte in which either set's candidates can differ.
+  const int r0 = min(__clz(s_lo[0] ^ s_hi[0]), __clz(s_lo[1] ^ s_hi[1])) >> 3;
+  for (int r = r0; r < 4; ++r) {
+    const int sh = 24 - 8 * r;
+    int* const h = ((r - r0) & 1) ? hist : s_rad;
+    for (int i = tid; i < 2 * RADIX; i += THREADS) h[i] = 0;
+    __syncthreads();
+    const uint32_t lo0 = s_lo[0], hi0 = s_hi[0];
+    const uint32_t lo1 = s_lo[1], hi1 = s_hi[1];
+    for (int e = tid; e < 2 * cnt; e += THREADS) {
+      const bool s = e >= cnt;
+      const uint32_t x = vals[e];
+      if (x >= (s ? lo1 : lo0) && x <= (s ? hi1 : hi0))
+        atomicAdd(&h[(s ? RADIX : 0) + ((x >> sh) & (RADIX - 1))], 1);
+    }
+    if (cs > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    for (int i = tid; i < 2 * RADIX; i += THREADS) {
+      int c = 0;
+      for (int q = 0; q < cs; ++q) {
+        const int* src = cs > 1 ? cluster.map_shared_rank(h, q) : h;
+        c += src[i];
+      }
+      merged[i] = c;
+    }
+    __syncthreads();
+    if (warp < 2) {
+      // Warp s: the first digit at which set s's candidates reach need.
+      const int* cnts = merged + warp * RADIX;
+      const int need = s_need[warp];
+      const int d0 = lane * DIGITS_PER_LANE;
+      int own[DIGITS_PER_LANE];
+      int total = 0;
+#pragma unroll
+      for (int j = 0; j < DIGITS_PER_LANE; ++j) {
+        own[j] = cnts[d0 + j];
+        total += own[j];
+      }
+      int incl = total;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int x = __shfl_up_sync(gn::FULL, incl, off);
+        if (lane >= off) incl += x;
+      }
+      int run = incl - total;
+      int first = -1, before = 0;
+#pragma unroll
+      for (int j = 0; j < DIGITS_PER_LANE; ++j) {
+        if (first < 0 && run + own[j] >= need) {
+          first = d0 + j;
+          before = run;
+        }
+        run += own[j];
+      }
+      const int src = __ffs(__ballot_sync(gn::FULL, first >= 0)) - 1;
+      const int d = __shfl_sync(gn::FULL, first, src);
+      const int skipped = __shfl_sync(gn::FULL, before, src);
+      if (lane == 0) {
+        const uint32_t above =
+            sh == 24 ? 0u : s_lo[warp] & (0xffffffffu << (sh + 8));
+        const uint32_t at = above | ((uint32_t)d << sh);
+        s_lo[warp] = max(s_lo[warp], at);
+        s_hi[warp] = min(s_hi[warp], at | ((1u << sh) - 1u));
+        s_need[warp] = need - skipped;
+        if (r == 3) {
+          // Equal to v: this CTA's own, and the lower ranks' before them.
+          int pre = 0;
+          for (int q = 0; q < rank; ++q)
+            pre += cluster.map_shared_rank(h, q)[warp * RADIX + d];
+          s_keep[warp] = need - skipped - pre;
+          s_own[warp] = h[warp * RADIX + d];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = 0; s < 2; ++s) {
+    const int keep = s_keep[s];
+    int c = keep <= 0 ? 0 : cnt;
+    if (keep > 0 && keep < s_own[s])
+      c = tie_cut(vals + s * cnt, cnt, s_lo[s], keep);
+    if (tid == 0) {
+      v[s] = s_lo[s];
+      cut[s] = c;
+    }
+  }
+  __syncthreads();
+}
+
+template <int R, bool EXACT>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     prelude_kernel(const Level L) {
   constexpr int NH = R * (R + 1) / 2;  // distinct Hessian entries
   constexpr int GROUPS = THREADS / NH; // threads summing one entry
   constexpr int ST = R + 1;            // a staged entry: jac rows, mask
-  extern __shared__ uint16_t s_bin[];  // (2 x slice) entry bins
+  // (2 x slice) entries: each one's bin, or in the exact-count mode its
+  // wd bits.
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  uint16_t* const s_bin = reinterpret_cast<uint16_t*>(s_dyn);
+  uint32_t* const s_val = reinterpret_cast<uint32_t*>(s_dyn);
   __shared__ int s_hist[2 * BINS];     // this CTA's histograms
   __shared__ int s_count[2 * BINS];    // the cluster's
   __shared__ int s_thresh[2];
+  __shared__ int s_below[2];           // exact: the count under s_thresh
+  __shared__ uint32_t s_v[2];          // exact: the k-th value's bits
+  __shared__ int s_cut[2];             // exact: this CTA's tie cut
   __shared__ float s_stage[THREADS * ST];
   __shared__ double s_part[GROUPS * NH];
   __shared__ double s_cta[NH];
@@ -266,7 +457,11 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
       L.tmpl[out] = tv;
       if (L.wd != nullptr) L.wd[out] = d;
       const int bin = (int)fminf(floorf(d), (float)(BINS - 1));
-      s_bin[s * cnt + i] = (uint16_t)bin;
+      if constexpr (EXACT) {
+        s_val[s * cnt + i] = __float_as_uint(d);
+      } else {
+        s_bin[s * cnt + i] = (uint16_t)bin;
+      }
       atomicAdd(&s_hist[s * BINS + bin], 1);
     }
   }
@@ -287,10 +482,13 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   }
   __syncthreads();
   if (warp < 2) {
-    const float f =
-        L.fraction != nullptr ? L.fraction[(size_t)item * L.fstride]
-                              : L.fvalue;
-    const float k = floorf((float)N * f);
+    float k = 0.0f;
+    if constexpr (!EXACT) {
+      const float f =
+          L.fraction != nullptr ? L.fraction[(size_t)item * L.fstride]
+                                : L.fvalue;
+      k = floorf((float)N * f);
+    }
     const int* cnts = s_count + warp * BINS;
     const int b0 = lane * BINS_PER_LANE;
     int own[BINS_PER_LANE];
@@ -307,19 +505,30 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
       if (lane >= off) incl += v;
     }
     int run = incl - total;
-    int first = KEEP_ALL;
+    int first = KEEP_ALL, below = 0;
 #pragma unroll
     for (int j = 0; j < BINS_PER_LANE; ++j) {
       run += own[j];
-      if (first == KEEP_ALL && b0 + j < BINS && (float)run >= k)
+      if (first == KEEP_ALL && b0 + j < BINS &&
+          (EXACT ? run >= L.k : (float)run >= k)) {
         first = b0 + j;
+        below = run - own[j];
+      }
     }
     const unsigned hit = __ballot_sync(gn::FULL, first != KEEP_ALL);
     const int thresh =
         hit ? __shfl_sync(gn::FULL, first, __ffs(hit) - 1) : KEEP_ALL;
     if (lane == 0) s_thresh[warp] = thresh;
+    if constexpr (EXACT) {
+      // k <= N: a bin always reaches it.
+      below = __shfl_sync(gn::FULL, below, __ffs(hit) - 1);
+      if (lane == 0) s_below[warp] = below;
+    }
   }
   __syncthreads();
+  if constexpr (EXACT)
+    exact_cut(cluster, cs, rank, L.k, s_val, cnt, s_thresh, s_below, s_hist,
+              s_count, s_v, s_cut);
 
   // Pass 2: a thread an entry stages its jac rows and mask and writes
   // jac_masked; then thread (group g, entry h) adds the products of entry
@@ -337,7 +546,15 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     if (e < 2 * cnt) {
       const int s = e >= cnt;
       const int n = lo + (s ? e - cnt : e);
-      const float m = (int)s_bin[e] <= (s ? th1 : th0) ? 1.0f : 0.0f;
+      float m;
+      if constexpr (EXACT) {
+        const uint32_t x = s_val[e];
+        const uint32_t v = s_v[s];
+        m = x < v || (x == v && (s ? e - cnt : e) < s_cut[s]) ? 1.0f : 0.0f;
+        if (L.mask != nullptr) L.mask[((size_t)item * 2 + s) * N + n] = m;
+      } else {
+        m = (int)s_bin[e] <= (s ? th1 : th0) ? 1.0f : 0.0f;
+      }
       const float mj = R == 4 ? m * 0.5f : m;
       float* st = s_stage + tid * ST;
       // Every row's load issued before the first store.
@@ -394,14 +611,20 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   if (cs > 1) cluster.sync();
 }
 
-template <int R>
+// Dynamic shared memory of a CTA of `slice` keypoints: both sets' u16
+// bins, or u32 wd bits in the exact-count mode.
+inline size_t entry_bytes(int slice, bool exact) {
+  return (size_t)2 * slice * (exact ? sizeof(uint32_t) : sizeof(uint16_t));
+}
+
+template <int R, bool EXACT>
 int launch(const Level& L, int batch, int cluster, void* stream) {
   static gn::LaunchState state;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = gn::cluster_config(
-      attr, batch, cluster, THREADS,
-      (size_t)2 * L.slice * sizeof(uint16_t), stream);
-  return gn::launch_cluster(state, prelude_kernel<R>, cfg, cluster, L);
+      attr, batch, cluster, THREADS, entry_bytes(L.slice, EXACT), stream);
+  return gn::launch_cluster(state, prelude_kernel<R, EXACT>, cfg, cluster,
+                            L);
 }
 
 }  // namespace
@@ -425,38 +648,53 @@ struct PreludeArgs {
   void* jac_masked;
   void* hess;
   void* wd;
+  void* mask;
   int batch, n, p, t, w, wt, margin, cluster, slice;
+  int exact, k;  // the exact-count mode and its count (1..n)
   float cx, cy, inv_w, wf, rel_hi;
 };
 
-// The registers a thread of each form takes and the CTAs of the launch's
-// block size an SM holds with `slice` keypoints a CTA (its dynamic shared
-// memory): regs[0], ctas[0] for the similarity's R = 4, [1] for R = 8.
-// Returns a cudaError_t.
-extern "C" int vs_prelude_attributes(int slice, int* regs, int* ctas) {
-  void (*const forms[2])(const Level) = {prelude_kernel<4>,
-                                         prelude_kernel<8>};
+// The registers a thread of each form of a mode (exact: the exact-count
+// mode, else the histogram mode) takes, its static shared memory, and the
+// CTAs of the launch's block size an SM holds with `slice` keypoints a CTA
+// (its dynamic shared memory, the kernel's limit raised to it first where
+// it needs more, as a launch raises it): [0] for the similarity's R = 4,
+// [1] for R = 8. Returns a cudaError_t.
+extern "C" int vs_prelude_attributes(int slice, int exact, int* regs,
+                                     int* static_smem, int* ctas) {
+  void (*const forms[2])(const Level) = {
+      exact ? prelude_kernel<4, true> : prelude_kernel<4, false>,
+      exact ? prelude_kernel<8, true> : prelude_kernel<8, false>};
   for (int i = 0; i < 2; ++i) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, forms[i]);
     if (err != cudaSuccess) return (int)err;
     regs[i] = attr.numRegs;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas[i], forms[i], THREADS, (size_t)2 * slice * sizeof(uint16_t));
+    static_smem[i] = (int)attr.sharedSizeBytes;
+    const size_t smem = entry_bytes(slice, exact != 0);
+    if (smem > (size_t)attr.maxDynamicSharedSizeBytes) {
+      err = cudaFuncSetAttribute(
+          forms[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas[i], forms[i],
+                                                        THREADS, smem);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
 }
 
 // One level for `batch` items; homography: 0 for the similarity's R = 4
-// rows, 1 for the homography's R = 8. Returns a cudaError_t
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// rows, 1 for the homography's R = 8; exact: the exact-count mode, which
+// keeps k of each row. Returns a cudaError_t (cudaErrorInvalidValue for a
+// shape the kernel does not take).
 extern "C" int vs_level_prelude(const PreludeArgs* a, int homography,
                                 void* stream) {
   if (a->batch < 1 || a->n < 1 || a->p < 5 || a->t < 1 || a->wt < 1 ||
       a->cluster < 1 || a->cluster > 8 || a->slice < 1 ||
       (long long)a->slice * a->cluster < a->n ||
-      (long long)a->n * a->p * a->p > 0x7fffffffLL)
+      (long long)a->n * a->p * a->p > 0x7fffffffLL ||
+      (a->exact && (a->k < 1 || a->k > a->n)))
     return (int)cudaErrorInvalidValue;
   const Level L{(const uint8_t*)a->windows,
                 (const float*)a->coords,
@@ -471,10 +709,12 @@ extern "C" int vs_level_prelude(const PreludeArgs* a, int homography,
                 (const float*)a->fraction,
                 a->fstride,
                 a->fvalue,
+                a->k,
                 (float*)a->tmpl,
                 (float*)a->jac_masked,
                 (float*)a->hess,
                 (float*)a->wd,
+                (float*)a->mask,
                 a->n,
                 a->p,
                 a->t,
@@ -488,6 +728,9 @@ extern "C" int vs_level_prelude(const PreludeArgs* a, int homography,
                 a->inv_w,
                 a->wf,
                 a->rel_hi};
-  return homography ? launch<8>(L, a->batch, a->cluster, stream)
-                    : launch<4>(L, a->batch, a->cluster, stream);
+  if (a->exact)
+    return homography ? launch<8, true>(L, a->batch, a->cluster, stream)
+                      : launch<4, true>(L, a->batch, a->cluster, stream);
+  return homography ? launch<8, false>(L, a->batch, a->cluster, stream)
+                    : launch<4, false>(L, a->batch, a->cluster, stream);
 }

@@ -132,8 +132,8 @@ def _level_prelude(spec: LevelSpec, key: LevelKeyData, key_index, templates,
     template intensities, warp-diff selection (alignment.cpp:409-431, centre
     convention W*0.5; keep ``fraction`` as ``selection_mask`` takes it) and
     the Hessian over both selected sets (``ops.prelude``: kernel J on the
-    card; the plain version for ``selection="topk"``), then its regularized
-    inverse (kernel E) (aligner.py:316-345). Returns (tmpl (B, 2, N),
+    card, the histogram mask or the exact count of ``selection="topk"``),
+    then its regularized inverse (kernel E) (aligner.py:316-345). Returns (tmpl (B, 2, N),
     jac_masked (B, 4, 2, N) with the ICA X/Y-set average folded in,
     hinv (B, 4, 4), ox, oy)."""
     tmpl, jac_masked, hess = prelude.level_prelude(

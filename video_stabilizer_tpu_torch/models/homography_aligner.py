@@ -60,8 +60,8 @@ def _level_prelude_h(spec: LevelSpec, key: LevelKeyData, key_index,
                      fraction=None):
     """Template intensities, warp-diff selection at the incoming ``p`` (keep
     ``fraction`` as ``aligner.selection_mask`` takes it), the 8x8 Hessian
-    (``ops.prelude``: kernel J on the card; the plain version for
-    ``selection="topk"``) and its regularized inverse (kernel E)
+    (``ops.prelude``: kernel J on the card, either selection) and its
+    regularized inverse (kernel E)
     (homography_aligner.py:126-149). Returns (tmpl (B, 2, N), jac_masked
     (B, 8, 2, N), hinv (B, 8, 8), u, v (K, 2, N), ox, oy)."""
     tmpl, jac_masked, hess = prelude.level_prelude(

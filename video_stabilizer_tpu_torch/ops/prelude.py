@@ -1,11 +1,14 @@
 """Select's warp-diff prelude of one pyramid level for B items: the
 template intensities at each keyframe tile's argmax, the warp diffs at the
-incoming transform, the histogram keep-mask, the masked Jacobian and the
-Gauss-Newton Hessian. Kernel J of the port.
+incoming transform, the keep-mask (the histogram threshold, or the exact
+count), the masked Jacobian and the Gauss-Newton Hessian. Kernel J of the
+port.
 
 ``level_prelude_kernel`` launches ``csrc/prelude.cu`` for CUDA tensors: one
-launch a level for all items, either model, with the keep fraction one
-value or one per item. It replaces the JAX package's XLA stages
+launch a level for all items, either model, either selection: the
+histogram mask with the keep fraction one value or one per item, or the
+exact count of ``selection="topk"`` (its count static, as the JAX
+package's). It replaces the JAX package's XLA stages
 ``video_stabilizer_tpu/models/aligner.py:316-345`` (inside ``_align_level``)
 and ``video_stabilizer_tpu/models/homography_aligner.py:130-149`` (inside
 ``_align_level_h``), not a Pallas kernel; it was added because a profile of
@@ -15,10 +18,9 @@ Hessian's product) among the largest device stages left. See the source
 note in ``csrc/prelude.cu`` for the bound and the design.
 
 ``level_prelude_plain`` is the same computation in plain PyTorch: the CPU
-path and the card's reference, never the main path on a card, and the path
-of the exact-count selection (``selection="topk"``), which the kernel does
-not take. ``level_prelude`` dispatches by device. The regularized inverse
-of the Hessian stays kernel E's (``ops/linalg.py``), a launch of its own.
+path and the card's reference, never the main path on a card.
+``level_prelude`` dispatches by device. The regularized inverse of the
+Hessian stays kernel E's (``ops/linalg.py``), a launch of its own.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from video_stabilizer_tpu_torch.ops.keyframe import (
     jacobian_rows, kernel_scalars)
 from video_stabilizer_tpu_torch.ops.patches import (
     sample_windows_flat, warp_rel_positions_flat, window_origins_flat)
-from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
+from video_stabilizer_tpu_torch.ops.select import (
+    histogram_mask, topk_count, topk_mask)
 
 # Launch shape of csrc/prelude.cu: a block of THREADS threads; per item a
 # cluster of 1-8 CTAs, doubled while a level's CTAs number under
@@ -50,25 +53,35 @@ from video_stabilizer_tpu_torch.ops.select import histogram_mask, topk_mask
 # plan was the fastest cluster size, or within a few % of it, at every
 # level of the 1080p and 4K chunks (PERF.md, kernel J: 2 CTAs an item at
 # every 1080p level, 8 at 4K down to N = 1296, 4 at N = 480). The
-# kernel's outputs are the same bytes under every plan.
+# kernel's outputs are the same bytes under every plan. The exact-count
+# mode keeps 4 bytes an entry where the histogram mode keeps 2, and its
+# plan also doubles the cluster while a CTA's slice passes
+# EXACT_MAX_SLICE, so that its dynamic shared memory (8 x slice bytes)
+# with its static ~22 KB stays under the 48 KB a kernel takes without
+# raising its limit, and 4 CTAs still fit an SM (G1's 864 items of N =
+# 5184 take 2 CTAs an item there, 1 in the histogram mode: on the H100
+# that level read 0.409 ms, against 0.458 at 1 CTA an item, whose 41 KB of
+# entries leave 3 CTAs an SM).
 THREADS = 256
 TARGET_CTAS = 256
 MIN_SLICE = 100
+EXACT_MAX_SLICE = 3072
 
 
 class LaunchPlan(NamedTuple):
     """Kernel J's launch of ``items`` items of ``n`` keypoints: ``cluster``
     CTAs an item, CTA r taking keypoints [r * slice, (r + 1) * slice) of
-    [0, n) in both sets, their bins in ``smem`` bytes of dynamic shared
-    memory."""
+    [0, n) in both sets, their bins (or, in the ``exact``-count mode, their
+    warp diffs) in ``smem`` bytes of dynamic shared memory."""
     items: int
     n: int
     cluster: int
     slice: int
+    exact: bool = False
 
     @property
     def smem(self) -> int:
-        return 2 * 2 * self.slice
+        return 2 * (4 if self.exact else 2) * self.slice
 
     def slices(self):
         """[lo, hi) of each CTA of a cluster, as the kernel forms them."""
@@ -77,19 +90,22 @@ class LaunchPlan(NamedTuple):
                 for r in range(self.cluster)]
 
 
-def launch_plan(items: int, n: int, cluster: int | None = None
-                ) -> LaunchPlan:
+def launch_plan(items: int, n: int, cluster: int | None = None,
+                exact: bool = False) -> LaunchPlan:
     """Kernel J's plan (a pure function): ``cluster`` CTAs an item if
     given, else 1 doubled (up to 8) while ``items`` x cluster < TARGET_CTAS
-    and a CTA of the doubled cluster would keep MIN_SLICE keypoints."""
+    and a CTA of the doubled cluster would keep MIN_SLICE keypoints, and in
+    the ``exact``-count mode also while a CTA keeps over EXACT_MAX_SLICE."""
     if cluster is None:
         cluster = 1
-        while (cluster < CLUSTER_SIZES[-1] and items * cluster < TARGET_CTAS
-               and -(-n // (2 * cluster)) >= MIN_SLICE):
+        while cluster < CLUSTER_SIZES[-1] and (
+                (items * cluster < TARGET_CTAS
+                 and -(-n // (2 * cluster)) >= MIN_SLICE)
+                or (exact and -(-n // cluster) > EXACT_MAX_SLICE)):
             cluster *= 2
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster size {cluster} not in {CLUSTER_SIZES}")
-    return LaunchPlan(items, n, cluster, max(-(-n // cluster), 1))
+    return LaunchPlan(items, n, cluster, max(-(-n // cluster), 1), exact)
 
 
 def template_intensities(spec, key, key_index, templates, template_index):
@@ -125,10 +141,9 @@ def level_prelude(spec, key, key_index, templates, template_index, transform,
                   params, fraction=None, model: str = "similarity"):
     """Everything of one level before the GN loop, at the incoming
     transform, for B items (see ``level_prelude_plain``). CPU tensors take
-    the plain version, and so does ``selection="topk"`` on any device (by
-    setting: kernel J has no exact-count mode); CUDA tensors take kernel
-    J, which raises on what it does not take."""
-    if key.windows.device.type == "cpu" or params.selection == "topk":
+    the plain version; any other tensors take kernel J, either selection,
+    which raises on what it does not take."""
+    if key.windows.device.type == "cpu":
         return level_prelude_plain(spec, key, key_index, templates,
                                    template_index, transform, params,
                                    fraction, model)
@@ -194,10 +209,10 @@ class _PreludeArgs(ctypes.Structure):
             "template_index", "transform", "fraction")]
         + [("fstride", ctypes.c_int), ("fvalue", ctypes.c_float)]
         + [(name, ctypes.c_void_p) for name in (
-            "tmpl", "jac_masked", "hess", "wd")]
+            "tmpl", "jac_masked", "hess", "wd", "mask")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n", "p", "t", "w", "wt", "margin", "cluster",
-            "slice")]
+            "slice", "exact", "k")]
         + [(name, ctypes.c_float) for name in (
             "cx", "cy", "inv_w", "wf", "rel_hi")])
 
@@ -229,22 +244,36 @@ def _fraction_operand(fraction, items: int, dev):
 def level_prelude_kernel(spec, key, key_index, templates, template_index,
                          transform, params, fraction=None,
                          model: str = "similarity", return_wd: bool = False,
-                         plan: LaunchPlan | None = None):
+                         plan: LaunchPlan | None = None,
+                         return_mask: bool = False):
     """``level_prelude_plain``'s function on the CUDA card: one launch of
-    kernel J (``plan``, ``launch_plan``'s if None). Raises on
-    ``params.selection == "topk"``, on any other device, on a dtype, shape
-    or layout the kernel does not take (keyframe fields contiguous,
-    template rows contiguous), and if the launch is refused. Each launch
-    adds one to ``level_prelude_kernel.launches``; B = 0 or N = 0 launches
-    nothing (an empty level's Hessian is 0)."""
-    if params.selection != "mask":
-        raise ValueError(f"kernel J takes the histogram selection, not "
-                         f"{params.selection!r} (its plain version does)")
+    kernel J (``plan``, ``launch_plan``'s if None, its mode the
+    selection's), the histogram mode for ``selection="mask"``, the
+    exact-count mode for ``"topk"`` (``fraction`` is then not read: the
+    count is ``topk_count(N, params.smallest_fraction)``, capped at N).
+    ``return_mask`` (the exact-count mode's debug output) adds the (B, 2,
+    N) 0/1 mask after the warp diffs. Raises on another selection, on any
+    other device, on a dtype, shape or layout the kernel does not take
+    (keyframe fields contiguous, template rows contiguous), on a plan of
+    the other mode, and if the launch is refused. Each launch adds one to
+    ``level_prelude_kernel.launches``; B = 0 or N = 0 launches nothing (an
+    empty level's Hessian is 0)."""
+    if params.selection not in ("mask", "topk"):
+        raise ValueError(f"kernel J takes selection 'mask' or 'topk', not "
+                         f"{params.selection!r}")
+    exact = params.selection == "topk"
+    if return_mask and not exact:
+        raise ValueError("kernel J writes its mask in the exact-count mode "
+                         "only")
     rows = jacobian_rows(model)
     dev = key.windows.device
     keys, p = key.windows.shape[0], key.windows.shape[-1]
     n = spec.ht * spec.wt
     bsz = transform.shape[0]
+    if plan is not None and (plan.items, plan.n, plan.exact) != (
+            bsz, n, exact):
+        raise ValueError(f"kernel J: {plan} does not fit {bsz} items of {n} "
+                         f"keypoints, selection {params.selection!r}")
     if p != spec.tile + 2 * spec.margin:
         raise ValueError(f"kernel J: windows of {p} for tile {spec.tile}, "
                          f"margin {spec.margin}")
@@ -270,25 +299,29 @@ def level_prelude_kernel(spec, key, key_index, templates, template_index,
     tidx = template_index.to(torch.int64).contiguous()
     _want("key_index", kidx, (bsz,), torch.int64, dev)
     _want("template_index", tidx, (bsz,), torch.int64, dev)
-    if fraction is None:
-        fraction = params.smallest_fraction
-    frac, fstride, fvalue = _fraction_operand(fraction, bsz, dev)
+    if exact:
+        frac, fstride, fvalue = None, 0, 0.0
+        k = min(topk_count(n, params.smallest_fraction), n)
+    else:
+        if fraction is None:
+            fraction = params.smallest_fraction
+        frac, fstride, fvalue = _fraction_operand(fraction, bsz, dev)
+        k = 0
     transform = transform.contiguous()
 
-    tmpl = torch.empty((bsz, 2, n), dtype=torch.float32, device=dev)
-    jac_masked = torch.empty((bsz, rows, 2, n), dtype=torch.float32,
-                             device=dev)
-    wd = (torch.empty((bsz, 2, n), dtype=torch.float32, device=dev)
-          if return_wd else None)
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    tmpl, jac_masked = empty(bsz, 2, n), empty(bsz, rows, 2, n)
+    wd = empty(bsz, 2, n) if return_wd else None
+    mask = empty(bsz, 2, n) if return_mask else None
+    debug = tuple(x for x in (wd, mask) if x is not None)
     if bsz == 0 or n == 0:
         hess = torch.zeros((bsz, rows, rows), dtype=torch.float32,
                            device=dev)
-        return (tmpl, jac_masked, hess) + ((wd,) if return_wd else ())
-    hess = torch.empty((bsz, rows, rows), dtype=torch.float32, device=dev)
-    plan = plan or launch_plan(bsz, n)
-    if (plan.items, plan.n) != (bsz, n):
-        raise ValueError(f"kernel J: {plan} does not fit {bsz} items of {n} "
-                         "keypoints")
+        return (tmpl, jac_masked, hess) + debug
+    hess = empty(bsz, rows, rows)
+    plan = plan or launch_plan(bsz, n, exact=exact)
     cx, cy, _, inv_w, wf = kernel_scalars(spec)
     ptr = (lambda x: None if x is None else x.data_ptr())
     args = _PreludeArgs(
@@ -298,28 +331,32 @@ def level_prelude_kernel(spec, key, key_index, templates, template_index,
         templates.stride(0) if frames > 1 else h * w,
         tidx.data_ptr(), transform.data_ptr(), ptr(frac), fstride, fvalue,
         tmpl.data_ptr(), jac_masked.data_ptr(), hess.data_ptr(), ptr(wd),
-        bsz, n, p, spec.tile, w, spec.wt, spec.margin, plan.cluster,
-        plan.slice, cx, cy, inv_w, wf, p - 3.0 - 1e-3)
+        ptr(mask), bsz, n, p, spec.tile, w, spec.wt, spec.margin,
+        plan.cluster, plan.slice, int(exact), k, cx, cy, inv_w, wf,
+        p - 3.0 - 1e-3)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(ctypes.byref(args), int(rows == 8), stream)
     if err != 0:
         raise RuntimeError(f"prelude kernel launch failed ({plan}, {model}, "
                            f"P {p}): CUDA error {err}")
     level_prelude_kernel.launches += 1
-    return (tmpl, jac_masked, hess) + ((wd,) if return_wd else ())
+    return (tmpl, jac_masked, hess) + debug
 
 
-def kernel_attributes(slice_: int):
-    """((registers a thread of the 4x4 form, of the 8x8 form), (CTAs of
-    THREADS threads an SM of each at ``slice_`` keypoints a CTA)), as the
-    card reports them (``cudaFuncGetAttributes``, the occupancy API)."""
-    regs, ctas = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+def kernel_attributes(slice_: int, exact: bool = False):
+    """((registers a thread of the 4x4 form, of the 8x8 form), (their
+    static shared memory bytes), (CTAs of THREADS threads an SM of each at
+    ``slice_`` keypoints a CTA)) of the histogram or the ``exact``-count
+    mode, as the card reports them (``cudaFuncGetAttributes``, the
+    occupancy API)."""
+    regs, smem, ctas = ((ctypes.c_int * 2)() for _ in range(3))
     fn = cuda_build.load("prelude").vs_prelude_attributes
     fn.restype = ctypes.c_int
-    err = fn(ctypes.c_int(slice_), regs, ctas)
+    err = fn(ctypes.c_int(slice_), ctypes.c_int(int(exact)), regs, smem,
+             ctas)
     if err != 0:
         raise RuntimeError(f"kernel J's attributes: CUDA error {err}")
-    return tuple(regs), tuple(ctas)
+    return tuple(regs), tuple(smem), tuple(ctas)
 
 
 @functools.cache

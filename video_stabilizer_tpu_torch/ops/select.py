@@ -52,17 +52,25 @@ def histogram_mask(wd, fraction, bins: int = DEFAULT_BINS):
     return (v <= thresh).to(wd.dtype)
 
 
+def topk_count(n: int, fraction: float) -> int:
+    """The exact-count selection's k for rows of ``n``: ``max(int(n *
+    fraction), 1)`` in Python float64, from the static fraction, as the JAX
+    package forms it (select.py:68). It may exceed ``n`` (every entry is
+    then kept)."""
+    return max(int(n * float(fraction)), 1)
+
+
 def topk_mask(wd, fraction: float):
-    """0/1 float mask of exactly ``max(int(N * fraction), 1)`` smallest
-    values of ``wd`` along its last axis; leading axes are independent rows.
+    """0/1 float mask of exactly ``topk_count(N, fraction)`` smallest
+    values of ``wd`` along its last axis (every value where that exceeds
+    N); leading axes are independent rows.
 
     ``jax.lax.top_k(-wd, k)`` puts equal values in index order, lowest index
     first, and warp diffs tie on flat content; ``torch.topk`` promises no
     order for ties. A stable ascending sort does keep index order among
     equal values, so its first k indices are JAX's set.
     """
-    n = wd.shape[-1]
-    k = max(int(n * float(fraction)), 1)
+    k = topk_count(wd.shape[-1], fraction)
     order = torch.sort(wd, dim=-1, stable=True).indices[..., :k]
     mask = torch.zeros_like(wd)
     return mask.scatter_(-1, order, 1.0)
